@@ -27,7 +27,8 @@
 // device memory; y is stored in bf16 and the pending product P in f32
 // ([T', 128], a quarter of h's width).
 //
-// Structure: one C entry point launches, on the caller's stream,
+// Structure: the C entry point convtasnet_separator launches, on the
+// caller's stream,
 //   encoder_kernel                  enc = frames @ we (bf16), P = enc @ wsg0,
 //                                   stats of enc
 //   per block: block_p1_kernel      y += pending update; h = PReLU(y@W1+b1);
@@ -42,34 +43,22 @@
 // atomics, so a run repeats bit for bit.  The products use bf16 WMMA
 // fragments (16x16x16, f32 accumulate) on tiles staged in shared memory;
 // wgmma and TMA are left for later.
+//
+// The same block body also serves the TCN chain of training (entry
+// tcn_separator), which replaces the TPU kernel entered through
+// ops/pallas/convtasnet_block.py::fused_tcn_separator(save_state=True): x
+// [B, T', 128] -> y, plus each block's input y_b in y_hist and each
+// block's gLN statistics, which the backward (convtasnet_backward.cu)
+// recomputes from.  There P1 reads y_{b-1} from one y_hist slot and
+// writes y_b to the next, and tile 0 of each kernel records the statistics
+// it has just finished.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "convtasnet_common.cuh"
 
 namespace {
 
-constexpr int TILE = 64;       // frames per thread block
-constexpr int C = 128;         // bottleneck channels
-constexpr int WIN = 16;        // filter length
-constexpr int CH = 128;        // hidden channels per chunk
-constexpr int THREADS = 256;   // 8 warps
-constexpr int LDA = CH + 8;    // bf16 row stride of staged operand tiles
-constexpr int LDC = CH + 4;    // f32 row stride of staged products
 constexpr int LDWD = WIN + 8;  // bf16 row stride of a decoder chunk
 constexpr int LDD = WIN + 4;   // f32 row stride of the decoder product
-constexpr float EPS = 1e-8f;
-
-// vecs rows (f32 [8, H] per block)
-constexpr int V_B1 = 0, V_DWB = 1, V_G1 = 2, V_BT1 = 3, V_DW0 = 4, V_DW1 = 5, V_DW2 = 6;
-
-constexpr int A_BYTES = TILE * LDA * 2;     // [TILE][LDA] bf16
-constexpr int B_BYTES = CH * LDA * 2;       // [128][LDA] bf16
-constexpr int C_BYTES = TILE * LDC * 4;     // [TILE][LDC] f32
 constexpr int WD_BYTES = CH * LDWD * 2;     // [128][LDWD] bf16
 constexpr int D_BYTES = TILE * LDD * 4;     // [TILE][LDD] f32
 
@@ -78,139 +67,37 @@ constexpr int SMEM_P1 = A_BYTES + B_BYTES + C_BYTES;
 constexpr int SMEM_P2 = A_BYTES + B_BYTES;
 constexpr int SMEM_HEAD = 2 * A_BYTES + B_BYTES + C_BYTES + WD_BYTES + D_BYTES;
 
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-
-__device__ __forceinline__ float prelu(float x, float a) { return x >= 0.f ? x : a * x; }
-
-__device__ __forceinline__ uint2 pack4(float a, float b, float c, float d) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&lo);
-  u.y = *reinterpret_cast<uint32_t*>(&hi);
-  return u;
-}
-
-__device__ __forceinline__ float4 unpack4(uint2 u) {
-  float2 a = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u.x));
-  float2 b = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Sum (s, q) over the block in a fixed order; thread 0 writes out[0..1].
-__device__ void block_sum2_store(float s, float q, float* out) {
-  __shared__ float red[2][THREADS / 32];
-  s = warp_sum(s);
-  q = warp_sum(q);
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) {
-    red[0][w] = s;
-    red[1][w] = q;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float ts = 0.f, tq = 0.f;
-    for (int i = 0; i < THREADS / 32; ++i) {
-      ts += red[0][i];
-      tq += red[1][i];
-    }
-    out[0] = ts;
-    out[1] = tq;
-  }
-}
-
-// Mean and 1/std of one sample from its n_tiles (sum, sumsq) partials,
-// summed in a fixed order; E[x^2] - mean^2 clamped at 0, plus eps.
-__device__ void finish_stats(const float* part, int n_tiles, float inv_count, float* ms) {
-  if (threadIdx.x < 32) {
-    float s = 0.f, q = 0.f;
-    for (int i = threadIdx.x; i < n_tiles; i += 32) {
-      s += part[2 * i];
-      q += part[2 * i + 1];
-    }
-    s = warp_sum(s);
-    q = warp_sum(q);
-    if (threadIdx.x == 0) {
-      const float mean = s * inv_count;
-      const float var = fmaxf(q * inv_count - mean * mean, 0.f);
-      ms[0] = mean;
-      ms[1] = 1.f / sqrtf(var + EPS);
-    }
-  }
-  __syncthreads();
-}
-
-// dst[r][c] = src[r * lds + c] for a rows x cols bf16 tile; cols % 8 == 0
-// and both sides 16-byte aligned.
-__device__ __forceinline__ void load_tile(bf16* dst, int ldd, const bf16* src, int lds,
-                                          int rows, int cols) {
-  const int vpr = cols / 8;
-  for (int i = threadIdx.x; i < rows * vpr; i += THREADS) {
-    const int r = i / vpr, c = (i - r * vpr) * 8;
-    *reinterpret_cast<uint4*>(dst + r * ldd + c) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * lds + c);
-  }
-}
-
-__device__ __forceinline__ void zero_acc(Acc* acc) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
-}
-
-// acc += A[TILE][K] @ B[K][128], both staged with row stride LDA.  Warp w
-// owns rows 16*(w&3) .. +16 and columns 64*(w>>2) .. +64 (four fragments).
-__device__ __forceinline__ void mma_tile(Acc* acc, const bf16* A, const bf16* B, int K) {
-  const int w = threadIdx.x >> 5;
-  const bf16* a_base = A + (w & 3) * 16 * LDA;
-  const bf16* b_base = B + (w >> 2) * 64;
-  for (int k = 0; k < K; k += 16) {
-    FragA a;
-    wmma::load_matrix_sync(a, a_base + k, LDA);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      FragB b;
-      wmma::load_matrix_sync(b, b_base + k * LDA + 16 * j, LDA);
-      wmma::mma_sync(acc[j], a, b, acc[j]);
-    }
-  }
-}
-
-// The [TILE][128] product of mma_tile into dst (f32, row stride ld).
-__device__ __forceinline__ void store_acc(const Acc* acc, float* dst, int ld) {
-  const int w = threadIdx.x >> 5;
-  float* base = dst + (w & 3) * 16 * ld + (w >> 2) * 64;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::store_matrix_sync(base + 16 * j, acc[j], ld, wmma::mem_row_major);
-}
+// How block_p1_kernel forms a block's input y from the previous one.
+constexpr int UPD_ADD = 0;    // y_old + r2 * P + shift (a TCN block's residual)
+constexpr int UPD_FIRST = 1;  // r2 * P + shift (the bottleneck's output is the first y)
+constexpr int UPD_COPY = 2;   // y_old as it is (the chain's input x)
 
 // y = y_old + r2 * P + (c0 - mean2 * r2 * c1) for the tile's rows, rounded
-// to bf16, into sA (and into y when y_out is set); rows >= T are zero.
-// ``first``: there is no y_old yet (the bottleneck's output is the first y).
+// to bf16, into sA (and into y_out when it is set); rows >= T are zero.
+// ``mode`` is UPD_ADD, UPD_FIRST (no y_old) or UPD_COPY (y = y_old; P, cs
+// and the statistics are not read).
 __device__ __forceinline__ void pending_update(const bf16* y_old, bf16* y_out, const float* P,
-                                               const float* cs, float mean2, float r2, int first,
+                                               const float* cs, float mean2, float r2, int mode,
                                                int t0, int T, bf16* sA) {
   const int cg = threadIdx.x & 31, rg = threadIdx.x >> 5;
-  float sh[4];
+  float sh[4] = {0.f, 0.f, 0.f, 0.f};
+  if (mode != UPD_COPY) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k) sh[k] = cs[4 * cg + k] - mean2 * r2 * cs[C + 4 * cg + k];
+    for (int k = 0; k < 4; ++k) sh[k] = cs[4 * cg + k] - mean2 * r2 * cs[C + 4 * cg + k];
+  }
   for (int i = 0; i < TILE / 8; ++i) {
     const int r = rg + 8 * i, t = t0 + r;
     const size_t off = (size_t)r * C + 4 * cg;
     float4 yv = make_float4(0.f, 0.f, 0.f, 0.f);
     if (t < T) {
-      const float4 pv = *reinterpret_cast<const float4*>(P + off);
-      if (!first) yv = unpack4(*reinterpret_cast<const uint2*>(y_old + off));
-      yv.x = yv.x + r2 * pv.x + sh[0];
-      yv.y = yv.y + r2 * pv.y + sh[1];
-      yv.z = yv.z + r2 * pv.z + sh[2];
-      yv.w = yv.w + r2 * pv.w + sh[3];
+      if (mode != UPD_FIRST) yv = unpack4(*reinterpret_cast<const uint2*>(y_old + off));
+      if (mode != UPD_COPY) {
+        const float4 pv = *reinterpret_cast<const float4*>(P + off);
+        yv.x = yv.x + r2 * pv.x + sh[0];
+        yv.y = yv.y + r2 * pv.y + sh[1];
+        yv.z = yv.z + r2 * pv.z + sh[2];
+        yv.w = yv.w + r2 * pv.w + sh[3];
+      }
     }
     const uint2 u = pack4(yv.x, yv.y, yv.z, yv.w);
     *reinterpret_cast<uint2*>(sA + r * LDA + 4 * cg) = u;
@@ -268,14 +155,20 @@ encoder_kernel(const bf16* __restrict__ frames, const bf16* __restrict__ we,
   block_sum2_store(s, q, part + ((size_t)b * n_tiles + tile) * 2);
 }
 
-// Pending residual update of the previous block, then h = PReLU(y@W1 + b1)
-// (f32, stored; rows >= T zero) and the per-tile statistics of h.
+// Pending residual update of the previous block (``mode``), then
+// h = PReLU(y@W1 + b1) (f32, stored; rows >= T zero) and the per-tile
+// statistics of h.  The block's input y is read from y_in and written to
+// y_out (the same buffer in the separator; successive y_hist slots in the
+// TCN chain), each with its own per-sample stride.  When ``st_prev`` is
+// set, tile 0 writes the previous block's (mean2, rstd2) there (per-sample
+// stride st_bs).
 __global__ void __launch_bounds__(THREADS)
-block_p1_kernel(bf16* __restrict__ y, const float* __restrict__ P, const float* __restrict__ part_in,
+block_p1_kernel(const bf16* y_in, size_t y_in_bs, bf16* y_out, size_t y_out_bs,
+                const float* __restrict__ P, const float* __restrict__ part_in,
                 float* __restrict__ part_out, const float* __restrict__ cs_prev,
                 const bf16* __restrict__ w1, const float* __restrict__ vec,
-                const float* __restrict__ alpha, float* __restrict__ h, int first, int T, int Tpad,
-                int H, int n_tiles) {
+                const float* __restrict__ alpha, float* __restrict__ h, float* __restrict__ st_prev,
+                int st_bs, int mode, int T, int Tpad, int H, int n_tiles) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float ms[2];
   bf16* sA = reinterpret_cast<bf16*>(smem);
@@ -285,10 +178,16 @@ block_p1_kernel(bf16* __restrict__ y, const float* __restrict__ P, const float* 
   const int cg = threadIdx.x & 31, rg = threadIdx.x >> 5;
   const float inv_count = 1.f / ((float)T * (float)H);
 
-  finish_stats(part_in + (size_t)b * n_tiles * 2, n_tiles, inv_count, ms);
+  if (mode != UPD_COPY) {
+    finish_stats(part_in + (size_t)b * n_tiles * 2, n_tiles, inv_count, ms);
+    if (st_prev && tile == 0 && threadIdx.x == 0) {
+      st_prev[(size_t)b * st_bs] = ms[0];
+      st_prev[(size_t)b * st_bs + 1] = ms[1];
+    }
+  }
   const size_t row0 = (size_t)b * Tpad + t0;
-  bf16* y_t = y + row0 * C;
-  pending_update(y_t, y_t, P + row0 * C, cs_prev, ms[0], ms[1], first, t0, T, sA);
+  pending_update(y_in + b * y_in_bs + (size_t)t0 * C, y_out + b * y_out_bs + (size_t)t0 * C,
+                 P + row0 * C, cs_prev, ms[0], ms[1], mode, t0, T, sA);
 
   const float a1 = alpha[0];
   float* h_t = h + row0 * H;
@@ -323,12 +222,14 @@ block_p1_kernel(bf16* __restrict__ y, const float* __restrict__ P, const float* 
 }
 
 // u = dwb + sum_k dw_k * gLN1(h)[t + (k-1)d] (zero outside [0, T)),
-// v = PReLU(u), statistics of v, P = bf16(v) @ wsg (f32).
+// v = PReLU(u), statistics of v, P = bf16(v) @ wsg (f32).  When ``st_cur``
+// is set, tile 0 writes this block's (mean1, rstd1) there.
 __global__ void __launch_bounds__(THREADS)
 block_p2_kernel(const float* __restrict__ h, const float* __restrict__ part_in,
                 float* __restrict__ part_out, const float* __restrict__ vec,
                 const float* __restrict__ alpha, const bf16* __restrict__ wsg,
-                float* __restrict__ P, int d, int T, int Tpad, int H, int n_tiles) {
+                float* __restrict__ P, float* __restrict__ st_cur, int st_bs, int d, int T,
+                int Tpad, int H, int n_tiles) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float ms[2];
   bf16* sA = reinterpret_cast<bf16*>(smem);
@@ -339,6 +240,10 @@ block_p2_kernel(const float* __restrict__ h, const float* __restrict__ part_in,
 
   finish_stats(part_in + (size_t)b * n_tiles * 2, n_tiles, inv_count, ms);
   const float mean1 = ms[0], r1 = ms[1];
+  if (st_cur && tile == 0 && threadIdx.x == 0) {
+    st_cur[(size_t)b * st_bs] = mean1;
+    st_cur[(size_t)b * st_bs + 1] = r1;
+  }
   const float a2 = alpha[1];
   const float* h_b = h + (size_t)b * Tpad * H;
   Acc acc[4];
@@ -405,7 +310,7 @@ head_kernel(const bf16* __restrict__ y, const float* __restrict__ P,
             const float* __restrict__ part_in, const float* __restrict__ cs_prev,
             const bf16* __restrict__ wm, const float* __restrict__ bm,
             const bf16* __restrict__ enc, const bf16* __restrict__ wd, bf16* __restrict__ out,
-            int nspk, int sigmoid, int first, int T, int Tpad, int H, int n_tiles) {
+            int nspk, int sigmoid, int mode, int T, int Tpad, int H, int n_tiles) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float ms[2];
   bf16* sA = reinterpret_cast<bf16*>(smem);
@@ -420,7 +325,7 @@ head_kernel(const bf16* __restrict__ y, const float* __restrict__ P,
 
   finish_stats(part_in + (size_t)b * n_tiles * 2, n_tiles, inv_count, ms);
   const size_t row0 = (size_t)b * Tpad + t0;
-  pending_update(y + row0 * C, nullptr, P + row0 * C, cs_prev, ms[0], ms[1], first, t0, T, sA);
+  pending_update(y + row0 * C, nullptr, P + row0 * C, cs_prev, ms[0], ms[1], mode, t0, T, sA);
   const bf16* enc_t = enc + row0 * H;
 
   for (int k = 0; k < nspk; ++k) {
@@ -475,13 +380,40 @@ head_kernel(const bf16* __restrict__ y, const float* __restrict__ P,
   }
 }
 
-}  // namespace
+// The TCN chain's last pending update: out[t] = y_last[t] + r2 * P[t] +
+// (c0 - mean2 * r2 * c1) in bf16 for t < T (out is [B, T, 128]); tile 0
+// writes the last block's (mean2, rstd2) to st_prev.
+__global__ void __launch_bounds__(THREADS)
+tcn_epilogue_kernel(const bf16* __restrict__ y_in, size_t y_in_bs, bf16* __restrict__ out,
+                    const float* __restrict__ P, const float* __restrict__ part_in,
+                    const float* __restrict__ cs_prev, float* __restrict__ st_prev, int st_bs,
+                    int T, int Tpad, int H, int n_tiles) {
+  __shared__ float ms[2];
+  const int tile = blockIdx.x, b = blockIdx.y, t0 = tile * TILE;
+  const int cg = threadIdx.x & 31, rg = threadIdx.x >> 5;
+  finish_stats(part_in + (size_t)b * n_tiles * 2, n_tiles, 1.f / ((float)T * (float)H), ms);
+  const float mean2 = ms[0], r2 = ms[1];
+  if (tile == 0 && threadIdx.x == 0) {
+    st_prev[(size_t)b * st_bs] = mean2;
+    st_prev[(size_t)b * st_bs + 1] = r2;
+  }
+  float sh[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) sh[k] = cs_prev[4 * cg + k] - mean2 * r2 * cs_prev[C + 4 * cg + k];
+  for (int i = 0; i < TILE / 8; ++i) {
+    const int t = t0 + rg + 8 * i;
+    if (t >= T) break;
+    const float4 pv = *reinterpret_cast<const float4*>(P + ((size_t)b * Tpad + t) * C + 4 * cg);
+    float4 yv = unpack4(*reinterpret_cast<const uint2*>(y_in + b * y_in_bs + (size_t)t * C + 4 * cg));
+    yv.x = yv.x + r2 * pv.x + sh[0];
+    yv.y = yv.y + r2 * pv.y + sh[1];
+    yv.z = yv.z + r2 * pv.z + sh[2];
+    yv.w = yv.w + r2 * pv.w + sh[3];
+    *reinterpret_cast<uint2*>(out + ((size_t)b * T + t) * C + 4 * cg) = pack4(yv.x, yv.y, yv.z, yv.w);
+  }
+}
 
-#define RETURN_IF_ERROR(expr)              \
-  do {                                     \
-    cudaError_t err_ = (expr);             \
-    if (err_ != cudaSuccess) return (int)err_; \
-  } while (0)
+}  // namespace
 
 extern "C" const char* convtasnet_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
@@ -526,20 +458,78 @@ extern "C" int convtasnet_separator(const void* frames, const void* we, const vo
       static_cast<const bf16*>(frames), static_cast<const bf16*>(we), wsgs_,
       static_cast<bf16*>(enc), p_, part2_, T, Tpad, H, n_tiles);
   RETURN_IF_ERROR(cudaGetLastError());
+  const size_t ybs = (size_t)Tpad * C;
   for (int blk = 1; blk <= nb; ++blk) {
     block_p1_kernel<<<grid, THREADS, SMEM_P1, stream>>>(
-        y_, p_, part2_, part1_, cs_ + (size_t)(blk - 1) * 2 * C, w1s_ + (size_t)blk * C * H,
-        vecs_ + (size_t)blk * 8 * H, alphas_ + 2 * blk, h_, blk == 1, T, Tpad, H, n_tiles);
+        y_, ybs, y_, ybs, p_, part2_, part1_, cs_ + (size_t)(blk - 1) * 2 * C,
+        w1s_ + (size_t)blk * C * H, vecs_ + (size_t)blk * 8 * H, alphas_ + 2 * blk, h_, nullptr,
+        0, blk == 1 ? UPD_FIRST : UPD_ADD, T, Tpad, H, n_tiles);
     RETURN_IF_ERROR(cudaGetLastError());
     block_p2_kernel<<<grid, THREADS, SMEM_P2, stream>>>(
         h_, part1_, part2_, vecs_ + (size_t)blk * 8 * H, alphas_ + 2 * blk,
-        wsgs_ + (size_t)blk * H * C, p_, dils[blk - 1], T, Tpad, H, n_tiles);
+        wsgs_ + (size_t)blk * H * C, p_, nullptr, 0, dils[blk - 1], T, Tpad, H, n_tiles);
     RETURN_IF_ERROR(cudaGetLastError());
   }
   head_kernel<<<grid, THREADS, SMEM_HEAD, stream>>>(
       y_, p_, part2_, cs_ + (size_t)nb * 2 * C, static_cast<const bf16*>(wm),
       static_cast<const float*>(bm), static_cast<const bf16*>(enc), static_cast<const bf16*>(wd),
-      static_cast<bf16*>(out), nspk, sigmoid, nb == 0, T, Tpad, H, n_tiles);
+      static_cast<bf16*>(out), nspk, sigmoid, nb == 0 ? UPD_FIRST : UPD_ADD, T, Tpad, H,
+      n_tiles);
+  RETURN_IF_ERROR(cudaGetLastError());
+  return 0;
+}
+
+// The TCN chain alone (the forward of training) on ``stream``: per block
+// block_p1_kernel + block_p2_kernel, then tcn_epilogue_kernel = 2*nb + 1
+// launches.  x [B, T, 128] bf16 -> y [B, T, 128] bf16, and the state the
+// backward needs: y_hist [B, nb, Tpad, 128] bf16, each block's input
+// (y_hist[:, 0] = x; rows >= T zero), and stats [B, nb, 4] f32, each
+// block's (mean1, rstd1, mean2, rstd2).  Block b's P1 reads y_hist[:, b-1]
+// and writes y_hist[:, b], so the history is the chain's only y buffer.
+// Scratch: h [B, Tpad, H] f32, p [B, Tpad, 128] f32, part1/part2
+// [B, n_tiles, 2] f32.  nb >= 1.  Returns a cudaError_t.
+extern "C" int tcn_separator(const void* x, const void* w1s, const void* wsgs, const void* vecs,
+                             const void* cs, const void* alphas, void* y, void* y_hist,
+                             void* stats, void* h, void* p, void* part1, void* part2, int B,
+                             int T, int H, int nb, const int* dils, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int n_tiles = (T + TILE - 1) / TILE, Tpad = n_tiles * TILE;
+  RETURN_IF_ERROR(cudaFuncSetAttribute(block_p1_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_P1));
+  RETURN_IF_ERROR(cudaFuncSetAttribute(block_p2_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_P2));
+  const bf16* w1s_ = static_cast<const bf16*>(w1s);
+  const bf16* wsgs_ = static_cast<const bf16*>(wsgs);
+  const float* vecs_ = static_cast<const float*>(vecs);
+  const float* cs_ = static_cast<const float*>(cs);
+  const float* alphas_ = static_cast<const float*>(alphas);
+  bf16* yh = static_cast<bf16*>(y_hist);
+  float* st = static_cast<float*>(stats);
+  float* h_ = static_cast<float*>(h);
+  float* p_ = static_cast<float*>(p);
+  float* part1_ = static_cast<float*>(part1);
+  float* part2_ = static_cast<float*>(part2);
+  const dim3 grid(n_tiles, B);
+  const size_t slot = (size_t)Tpad * C, hbs = (size_t)nb * slot;
+  const int st_bs = 4 * nb;
+
+  for (int blk = 0; blk < nb; ++blk) {
+    const bf16* y_in = blk == 0 ? static_cast<const bf16*>(x) : yh + (blk - 1) * slot;
+    block_p1_kernel<<<grid, THREADS, SMEM_P1, stream>>>(
+        y_in, blk == 0 ? (size_t)T * C : hbs, yh + blk * slot, hbs, p_, part2_, part1_,
+        cs_ + (size_t)(blk > 0 ? blk - 1 : 0) * 2 * C, w1s_ + (size_t)blk * C * H,
+        vecs_ + (size_t)blk * 8 * H, alphas_ + 2 * blk, h_,
+        blk > 0 ? st + 4 * (blk - 1) + 2 : nullptr, st_bs, blk == 0 ? UPD_COPY : UPD_ADD, T,
+        Tpad, H, n_tiles);
+    RETURN_IF_ERROR(cudaGetLastError());
+    block_p2_kernel<<<grid, THREADS, SMEM_P2, stream>>>(
+        h_, part1_, part2_, vecs_ + (size_t)blk * 8 * H, alphas_ + 2 * blk,
+        wsgs_ + (size_t)blk * H * C, p_, st + 4 * blk, st_bs, dils[blk], T, Tpad, H, n_tiles);
+    RETURN_IF_ERROR(cudaGetLastError());
+  }
+  tcn_epilogue_kernel<<<grid, THREADS, 0, stream>>>(
+      yh + (nb - 1) * slot, hbs, static_cast<bf16*>(y), p_, part2_, cs_ + (size_t)(nb - 1) * 2 * C,
+      st + 4 * (nb - 1) + 2, st_bs, T, Tpad, H, n_tiles);
   RETURN_IF_ERROR(cudaGetLastError());
   return 0;
 }

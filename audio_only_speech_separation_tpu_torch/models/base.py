@@ -48,11 +48,15 @@ class BaseModel(nn.Module):
         return {k: getattr(self, k) for k in _arg_names(type(self))}
 
 
-def serialize(model: BaseModel) -> Dict[str, Any]:
-    """Portable checkpoint dict (reference base_model.py:71-86)."""
+def serialize(model: BaseModel, state_dict=None) -> Dict[str, Any]:
+    """Portable checkpoint dict (reference base_model.py:71-86) of ``model``,
+    or of ``model``'s config with the weights ``state_dict`` (name -> numpy
+    array or tensor) when given."""
+    state = model.state_dict() if state_dict is None else state_dict
     return {
         "model_name": type(model).__name__,
-        "state_dict": {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()},
+        "state_dict": {k: np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor) else v)
+                       for k, v in state.items()},
         "model_args": model.model_args(),
         "infos": {
             "software_versions": {

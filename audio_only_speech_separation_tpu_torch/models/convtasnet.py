@@ -8,7 +8,10 @@ crop is ``[win - pad_stride : -(rest + win - pad_stride)]``.
 
 ``fused_inference_forward`` is the serving path: plain framing and
 overlap-add around the whole separator in one CUDA kernel sequence
-(``ops/kernels/convtasnet_block.py``).
+(``ops/kernels/convtasnet_block.py``).  ``make_kernel_train_apply`` is the
+bf16 training forward: plain encoder, bottleneck, mask and decoder ops
+around the TCN chain's forward and backward kernels
+(``ops/kernels/convtasnet_backward.py``).
 """
 
 from __future__ import annotations
@@ -20,9 +23,12 @@ from torch import nn
 
 from ..ops.activations import PReLU
 from ..ops.conv import ConvDecoder, ConvEncoder, frame_signal, overlap_add
+from ..ops.kernels.convtasnet_backward import tcn_chain
 from ..ops.kernels.convtasnet_block import (
+    _dot,
     fused_convtasnet_separator,
     pack_convtasnet_full_params,
+    pack_convtasnet_full_params_differentiable,
 )
 from ..ops.norms import CumulativeLayerNorm, GlobalLayerNorm
 from . import register_model
@@ -164,6 +170,18 @@ def _fused_shape_ok(model: ConvTasNet) -> bool:
     )
 
 
+def _require_fused_shape(model: ConvTasNet) -> None:
+    if model.activate not in ("relu", "sigmoid"):
+        raise ValueError(f"mask activation {model.activate!r} is outside the fused kernels' "
+                         "envelope (relu or sigmoid)")
+    if not _fused_shape_ok(model):
+        raise ValueError(
+            "config is outside the fused kernels' envelope "
+            "(needs N == H, H % 128 == 0, B == 128, L == 16, P == 3, "
+            "non-causal gLN, relu|sigmoid mask)"
+        )
+
+
 def fused_forward_eligible(model: ConvTasNet, device: torch.device | str) -> bool:
     """Whether the whole-separator CUDA kernel serves this config on ``device``."""
     return torch.device(device).type == "cuda" and _fused_shape_ok(model)
@@ -191,12 +209,7 @@ def fused_inference_forward(model: ConvTasNet, wav: torch.Tensor, packed=None,
     ``fused_convtasnet_separator`` (same arguments); passing
     ``convtasnet_separator_reference`` runs this path without the kernel on
     any device, which is what the kernel is checked against."""
-    if not _fused_shape_ok(model):
-        raise ValueError(
-            "config is outside the fused separator's envelope "
-            "(needs N == H, H % 128 == 0, B == 128, L == 16, P == 3, "
-            "non-causal gLN, relu|sigmoid mask)"
-        )
+    _require_fused_shape(model)
     if packed is None:
         packed = pack_convtasnet_full_params(
             model.state_dict(), model.R, model.X, model.num_spks, device=wav.device
@@ -214,3 +227,56 @@ def fused_inference_forward(model: ConvTasNet, wav: torch.Tensor, packed=None,
     s = overlap_add(dec.reshape(Bsz * model.num_spks, times, win), fb_stride)
     s = s[:, win - pad_stride : s.shape[-1] - (rest + win - pad_stride)]
     return restore_output(s.reshape(Bsz, model.num_spks, -1), was_one_d)
+
+
+def make_kernel_train_apply(model: ConvTasNet, chain=tcn_chain):
+    """bf16 training forward through the TCN chain's kernels (counterpart of
+    the JAX package's ``make_kernel_train_apply``).
+
+    Returns ``apply_fn(params, wav) -> [B, nspk, T] bf16``, where ``params``
+    is ``{state_dict name: tensor}`` (the trainer passes bf16 casts of the
+    f32 master parameters) and ``wav`` is bf16.  The weights are packed per
+    call by differentiable f32 folds; the encoder, the bottleneck gLN + 1x1
+    (delayed form), the mask head and the decoder are plain ops with bf16
+    operands and f32 products; the R*X blocks run as ``chain``, by default
+    ``tcn_chain`` (forward and backward kernels on CUDA tensors, their
+    plain versions on CPU tensors).  ``chain=tcn_chain_reference`` runs the
+    plain chain under autograd, which is what the kernels are checked
+    against.
+
+    Raises for a config outside the kernels' envelope (an activation other
+    than relu or sigmoid, causal or cLN configs, ...): use the module
+    there."""
+    _require_fused_shape(model)
+    nspk = model.num_spks
+    bf = torch.bfloat16
+
+    def apply_fn(params, wav):
+        we, w1s, wsgs, vecs, cs, alphas, wm, bm, wd, dils = (
+            pack_convtasnet_full_params_differentiable(params, model.R, model.X, nspk))
+        x, was_one_d = normalize_input(wav)
+        Bsz, T = x.shape
+        win, pad_stride, fb_stride, rest = _pads(model, T)
+        frames = frame_signal(_pad_wave(x.to(bf), win, pad_stride, rest), win, fb_stride)
+        times = frames.shape[1]
+        enc = _dot(frames, we).to(bf)  # [B, T', N]
+
+        # bottleneck gLN + 1x1, delayed form: rstd * (enc @ g*W) + shift
+        ef = enc.float()
+        mean = ef.mean(dim=(1, 2), keepdim=True)
+        var = torch.clamp(ef.square().mean(dim=(1, 2), keepdim=True) - mean * mean, min=0.0)
+        rstd = torch.rsqrt(var + 1e-8)
+        y0 = (rstd * _dot(enc, wsgs[0]) + (cs[0, 0] - mean * rstd * cs[0, 1])).to(bf)
+
+        y = chain(y0.contiguous(), w1s[1:], wsgs[1:], vecs[1:], cs[1:], alphas[1:], dils)
+
+        m = _dot(y, wm) + bm[0]
+        m = torch.relu(m) if model.activate == "relu" else torch.sigmoid(m)
+        dsrc = m.to(bf).reshape(Bsz, times, nspk, model.N) * enc[:, :, None, :]
+        dsrc = dsrc.transpose(1, 2).reshape(Bsz * nspk, times, model.N)
+        dec = _dot(dsrc, wd).to(bf)
+        s = overlap_add(dec, fb_stride)
+        s = s[:, win - pad_stride : s.shape[-1] - (rest + win - pad_stride)]
+        return restore_output(s.reshape(Bsz, nspk, -1), was_one_d)
+
+    return apply_fn

@@ -1,5 +1,6 @@
-"""Whole-separator ConvTasNet forward: CUDA kernel wrapper, its plain
-version, and the host weight packers (counterpart of
+"""ConvTasNet forward kernels: the whole separator (K1) and the TCN chain
+of training (K2), their CUDA wrappers and plain versions, and the weight
+packers (counterpart of
 ``audio_only_speech_separation_tpu/ops/pallas/convtasnet_block.py``).
 
 Per sample, the separator computes (``csrc/convtasnet_separator.cu``):
@@ -18,11 +19,17 @@ Per sample, the separator computes (``csrc/convtasnet_separator.cu``):
 Dtype policy: bf16 matmul operands with f32 accumulation, f32 elementwise
 chain and statistics (variance clamped at 0, eps 1e-8), y rounded to bf16
 after each block.
+
+The TCN chain alone (step 3 on [B, T', 128] bf16, ``fused_tcn_separator``)
+is the forward of training; with ``save_state`` it also returns each
+block's input (``y_hist``) and gLN statistics for the backward
+(``convtasnet_backward.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -33,6 +40,7 @@ _B1, _DWB, _G1, _BT1, _DW0, _DW1, _DW2 = range(7)
 _EPS = 1e-8
 _C = 128  # bottleneck channels the kernel takes
 _WIN = 16  # filter length the kernel takes
+_TILE = 64  # frames per thread block, as in csrc/convtasnet_common.cuh
 
 
 def _np(a, dtype=np.float64) -> np.ndarray:
@@ -116,6 +124,56 @@ def pack_convtasnet_full_params(state_dict, R: int, X: int, num_spks: int, devic
     return we, w1s, wsgs, vecs, cs, alphas, wm, bm, wd, dils
 
 
+def pack_convtasnet_full_params_differentiable(params, R: int, X: int, num_spks: int):
+    """``pack_convtasnet_full_params`` as differentiable torch ops, for
+    training (counterpart of the JAX package's
+    ``pack_convtasnet_full_params_jnp``): the folds run in f32 from
+    ``params`` (``{state_dict name: tensor}``, any float dtype, e.g. the
+    bf16 casts of a module's parameters), so autograd carries gradients of
+    the packed layout back to them.  Same return layout, on the params'
+    device."""
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def p(name):
+        return params[name].to(f32)
+
+    w1s, wsgs, vecs, cs, alphas, dils = [], [], [], [], [], []
+    for r in range(R):
+        for i in range(X):
+            pre = f"separation.sep.{r}.tcn.{i}"
+            w1s.append(p(f"{pre}.conv1x1.weight")[:, :, 0].t())  # [C, H]
+            ws = p(f"{pre}.sconv.weight")[:, :, 0].t()  # [H, C]
+            g2, b2 = p(f"{pre}.norm2.weight"), p(f"{pre}.norm2.bias")
+            wsgs.append(ws * g2[:, None])
+            cs.append(torch.stack([b2 @ ws + p(f"{pre}.sconv.bias"), g2 @ ws]))
+            dw = p(f"{pre}.dwconv.weight")  # [H, 1, 3]
+            # rows in _B1/_DWB/_G1/_BT1/_DW0/_DW1/_DW2 order; row 7 is padding
+            vecs.append(torch.stack([
+                p(f"{pre}.conv1x1.bias"), p(f"{pre}.dwconv.bias"),
+                p(f"{pre}.norm1.weight"), p(f"{pre}.norm1.bias"),
+                dw[:, 0, 0], dw[:, 0, 1], dw[:, 0, 2], torch.zeros_like(dw[:, 0, 0]),
+            ]))
+            alphas.append(torch.cat([p(f"{pre}.prelu1.weight"), p(f"{pre}.prelu2.weight")]))
+            dils.append(2**i)
+
+    g, bt = p("bottleneck.0.weight"), p("bottleneck.0.bias")
+    wbn = p("bottleneck.1.weight")[:, :, 0].t()  # [N, C]
+    C, H = w1s[0].shape
+    zeros = functools.partial(torch.zeros, dtype=f32, device=wbn.device)
+    w1s = torch.cat([zeros((1, C, H)), torch.stack(w1s)]).to(bf)
+    wsgs = torch.cat([(wbn * g[:, None])[None], torch.stack(wsgs)]).to(bf)
+    vecs = torch.cat([zeros((1, 8, H)), torch.stack(vecs)])
+    cs = torch.cat([torch.stack([bt @ wbn + p("bottleneck.1.bias"), g @ wbn])[None], torch.stack(cs)])
+    alphas = torch.cat([zeros((1, 2)), torch.stack(alphas)])
+    we = p("encoder._filters")[:, 0, :].t().to(bf)  # [win, N]
+    wm = p("mask.weight")[:, :, 0].t().to(bf)  # [C, nspk*N]
+    bm = p("mask.bias")[None, :]
+    wd = p("decoder._filters")[:, 0, :].to(bf)  # [N, win]
+    if wm.shape != (C, num_spks * wbn.shape[0]):
+        raise ValueError(f"mask weight {tuple(wm.shape)} does not match {num_spks} speakers")
+    return we, w1s, wsgs, vecs, cs, alphas, wm, bm, wd, tuple(dils)
+
+
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
@@ -137,30 +195,59 @@ def _stats(x: torch.Tensor):
     return mean, torch.rsqrt(var + _EPS)
 
 
+def _block_reference(y, w1, wsg, vec, c, alpha, d: int):
+    """One TCN block on bf16 y [B, T, C]: (next y in bf16, the block's
+    (mean1, rstd1, mean2, rstd2), each [B, 1, 1] f32)."""
+    T = y.shape[1]
+    h = _prelu(_dot(y, w1) + vec[_B1], alpha[0])  # f32
+    mu1, r1 = _stats(h)
+    sc1 = vec[_G1] * r1
+    hn = h * sc1 + (vec[_BT1] - mu1 * sc1)
+    down = torch.nn.functional.pad(hn, (0, 0, d, 0))[:, :T]  # hn[t-d]
+    up = torch.nn.functional.pad(hn, (0, 0, 0, d))[:, d:]  # hn[t+d]
+    u = vec[_DWB] + vec[_DW0] * down + vec[_DW1] * hn + vec[_DW2] * up
+    v = _prelu(u, alpha[1])
+    mu2, r2 = _stats(v)
+    p = _dot(v.to(torch.bfloat16), wsg)
+    y = (y.float() + r2 * p + (c[0] - mu2 * r2 * c[1])).to(torch.bfloat16)
+    return y, (mu1, r1, mu2, r2)
+
+
 def tcn_chain_reference(x, w1s, wsgs, vecs, cs, alphas, dilations: Sequence[int]):
     """[B, T, C] bf16 -> [B, T, C] bf16: the packed TCN chain with the
     kernel's dtype policy (counterpart of the JAX package's
-    ``ops/pallas/convtasnet_backward.py::tcn_chain_xla``).
+    ``ops/pallas/convtasnet_backward.py::tcn_chain_xla``).  Differentiable:
+    autograd of it is the plain version of the chain's backward.
 
     The taps normalise h and read zeros outside [0, T), which is the
     reference model's zero padding after gLN; the JAX oracle writes the
     same thing as folded taps with edge corrections."""
-    T = x.shape[1]
     y = x.to(torch.bfloat16)
     for bi, d in enumerate(dilations):
-        vec = vecs[bi]
-        h = _prelu(_dot(y, w1s[bi]) + vec[_B1], alphas[bi, 0])  # f32
-        mu1, r1 = _stats(h)
-        sc1 = vec[_G1] * r1
-        hn = h * sc1 + (vec[_BT1] - mu1 * sc1)
-        down = torch.nn.functional.pad(hn, (0, 0, d, 0))[:, :T]  # hn[t-d]
-        up = torch.nn.functional.pad(hn, (0, 0, 0, d))[:, d:]  # hn[t+d]
-        u = vec[_DWB] + vec[_DW0] * down + vec[_DW1] * hn + vec[_DW2] * up
-        v = _prelu(u, alphas[bi, 1])
-        mu2, r2 = _stats(v)
-        p = _dot(v.to(torch.bfloat16), wsgs[bi])
-        y = (y.float() + r2 * p + (cs[bi, 0] - mu2 * r2 * cs[bi, 1])).to(torch.bfloat16)
+        y, _ = _block_reference(y, w1s[bi], wsgs[bi], vecs[bi], cs[bi], alphas[bi], d)
     return y
+
+
+def tcn_separator_reference(x, w1s, wsgs, vecs, cs, alphas, dilations: Sequence[int],
+                            save_state: bool = False):
+    """Plain version of the TCN-chain kernel (``fused_tcn_separator``), same
+    arguments and results: ``tcn_chain_reference`` and, with
+    ``save_state``, y_hist [B, nb, Tpad, C] bf16 (each block's input, rows
+    >= T zero, Tpad = T rounded up to 64) and stats [B, nb, 4] f32 (each
+    block's mean1, rstd1, mean2, rstd2)."""
+    B, T, C = x.shape
+    y = x.to(torch.bfloat16)
+    hist, stats = [], []
+    for bi, d in enumerate(dilations):
+        hist.append(y)
+        y, st = _block_reference(y, w1s[bi], wsgs[bi], vecs[bi], cs[bi], alphas[bi], d)
+        stats.append(torch.cat([s.reshape(B, 1) for s in st], dim=1))
+    if not save_state:
+        return y
+    Tpad = -(-T // _TILE) * _TILE
+    y_hist = torch.zeros((B, len(dilations), Tpad, C), dtype=torch.bfloat16, device=x.device)
+    y_hist[:, :, :T] = torch.stack(hist, dim=1)
+    return y, y_hist, torch.stack(stats, dim=1)
 
 
 def convtasnet_separator_reference(frames, we, w1s, wsgs, vecs, cs, alphas, wm, bm, wd,
@@ -182,10 +269,8 @@ def convtasnet_separator_reference(frames, we, w1s, wsgs, vecs, cs, alphas, wm, 
 
 
 # ---------------------------------------------------------------------------
-# The kernel
+# The kernels
 # ---------------------------------------------------------------------------
-
-_TILE = 64  # frames per thread block, as in csrc/convtasnet_separator.cu
 
 
 def _check(name, t, shape, dtype, device):
@@ -262,3 +347,61 @@ def fused_convtasnet_separator(frames, we, w1s, wsgs, vecs, cs, alphas, wm, bm, 
 
 
 fused_convtasnet_separator.launches = 0
+
+
+def fused_tcn_separator(x, w1s, wsgs, vecs, cs, alphas, dilations: Sequence[int],
+                        save_state: bool = False):
+    """The TCN chain, the forward of training: x [B, T', 128] bf16 -> y
+    [B, T', 128] bf16; with ``save_state`` also y_hist [B, nb, Tpad, 128]
+    bf16 and stats [B, nb, 4] f32 (see ``tcn_separator_reference``).
+
+    A CUDA tensor runs the CUDA kernel sequence (2*nb + 1 launches, added
+    to ``fused_tcn_separator.launches``; the state is kept either way) or
+    raises; a CPU tensor runs ``tcn_separator_reference``."""
+    if x.device.type == "cpu":
+        return tcn_separator_reference(x, w1s, wsgs, vecs, cs, alphas, dilations, save_state)
+    if x.device.type != "cuda":
+        raise ValueError(f"no TCN-chain kernel for device {x.device}")
+    from ._build import load_library
+
+    dev = x.device
+    B, T, C = x.shape
+    nb, _, H = w1s.shape
+    if C != _C or H % 128 != 0 or T < 1 or nb < 1 or len(dilations) != nb:
+        raise ValueError(f"kernel takes C={_C}, H % 128 == 0, T >= 1, nb >= 1; "
+                         f"got {C}, {H}, {T}, {nb} ({len(dilations)} dilations)")
+    bf, f32 = torch.bfloat16, torch.float32
+    _check("x", x, (B, T, C), bf, dev)
+    _check("w1s", w1s, (nb, C, H), bf, dev)
+    _check("wsgs", wsgs, (nb, H, C), bf, dev)
+    _check("vecs", vecs, (nb, 8, H), f32, dev)
+    _check("cs", cs, (nb, 2, C), f32, dev)
+    _check("alphas", alphas, (nb, 2), f32, dev)
+
+    n_tiles = -(-T // _TILE)
+    Tpad = n_tiles * _TILE
+    y = torch.empty((B, T, C), dtype=bf, device=dev)
+    y_hist = torch.empty((B, nb, Tpad, C), dtype=bf, device=dev)
+    stats = torch.empty((B, nb, 4), dtype=f32, device=dev)
+    h = torch.empty((B, Tpad, H), dtype=f32, device=dev)
+    p = torch.empty((B, Tpad, C), dtype=f32, device=dev)
+    part1 = torch.empty((B, n_tiles, 2), dtype=f32, device=dev)
+    part2 = torch.empty((B, n_tiles, 2), dtype=f32, device=dev)
+    dils = (ctypes.c_int * nb)(*dilations)
+
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.tcn_separator(
+            x.data_ptr(), w1s.data_ptr(), wsgs.data_ptr(), vecs.data_ptr(), cs.data_ptr(),
+            alphas.data_ptr(), y.data_ptr(), y_hist.data_ptr(), stats.data_ptr(), h.data_ptr(),
+            p.data_ptr(), part1.data_ptr(), part2.data_ptr(), B, T, H, nb, dils, stream,
+        )
+    if rc != 0:
+        msg = lib.convtasnet_error_string(rc).decode()
+        raise RuntimeError(f"tcn_separator launch failed: CUDA error {rc} ({msg})")
+    fused_tcn_separator.launches += 2 * nb + 1
+    return (y, y_hist, stats) if save_state else y
+
+
+fused_tcn_separator.launches = 0

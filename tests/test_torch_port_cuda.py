@@ -1,4 +1,5 @@
-"""The whole-separator CUDA kernel against its plain version, on the card.
+"""The CUDA kernels (the whole separator K1, the TCN chain's forward K2 and
+backward K3) against their plain versions, on the card.
 
 These tests need an NVIDIA GPU with nvcc (marker ``cuda``) and skip
 without one.  This file imports no JAX, so it also runs where JAX is not
@@ -15,11 +16,19 @@ from audio_only_speech_separation_tpu_torch.models import ConvTasNet
 from audio_only_speech_separation_tpu_torch.models.convtasnet import (
     fused_inference_forward,
     inference_frames,
+    make_kernel_train_apply,
+)
+from audio_only_speech_separation_tpu_torch.ops.kernels.convtasnet_backward import (
+    fused_tcn_backward,
+    tcn_backward_reference,
 )
 from audio_only_speech_separation_tpu_torch.ops.kernels.convtasnet_block import (
     convtasnet_separator_reference,
     fused_convtasnet_separator,
+    fused_tcn_separator,
     pack_convtasnet_full_params,
+    tcn_chain_reference,
+    tcn_separator_reference,
 )
 
 pytestmark = pytest.mark.cuda
@@ -81,3 +90,104 @@ def test_served_path_meets_the_validator_rule(cuda):
     err = float((got.float() - ref).abs().max())
     plain_err = float((plain.float() - ref).abs().max())
     assert err <= 1.5 * plain_err + 1e-3, (err, plain_err)
+
+
+# ---------------------------------------------------------------------------
+# The TCN chain's forward (K2) and backward (K3) kernels
+# ---------------------------------------------------------------------------
+
+CHAIN_CASES = [(2, 128, 2, 200), (4, 256, 2, 301), (3, 512, 1, 4000)]  # nb, H, B, T'
+
+
+def _chain_inputs(dev, nb, H, B, T, seed=0):
+    """The JAX package's backward-test inputs (tests/test_tcn_backward.py:36)."""
+    rng = np.random.default_rng(seed)
+    bf = torch.bfloat16
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
+
+    x = t(rng.normal(size=(B, T, 128)), bf)
+    w1s = t(rng.normal(size=(nb, 128, H)) * 0.1, bf)
+    wsgs = t(rng.normal(size=(nb, H, 128)) * 0.1, bf)
+    vecs = rng.normal(size=(nb, 8, H)) * 0.3
+    vecs[:, 7] = 0.0
+    cs = t(rng.normal(size=(nb, 2, 128)) * 0.1)
+    alphas = t(np.abs(rng.normal(size=(nb, 2))) * 0.3 + 0.05)
+    g = t(rng.normal(size=(B, T, 128)), bf)
+    return x, (w1s, wsgs, t(vecs), cs, alphas), tuple(2**i for i in range(nb)), g
+
+
+def _rel(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / (a.norm() + 1e-9))
+
+
+@pytest.mark.parametrize("nb,H,B,T", CHAIN_CASES)
+def test_chain_forward_matches_plain_version(cuda, nb, H, B, T):
+    """K2 against its plain version: y and y_hist to bf16 rounding (atol
+    5e-2, rtol 2e-2, as the JAX package's kernel-vs-oracle check), stats
+    to 1e-3 relative, bit-identical from run to run, 2*nb + 1 launches."""
+    x, w, dils, _ = _chain_inputs(cuda, nb, H, B, T)
+    before = fused_tcn_separator.launches
+    got = fused_tcn_separator(x, *w, dils, save_state=True)
+    again = fused_tcn_separator(x, *w, dils, save_state=True)
+    want = tcn_separator_reference(x, *w, dils, save_state=True)
+    torch.cuda.synchronize()
+    assert fused_tcn_separator.launches - before == 2 * (2 * nb + 1)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    for a, b in zip(got[:2], want[:2]):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        torch.testing.assert_close(a.float(), b.float(), atol=5e-2, rtol=2e-2)
+    assert torch.equal(got[1][:, 0, :T], x)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-3, atol=0.0)
+
+
+@pytest.mark.parametrize("nb,H,B,T", CHAIN_CASES)
+def test_chain_backward_matches_plain_version(cuda, nb, H, B, T):
+    """K3 against autograd of the plain chain on the same saved state:
+    rel-l2 < 6e-2 for each of the six cotangents, dalphas included (the
+    JAX validator allows 0.5 there; these small cases hold the tight
+    bound), dvecs row 7 exactly zero, bit-identical from run to run."""
+    x, w, dils, g = _chain_inputs(cuda, nb, H, B, T)
+    y, y_hist, stats = fused_tcn_separator(x, *w, dils, save_state=True)
+    before = fused_tcn_backward.launches
+    got = fused_tcn_backward(g, y_hist, y, stats, *w, dils)
+    again = fused_tcn_backward(g, y_hist, y, stats, *w, dils)
+    want = tcn_backward_reference(g, y_hist, y, stats, *w, dils)
+    torch.cuda.synchronize()
+    assert fused_tcn_backward.launches - before == 2 * (10 * nb + 2)
+    for name, a, b, c in zip(("dx", "dw1s", "dwsgs", "dvecs", "dcs", "dalphas"), got, again, want):
+        assert torch.equal(a, b), name
+        assert a.shape == c.shape and bool(torch.isfinite(a.float()).all()), name
+        assert _rel(c, a) < 6e-2, (name, _rel(c, a))
+    assert bool((got[3][:, 7] == 0).all())
+
+
+def test_train_step_through_the_kernels(cuda):
+    """make_kernel_train_apply with the kernels against the same path with
+    the plain chain: loss within 5e-3 and every parameter gradient within
+    rel-l2 0.1 (the JAX package's kernel-vs-delayed bound,
+    tests/test_tcn_backward.py:149-176; the scalar PReLU slopes get the
+    sign and 0.5 there)."""
+    m = _model(cuda, N=256, H=256, X=3, R=1, num_spks=2)
+    params = {k: p for k, p in m.named_parameters()}
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((2, 6400)).astype(np.float32)).to(cuda)
+    tgt = torch.from_numpy(rng.standard_normal((2, 2, 6400)).astype(np.float32)).to(cuda)
+
+    def loss_and_grads(fn):
+        pb = {k: v.to(torch.bfloat16) for k, v in params.items()}
+        loss = (fn(pb, x.to(torch.bfloat16)).float() - tgt).square().mean()
+        return float(loss.detach()), torch.autograd.grad(loss, list(params.values()))
+
+    lk, gk = loss_and_grads(make_kernel_train_apply(m))
+    lp, gp = loss_and_grads(make_kernel_train_apply(m, chain=tcn_chain_reference))
+    assert abs(lk - lp) < 5e-3 * max(1.0, abs(lp)), (lk, lp)
+    for name, a, b in zip(params, gp, gk):
+        assert bool(torch.isfinite(b).all()), name
+        if a.numel() <= 2:
+            assert float(a.sum()) * float(b.sum()) > 0 and _rel(a, b) < 0.5, name
+        else:
+            assert _rel(a, b) < 0.1, (name, _rel(a, b))

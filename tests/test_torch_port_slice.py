@@ -58,11 +58,21 @@ def test_jax_checkpoint_serves_through_the_port(tmp_path):
 _GUARD = textwrap.dedent(
     """
     import importlib, importlib.abc, pkgutil, sys
-    BLOCKED = ("jax", "jaxlib", "flax", "optax", "yaml", "audio_only_speech_separation_tpu")
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "yaml")
+    JAX_PKG = "audio_only_speech_separation_tpu"
+    ALLOWED = (JAX_PKG, JAX_PKG + ".data")  # the JAX-free data layer
+
+    def jax_package_module(name):
+        return name == JAX_PKG or name.startswith(JAX_PKG + ".")
+
+    def allowed(name):
+        return name in ALLOWED or name.startswith(JAX_PKG + ".data.")
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
             if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                raise ImportError("blocked import: " + name)
+            if jax_package_module(name) and not allowed(name):
                 raise ImportError("blocked import: " + name)
             return None
 
@@ -72,15 +82,34 @@ _GUARD = textwrap.dedent(
     for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
         importlib.import_module(m.name)
     import chip_smoke
+    import audio_only_speech_separation_tpu.data as datas
+    assert datas.get("LRS3DataModule") is not None
     from audio_only_speech_separation_tpu_torch.models import ConvTasNet, from_pretrain
     assert from_pretrain(sys.argv[1]).num_spks == 2  # a JAX-written checkpoint
-    from audio_only_speech_separation_tpu_torch.models.convtasnet import fused_inference_forward
+    from audio_only_speech_separation_tpu_torch.models.convtasnet import (
+        fused_inference_forward, make_kernel_train_apply)
     model = ConvTasNet(N=128, H=128, X=2, R=1).eval()
     x = torch.randn(1, 1000, generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
         assert model(x).shape == (1, 2, 1000)
         assert fused_inference_forward(model, x).shape == (1, 2, 1000)
+    # one bf16 train step through the training path (the chain's plain
+    # versions on the CPU)
+    from audio_only_speech_separation_tpu_torch.losses import PITLossWrapper, pairwise_neg_snr
+    from audio_only_speech_separation_tpu_torch.train import make_optimizer
+    opt = make_optimizer(model.parameters(), lr=1e-3, grad_clip=5.0)
+    apply_fn = make_kernel_train_apply(model)
+    params = dict(model.named_parameters())
+    src = torch.randn(1, 2, 1000, generator=torch.Generator().manual_seed(1))
+    est = apply_fn({k: v.to(torch.bfloat16) for k, v in params.items()},
+                   src.sum(1).to(torch.bfloat16))
+    loss = PITLossWrapper(pairwise_neg_snr)(est.float(), src)
+    loss.backward()
+    before = params["mask.weight"].detach().clone()
+    opt.step()
+    assert torch.isfinite(loss) and not torch.equal(before, params["mask.weight"])
     assert not any(n.split(".")[0] in BLOCKED for n in sys.modules)
+    assert all(allowed(n) for n in sys.modules if jax_package_module(n))
     print("ok")
     """
 )
@@ -88,8 +117,9 @@ _GUARD = textwrap.dedent(
 
 def test_port_imports_no_jax(tmp_path):
     """Every module of the port, and chip_smoke.py, imports, loads a
-    checkpoint the JAX package wrote, and runs a tiny forward with jax,
-    flax, optax, yaml and the JAX package blocked."""
+    checkpoint the JAX package wrote, runs a tiny forward and one bf16
+    train step, with jax, jaxlib, flax, optax, yaml and every module of the
+    JAX package but its JAX-free data layer blocked."""
     jm, params, _ = make_pair(seed=13)
     ckpt = str(tmp_path / "best_model.pth")
     jax_save(jax_serialize(jm, params), ckpt)

@@ -1,0 +1,228 @@
+"""The port's training loop on the CPU: the optimizer and scheduler against
+the JAX package's, and ``Trainer.fit`` / ``audio_train.main`` end to end
+on tiny synthetic manifests, with resume and a best_model.pth that
+``from_pretrain`` loads."""
+
+import json
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+import audio_only_speech_separation_tpu.train.optimizers as jopt
+import audio_only_speech_separation_tpu.train.schedulers as jsched
+from audio_only_speech_separation_tpu.data.audio_io import write_wav
+from audio_only_speech_separation_tpu_torch import audio_train
+from audio_only_speech_separation_tpu_torch.models import ConvTasNet, from_pretrain
+from audio_only_speech_separation_tpu_torch.train import (
+    AudioLightningModule,
+    CSVLogger,
+    Trainer,
+    get_learning_rate,
+    loggers,
+    make_optimizer,
+    make_scheduler,
+    set_learning_rate,
+)
+
+torch.set_num_threads(2)
+SR = 8000
+TINY = dict(N=128, L=16, B=128, H=128, P=3, X=2, R=1, num_spks=2)
+
+
+# ---------------------------------------------------------------------------
+# Optimizer and schedulers
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name,wd", [("adam", 0.0), ("adam", 0.01), ("adamw", 0.05)])
+def test_optimizer_matches_optax(name, wd):
+    """Three steps with global-norm clipping at 5.0 (two gradients above
+    it, one below) and an LR change after the second, against the JAX
+    package's optax chain: parameters within 1e-5 relative."""
+    rng = np.random.default_rng(0)
+    shapes = [(4, 3), (7,), (2, 2, 2)]
+    p0 = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = [[(scale * rng.standard_normal(s)).astype(np.float32) for s in shapes]
+             for scale in (4.0, 0.3, 9.0)]
+
+    tparams = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in p0]
+    opt = make_optimizer(tparams, optim_name=name, lr=1e-2, weight_decay=wd, grad_clip=5.0)
+    tx = jopt.make_optimizer(name, lr=1e-2, weight_decay=wd, grad_clip=5.0)
+    jparams = [jnp.asarray(p) for p in p0]
+    state = tx.init(jparams)
+    for i, g in enumerate(grads):
+        if i == 2:
+            set_learning_rate(opt, 3e-3)
+            state = jopt.set_learning_rate(state, 3e-3)
+        for p, gi in zip(tparams, g):
+            p.grad = torch.from_numpy(gi.copy())
+        opt.step()
+        updates, state = tx.update([jnp.asarray(gi) for gi in g], state, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        for a, b in zip(jparams, tparams):
+            a = np.asarray(a)
+            assert np.linalg.norm(b.detach().numpy() - a) <= 1e-5 * np.linalg.norm(a)
+    assert get_learning_rate(opt) == pytest.approx(3e-3)
+    assert jopt.get_learning_rate(state) == pytest.approx(3e-3)
+
+
+def test_optimizer_names():
+    p = [torch.nn.Parameter(torch.zeros(3))]
+    for name in ("sgd", "rmsprop", "adagrad", "adamax", "radam"):
+        make_optimizer(p, optim_name=name, lr=1e-3)
+    with pytest.raises(NotImplementedError):
+        make_optimizer(p, optim_name="lamb")
+    with pytest.raises(ValueError):
+        make_optimizer(p, optim_name="no_such_optimizer")
+
+
+@pytest.mark.parametrize("name,cfg", [
+    ("ReduceLROnPlateau", dict(patience=2, factor=0.5, cooldown=1, min_lr=1e-4)),
+    ("StepLR", dict(step_size=3, gamma=0.5)),
+])
+def test_scheduler_lr_sequence_matches_jax(name, cfg):
+    """The same metric sequence gives the same LR sequence, and a state
+    round trip resumes it."""
+    metrics = [5.0, 4.0, 4.1, 4.2, 4.0, 3.99995, 4.5, 3.0, 3.1, 3.2, 3.3, 3.4, 3.5, 2.0]
+    jsch = jsched.make_scheduler(name, lr=1e-3, **cfg)
+    tsch = make_scheduler(name, lr=1e-3, **cfg)
+    want = [jsch.step(m) for m in metrics]
+    got = []
+    for i, m in enumerate(metrics):
+        if i == 7:  # resume mid-way from a saved state
+            state = tsch.state_dict()
+            tsch = make_scheduler(name, lr=5.0, **cfg)
+            tsch.load_state_dict(state)
+        got.append(tsch.step(m))
+    assert got == want
+    assert len(set(want)) > 1
+
+
+def test_noam_lr_sequence_matches_jax():
+    jsch = jsched.make_scheduler("NoamLR", lr=1e-3, d_model=64, warmup_steps=5)
+    tsch = make_scheduler("NoamLR", lr=1e-3, d_model=64, warmup_steps=5)
+    assert [tsch.step_batch() for _ in range(12)] == [jsch.step_batch() for _ in range(12)]
+
+
+# ---------------------------------------------------------------------------
+# Trainer and the training CLI
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def manifests(tmp_path):
+    """LRS2-layout manifests (mix.json, s1.json, s2.json) of 0.3 s
+    utterances: 4 train, 2 cv, 2 tt."""
+    root = tmp_path / "data"
+    rng = np.random.default_rng(5)
+    for split, n in (("tr", 4), ("cv", 2), ("tt", 2)):
+        infos = {c: [] for c in ("mix", "s1", "s2")}
+        for c in infos:
+            (root / split / c).mkdir(parents=True)
+        for i in range(n):
+            s = (0.1 * rng.standard_normal((2, 2400))).astype(np.float32)
+            for c, wav in zip(infos, (s.sum(0), s[0], s[1])):
+                path = str(root / split / c / f"u{i}.wav")
+                write_wav(path, wav, SR)
+                infos[c].append([path, 2400])
+        for c, lst in infos.items():
+            (root / split / f"{c}.json").write_text(json.dumps(lst))
+    return root
+
+
+def _config(root, epochs, precision="bfloat16", fused=True):
+    return {
+        "audionet": {"audionet_name": "ConvTasNet", "audionet_config": dict(TINY)},
+        "loss": {
+            "train": {"loss_func": "PITLossWrapper", "sdr_type": "pairwise_neg_snr",
+                      "config": {"pit_from": "pw_mtx", "threshold_byloss": True}},
+            "val": {"loss_func": "PITLossWrapper", "sdr_type": "pairwise_neg_sisdr",
+                    "config": {"pit_from": "pw_mtx", "threshold_byloss": False}},
+        },
+        "training": {"epochs": epochs, "precision": precision, "fused_forward": fused,
+                     "early_stop": {"monitor": "val_loss/dataloader_idx_0", "mode": "min",
+                                    "patience": 10}},
+        "optimizer": {"optim_name": "adam", "lr": 0.001, "weight_decay": 0},
+        "scheduler": {"sche_name": "ReduceLROnPlateau", "sche_config": {"patience": 5, "factor": 0.5}},
+        "datamodule": {"data_name": "LRS2DataModule", "data_config": dict(
+            train_dir=str(root / "tr"), valid_dir=str(root / "cv"), test_dir=str(root / "tt"),
+            n_src=2, sample_rate=SR, segment=0.25, batch_size=2, num_workers=2)},
+        "exp": {"exp_name": "tiny"},
+    }
+
+
+@pytest.fixture
+def no_tensorboard(monkeypatch):
+    """CSV logging only: importing tensorboard here pulls in TensorFlow."""
+    def unavailable(*args, **kwargs):
+        raise ImportError("tensorboard not used in this test")
+
+    monkeypatch.setattr(loggers, "TensorBoardLogger", unavailable)
+
+
+def test_audio_train_main_trains_resumes_and_serves(manifests, tmp_path, monkeypatch, capsys,
+                                                    no_tensorboard):
+    """bf16 through make_kernel_train_apply (the chain's plain versions on
+    the CPU): one epoch writes the checkpoint layout; a second run with two
+    epochs resumes from last.ckpt and trains only epoch 1; best_model.pth
+    loads through from_pretrain and separates."""
+    monkeypatch.chdir(tmp_path)
+    exp_dir = audio_train.main(_config(manifests, epochs=1))
+    files = set(os.listdir(exp_dir))
+    assert {"conf.yml", "last.ckpt", "epoch=0.ckpt", "best_k_models.json", "best_model.pth"} <= files
+    assert json.loads(open(os.path.join(exp_dir, "conf.yml")).read())["training"]["fused_forward"]
+    capsys.readouterr()
+
+    audio_train.main(_config(manifests, epochs=2))
+    out = capsys.readouterr().out
+    assert "epoch 1:" in out and "epoch 0:" not in out
+    assert "epoch=1.ckpt" in os.listdir(exp_dir)
+    rows = open(tmp_path / "Experiments" / "tensorboard_logs" / "tiny" / "scalars.csv").read().splitlines()
+    train = [float(r.split(",")[2]) for r in rows[1:] if r.split(",")[1] == "train_loss"]
+    assert len(train) == 2 and np.isfinite(train).all()
+
+    model = from_pretrain(os.path.join(exp_dir, "best_model.pth")).eval()
+    assert isinstance(model, ConvTasNet) and model.num_spks == 2
+    with torch.no_grad():
+        est = model(torch.randn(1, 2400, generator=torch.Generator().manual_seed(0)))
+    assert est.shape == (1, 2, 2400) and torch.isfinite(est).all()
+
+
+@pytest.mark.parametrize("precision,fused", [("float32", False), ("bfloat16", False)])
+def test_trainer_fit_other_precisions_and_resume_restores_weights(manifests, tmp_path, precision, fused):
+    """The f32 module and the bf16 module under autocast each train an
+    epoch; a new Trainer on the same directory restores the weights of
+    last.ckpt into a freshly built model."""
+    import audio_only_speech_separation_tpu.data as datas
+    from audio_only_speech_separation_tpu_torch import losses
+
+    def system(seed):
+        dm = datas.get("LRS2DataModule")(train_dir=str(manifests / "tr"), valid_dir=str(manifests / "cv"),
+                                         test_dir=str(manifests / "tt"), n_src=2, sample_rate=SR,
+                                         segment=0.25, batch_size=2, num_workers=2)
+        dm.setup()
+        model = ConvTasNet(**TINY, sample_rate=SR, generator=torch.Generator().manual_seed(seed))
+        loss = losses.PITLossWrapper(losses.pairwise_neg_snr)
+        return AudioLightningModule(
+            audio_model=model, loss_func={"train": loss, "val": loss},
+            optimizer=make_optimizer(model.parameters(), lr=1e-3, grad_clip=5.0),
+            train_loader=dm.train_dataloader(), val_loader=dm.val_dataloader(),
+            test_loader=dm.test_dataloader(), scheduler=None)
+
+    exp = str(tmp_path / "exp")
+    first = system(seed=1)
+    before = {k: v.clone() for k, v in first.audio_model.state_dict().items()}
+    Trainer(exp, epochs=1, precision=precision, fused_forward=fused,
+            logger=CSVLogger(str(tmp_path / "logs"))).fit(first)
+    trained = first.audio_model.state_dict()
+    assert any(not torch.equal(before[k], trained[k]) for k in before)
+
+    second = system(seed=2)
+    Trainer(exp, epochs=1, precision=precision, fused_forward=fused,
+            logger=CSVLogger(str(tmp_path / "logs"))).fit(second)
+    for k, v in second.audio_model.state_dict().items():
+        assert torch.equal(v, trained[k]), k
