@@ -3,16 +3,16 @@ reference audio_train.py:33-163).
 
     python -m audio_only_speech_separation_tpu_torch.audio_train --conf-dir=configs/convtasnet_lrs3.yml
 
-Config -> registries -> AudioSystem -> Trainer on one device (CUDA when
-there is one).  Every YAML leaf is a CLI flag (``utils/parser_utils``).
-Artifacts land in ``Experiments/checkpoint/<exp_name>/`` under the working
-directory (conf.yml, top-5 and last checkpoints, best_k_models.json,
+Config -> registries -> AudioSystem -> Trainer on one device: the CUDA
+card unless ``main`` is given ``device="cpu"``.  Every YAML leaf is a CLI
+flag (``utils/parser_utils``).  Artifacts land in
+``Experiments/checkpoint/<exp_name>/`` under the working directory
+(conf.yml, top-5 and last checkpoints, best_k_models.json,
 best_model.pth), logs in ``Experiments/tensorboard_logs/<exp_name>``.
 
-The datamodule comes from the JAX package's data layer
-(``audio_only_speech_separation_tpu.data``), which is numpy and the
-standard library only.  YAML is read only when this runs as a program;
-``main`` takes the parsed config as a dict.
+The datamodule comes from the port's data layer (``data/``).  YAML is read
+only when this runs as a program; ``main`` takes the parsed config as a
+dict.
 """
 
 from __future__ import annotations
@@ -21,6 +21,9 @@ import argparse
 import json
 import os
 
+import torch
+
+from . import data as datas
 from . import losses, models
 from .train import AudioSystem, Trainer, make_optimizer, make_scheduler
 
@@ -31,11 +34,12 @@ def build_loss(loss_conf: dict):
     return wrapper_cls(sdr, **(loss_conf.get("config") or {}))
 
 
-def main(config: dict, device=None) -> str:
-    """Train from a config dict (the YAML schema of ``configs/``); returns
-    the experiment directory."""
-    import audio_only_speech_separation_tpu.data as datas
-
+def main(config: dict, device="cuda") -> str:
+    """Train from a config dict (the YAML schema of ``configs/``) on
+    ``device``; returns the experiment directory.  Raises when ``device`` is
+    CUDA and there is no card."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("audio_train: no CUDA device; pass device=\"cpu\" to train on the CPU")
     print("Instantiating datamodule <{}>".format(config["datamodule"]["data_name"]))
     datamodule = datas.get(config["datamodule"]["data_name"])(**config["datamodule"]["data_config"])
     datamodule.setup()

@@ -1,0 +1,96 @@
+"""Dual-path RNN core (counterpart of
+``audio_only_speech_separation_tpu/models/blocks/dprnn.py``; reference
+look2hear/models/utils/dprnn.py:6-88).
+
+Per layer: the intra-chunk (row) BiLSTM over the chunk axis K, batched over
+B*S chunks, plus gLN and a residual; then the inter-chunk (column) BiLSTM
+over the chunk index S, batched over B*K positions, plus gLN and a
+residual.  ``unfold=True`` shares one row and one column RNN across the
+layers and gates each layer's output with a depthwise 1x1 ``concat_block``
+(dprnn.py:26-34,82).  Rows run on [B, S, K, n] and columns on [B, K, S, n]
+(channels last), one K<->S swap between passes.
+
+The ``state_dict`` keys are look2hear's: ``row_rnn.{i}.{rnn,proj}.*``,
+``col_rnn.{i}.*``, ``row_norm.{i}.*``, ``col_norm.{i}.*`` (i = 0 only with
+unfold, plus ``concat_block.{0,1}.*``) and ``output.{weight [out, n, 1, 1],
+bias}``.  Group communication (TAC, ``num_group > 1``) is still to port.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ...ops.activations import PReLU
+from ...ops.norms import GlobalLayerNorm
+from ...ops.rnn import ProjRNN
+
+
+class _ChannelScale(nn.Module):
+    """The depthwise 1x1 Conv2d of ``concat_block``: weight [C, 1, 1, 1],
+    bias [C], applied on the last axis."""
+
+    def __init__(self, channels: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels, 1, 1, 1, device=device))
+        self.bias = nn.Parameter(torch.zeros(channels, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.weight.reshape(-1).to(x.dtype) + self.bias.to(x.dtype)
+
+
+class DepthwiseGate(nn.Sequential):
+    """Depthwise 1x1 conv + PReLU on channels-last [..., C] (the unfold
+    ``concat_block``: keys ``0.weight``, ``0.bias``, ``1.weight``)."""
+
+    def __init__(self, channels: int, device=None):
+        super().__init__(_ChannelScale(channels, device=device), PReLU(device=device))
+
+
+def _layers(make, n: int, shared: bool) -> nn.ModuleList:
+    return nn.ModuleList([make() for _ in range(1 if shared else n)])
+
+
+def core_output(cur: torch.Tensor, output: nn.Conv2d, num_spk: int) -> torch.Tensor:
+    """The 1x1 Conv2d over channels: [B, K, S, n] -> [B, num_spk, out/num_spk, K, S]."""
+    B, K, S, _ = cur.shape
+    w = output.weight[:, :, 0, 0].to(cur.dtype)  # [out, n]
+    y = torch.einsum("bksc,dc->bdks", cur, w) + output.bias.to(cur.dtype)[None, :, None, None]
+    return y.reshape(B, num_spk, -1, K, S)
+
+
+class DPRNNCore(nn.Module):
+    """[B, N, K, S] -> [B, num_spk, output_size // num_spk, K, S], with
+    num_spk = output_size // input_size."""
+
+    def __init__(self, input_size: int, hidden_size: int, output_size: int, num_layers: int = 1,
+                 bidirectional: bool = True, unfold: bool = False, device=None):
+        super().__init__()
+        n = input_size
+        self.num_layers, self.unfold = num_layers, unfold
+        self.num_spk = output_size // input_size
+        self.row_rnn = _layers(lambda: ProjRNN(n, hidden_size, True, device=device), num_layers, unfold)
+        self.col_rnn = _layers(lambda: ProjRNN(n, hidden_size, bidirectional, device=device),
+                               num_layers, unfold)
+        self.row_norm = _layers(lambda: GlobalLayerNorm(n, 1e-8, channels_last=True, device=device),
+                                num_layers, unfold)
+        self.col_norm = _layers(lambda: GlobalLayerNorm(n, 1e-8, channels_last=True, device=device),
+                                num_layers, unfold)
+        if unfold:
+            self.concat_block = DepthwiseGate(n, device=device)
+        self.output = nn.Conv2d(n, output_size, 1, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, n, K, S = x.shape
+        cur = x.permute(0, 3, 2, 1)  # [B, S, K, n]: rows
+        for i in range(self.num_layers):
+            j = 0 if self.unfold else i
+            row_out = self.row_rnn[j](cur.reshape(B * S, K, n)).reshape(B, S, K, n)
+            cur = (cur + self.row_norm[j](row_out)).transpose(1, 2)  # [B, K, S, n]: columns
+            col_out = self.col_rnn[j](cur.reshape(B * K, S, n)).reshape(B, K, S, n)
+            cur = cur + self.col_norm[j](col_out)
+            if self.unfold:
+                cur = self.concat_block(cur)
+            if i + 1 < self.num_layers:
+                cur = cur.transpose(1, 2)
+        return core_output(cur, self.output, self.num_spk)

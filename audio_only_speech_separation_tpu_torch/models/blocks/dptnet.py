@@ -1,0 +1,81 @@
+"""Dual-path transformer core (counterpart of
+``audio_only_speech_separation_tpu/models/blocks/dptnet.py``; reference
+look2hear/models/utils/dptnet.py).
+
+DPTNet's transformer layer: 4-head self-attention, post-norm, then a
+BiLSTM(d -> 2d) with relu and Linear(4d -> d) as the feed-forward
+(dptnet.py:49-50,79), post-norm; LayerNorm eps 1e-5.  The layer sits at
+``{row,col}_xfmr.{i}.transformer`` in look2hear's ``state_dict``, with
+``self_attn.*``, ``norm1.*``, ``linear1.*`` (the BiLSTM), ``linear2.*`` and
+``norm2.*``; ``unfold`` shares layer 0 and adds ``concat_block``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ...ops.attention import MultiheadAttention
+from ...ops.rnn import BiLSTM
+from .dprnn import DepthwiseGate, _layers, core_output
+
+
+class TransformerEncoderLayerDPT(nn.Module):
+    """MHA + post-norm + BiLSTM feed-forward + post-norm on [B, T, d]."""
+
+    def __init__(self, d_model: int, nhead: int = 4, device=None):
+        super().__init__()
+        self.self_attn = MultiheadAttention(d_model, nhead, device=device)
+        self.norm1 = nn.LayerNorm(d_model, eps=1e-5, device=device)
+        self.linear1 = BiLSTM(d_model, 2 * d_model, device=device)
+        self.linear2 = nn.Linear(4 * d_model, d_model, device=device)
+        self.norm2 = nn.LayerNorm(d_model, eps=1e-5, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.norm1(x + self.self_attn(x))
+        # relu, then linear2, fused into the BiLSTM's output
+        ffn = self.linear1(x, self.linear2.weight.t(), self.linear2.bias, torch.relu)
+        return self.norm2(x + ffn)
+
+
+class _SingleTransformer(nn.Module):
+    """look2hear's wrapper: the layer under ``.transformer``."""
+
+    def __init__(self, d_model: int, device=None):
+        super().__init__()
+        self.transformer = TransformerEncoderLayerDPT(d_model, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.transformer(x)
+
+
+class DPTNetCore(nn.Module):
+    """The dual-path loop of ``DPRNNCore`` with transformer rows and
+    columns: [B, N, K, S] -> [B, num_spk, output_size // num_spk, K, S]."""
+
+    def __init__(self, input_size: int, hidden_size: int, output_size: int, num_layers: int = 1,
+                 unfold: bool = False, device=None):
+        super().__init__()
+        n = input_size
+        self.num_layers, self.unfold = num_layers, unfold
+        self.num_spk = output_size // input_size
+        self.row_xfmr = _layers(lambda: _SingleTransformer(n, device=device), num_layers, unfold)
+        self.col_xfmr = _layers(lambda: _SingleTransformer(n, device=device), num_layers, unfold)
+        if unfold:
+            self.concat_block = DepthwiseGate(n, device=device)
+        self.output = nn.Conv2d(n, output_size, 1, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, n, K, S = x.shape
+        cur = x.permute(0, 3, 2, 1)  # [B, S, K, n]: rows
+        for i in range(self.num_layers):
+            j = 0 if self.unfold else i
+            row = self.row_xfmr[j](cur.reshape(B * S, K, n)).reshape(B, S, K, n)
+            cur = (cur + row).transpose(1, 2)  # [B, K, S, n]: columns
+            col = self.col_xfmr[j](cur.reshape(B * K, S, n)).reshape(B, K, S, n)
+            cur = cur + col
+            if self.unfold:
+                cur = self.concat_block(cur)
+            if i + 1 < self.num_layers:
+                cur = cur.transpose(1, 2)
+        return core_output(cur, self.output, self.num_spk)

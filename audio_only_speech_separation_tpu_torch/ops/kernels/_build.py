@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels at first use.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface, for ``sm_90a``, into ``build/kernels/`` at the repository root.
-The file name carries a hash of the sources and flags, so an edited source
-is rebuilt and an unchanged one is loaded as it is.  The library is bound
-with ``ctypes``.
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``, one process per
+source, all started together, and links the objects into one shared
+library with a plain C interface in ``build/kernels/`` at the repository
+root.  The file name carries a hash of the sources and flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is.  The library is
+bound with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -21,10 +22,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def _nvcc() -> str:
@@ -56,16 +55,30 @@ def build() -> tuple[Path, str]:
     if path.exists():
         return path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cus = [str(s) for s in _sources() if s.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
-    return path, res.stdout + res.stderr
+    nvcc = _nvcc()
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        jobs = []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = os.path.join(work, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True)))
+        log = []
+        for _, proc in jobs:
+            log.append(proc.communicate()[0])
+        failed = [(obj, proc.returncode) for obj, proc in jobs if proc.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(log))
+        tmp = os.path.join(work, "lib.so")
+        res = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *(o for o, _ in jobs)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+        os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return path, "\n".join(log)
 
 
 @functools.cache
@@ -84,4 +97,17 @@ def load_library() -> ctypes.CDLL:
     lib.tcn_backward.restype = i
     lib.convtasnet_error_string.argtypes = [i]
     lib.convtasnet_error_string.restype = ctypes.c_char_p
+    lib.attention_bdt.argtypes = [p] * 4 + [i, i, i, p]
+    lib.attention_bdt.restype = i
+    lib.lstm_recurrence.argtypes = [p] * 3 + [i] * 4 + [p]
+    lib.lstm_recurrence.restype = i
+    lib.lstm_resident.argtypes = [p] * 5 + [i] * 5 + [p]
+    lib.lstm_resident.restype = i
     return lib
+
+
+def check_launch(lib, name: str, rc: int) -> None:
+    """Raise if a C entry returned a nonzero cudaError_t."""
+    if rc != 0:
+        msg = lib.convtasnet_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")

@@ -1,0 +1,81 @@
+"""Short-sequence self-attention on [BH, dh, T] (K4; counterpart of
+``audio_only_speech_separation_tpu/ops/pallas/attention.py``): the CUDA
+wrapper ``fused_attention_bdt``, its plain version and its launch counter.
+
+``softmax(q^T k / sqrt(dh)) v`` per head, no mask: f32 logits and softmax,
+the probabilities rounded to v's dtype, f32-accumulated products, output in
+v's dtype.  The kernel (``csrc/attention.cu``) takes bf16 with dh % 8 == 0,
+dh <= 256 and any T >= 1; it walks the keys in tiles with an online softmax,
+so it rounds the probabilities before their normalisation, where the plain
+version rounds after it.
+
+The backward recomputes through the plain version under autograd, as the
+JAX package's custom VJP does through its einsum form; no backward kernel
+exists there to port.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import grad_through_plain
+from .convtasnet_block import _check
+
+
+def attention_bdt_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``fused_attention_bdt``, same arguments and result
+    (the JAX package's ``_einsum_attention_bdt``)."""
+    scale = 1.0 / math.sqrt(q.shape[1])
+    logits = torch.matmul(q.float().transpose(1, 2), k.float())  # [BH, Tq, Tk]
+    attn = torch.softmax(logits * scale, dim=-1).to(v.dtype)
+    return torch.matmul(v.float(), attn.float().transpose(1, 2)).to(v.dtype)  # [BH, dh, Tq]
+
+
+def _launch(q, k, v):
+    from ._build import check_launch, load_library
+
+    dev = q.device
+    BH, dh, T = q.shape
+    if dh % 8 != 0 or not 8 <= dh <= 256 or T < 1:
+        raise ValueError(f"kernel takes dh % 8 == 0, 8 <= dh <= 256, T >= 1; got dh={dh}, T={T}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(name, t, q.shape, torch.bfloat16, dev)
+    out = torch.empty_like(q)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.attention_bdt(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                               BH, dh, T, stream)
+    check_launch(lib, "attention_bdt", rc)
+    fused_attention_bdt.launches += 1
+    return out
+
+
+class _AttentionBDT(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _launch(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        return grad_through_plain(attention_bdt_reference, ctx.saved_tensors,
+                                  ctx.needs_input_grad, g)
+
+
+def fused_attention_bdt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(q^T k / sqrt(dh)) v on [BH, dh, T] (self-attention, no mask).
+
+    A CUDA tensor launches the kernel (one launch, added to
+    ``fused_attention_bdt.launches``) or raises; a CPU tensor runs
+    ``attention_bdt_reference``.  Differentiable."""
+    if q.device.type == "cpu":
+        return attention_bdt_reference(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"no attention kernel for device {q.device}")
+    return _AttentionBDT.apply(q, k, v)
+
+
+fused_attention_bdt.launches = 0

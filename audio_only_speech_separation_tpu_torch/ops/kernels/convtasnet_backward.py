@@ -57,7 +57,7 @@ def fused_tcn_backward(g, y_hist, y_fin, stats, w1s, wsgs, vecs, cs, alphas,
                                       dilations)
     if g.device.type != "cuda":
         raise ValueError(f"no TCN-backward kernel for device {g.device}")
-    from ._build import load_library
+    from ._build import check_launch, load_library
 
     dev = g.device
     B, T, C = g.shape
@@ -95,9 +95,7 @@ def fused_tcn_backward(g, y_hist, y_fin, stats, w1s, wsgs, vecs, cs, alphas,
             dw1s.data_ptr(), dwsgs.data_ptr(), dvecs.data_ptr(), dcs.data_ptr(), ws.data_ptr(),
             B, T, H, nb, dils, stream,
         )
-    if rc != 0:
-        msg = lib.convtasnet_error_string(rc).decode()
-        raise RuntimeError(f"tcn_backward launch failed: CUDA error {rc} ({msg})")
+    check_launch(lib, "tcn_backward", rc)
     fused_tcn_backward.launches += 10 * nb + 2
     dalphas = dvecs[:, 7, :2].clone()
     dvecs[:, 7] = 0.0

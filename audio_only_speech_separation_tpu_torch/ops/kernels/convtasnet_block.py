@@ -298,7 +298,7 @@ def fused_convtasnet_separator(frames, we, w1s, wsgs, vecs, cs, alphas, wm, bm, 
         )
     if frames.device.type != "cuda":
         raise ValueError(f"no separator kernel for device {frames.device}")
-    from ._build import load_library
+    from ._build import check_launch, load_library
 
     dev = frames.device
     B, T, W = frames.shape
@@ -339,9 +339,7 @@ def fused_convtasnet_separator(frames, we, w1s, wsgs, vecs, cs, alphas, wm, bm, 
             h.data_ptr(), p.data_ptr(), part1.data_ptr(), part2.data_ptr(),
             B, T, H, nb, dils, nspk, int(bool(sigmoid)), stream,
         )
-    if rc != 0:
-        msg = lib.convtasnet_error_string(rc).decode()
-        raise RuntimeError(f"convtasnet_separator launch failed: CUDA error {rc} ({msg})")
+    check_launch(lib, "convtasnet_separator", rc)
     fused_convtasnet_separator.launches += 2 + 2 * nb
     return out
 
@@ -362,7 +360,7 @@ def fused_tcn_separator(x, w1s, wsgs, vecs, cs, alphas, dilations: Sequence[int]
         return tcn_separator_reference(x, w1s, wsgs, vecs, cs, alphas, dilations, save_state)
     if x.device.type != "cuda":
         raise ValueError(f"no TCN-chain kernel for device {x.device}")
-    from ._build import load_library
+    from ._build import check_launch, load_library
 
     dev = x.device
     B, T, C = x.shape
@@ -397,9 +395,7 @@ def fused_tcn_separator(x, w1s, wsgs, vecs, cs, alphas, dilations: Sequence[int]
             alphas.data_ptr(), y.data_ptr(), y_hist.data_ptr(), stats.data_ptr(), h.data_ptr(),
             p.data_ptr(), part1.data_ptr(), part2.data_ptr(), B, T, H, nb, dils, stream,
         )
-    if rc != 0:
-        msg = lib.convtasnet_error_string(rc).decode()
-        raise RuntimeError(f"tcn_separator launch failed: CUDA error {rc} ({msg})")
+    check_launch(lib, "tcn_separator", rc)
     fused_tcn_separator.launches += 2 * nb + 1
     return (y, y_hist, stats) if save_state else y
 

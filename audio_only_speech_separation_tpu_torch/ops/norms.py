@@ -28,20 +28,25 @@ def global_moments(x: torch.Tensor):
 
 
 class GlobalLayerNorm(nn.Module):
-    """gLN: normalise over (C, T) per sample, then a per-channel affine.
+    """gLN: normalise over every axis but the batch, per sample, then a
+    per-channel affine.
 
-    Same as ``nn.GroupNorm(1, C)``; eps 1e-8."""
+    Same as ``nn.GroupNorm(1, C)``; eps 1e-8.  The channels are axis 1
+    ([B, C, *spatial]), or the last axis with ``channels_last`` ([B,
+    *spatial, C], the dual-path row and column norms)."""
 
-    def __init__(self, channels: int, eps: float = 1e-8, device=None):
+    def __init__(self, channels: int, eps: float = 1e-8, channels_last: bool = False, device=None):
         super().__init__()
         self.eps = eps
+        self.channels_last = channels_last
         self.weight = nn.Parameter(torch.ones(channels, device=device))
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, C, T]
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
         mean, var = global_moments(x)
         y = ((x.float() - mean) / torch.sqrt(var + self.eps)).to(x.dtype)
-        return y * self.weight.to(y.dtype)[:, None] + self.bias.to(y.dtype)[:, None]
+        shape = (-1,) if self.channels_last else (-1,) + (1,) * (x.ndim - 2)
+        return y * self.weight.to(y.dtype).reshape(shape) + self.bias.to(y.dtype).reshape(shape)
 
 
 class CumulativeLayerNorm(nn.Module):

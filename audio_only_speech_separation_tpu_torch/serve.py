@@ -10,12 +10,13 @@ list of utterances in length-sorted, bucket-padded batches.
 
 from __future__ import annotations
 
+import copy
 from typing import List, Sequence
 
 import numpy as np
 import torch
 
-from .models import ConvTasNet
+from .models import ConvTasNet, TasNet
 from .models.convtasnet import fused_forward_eligible, fused_inference_forward
 from .ops.kernels.convtasnet_block import pack_convtasnet_full_params
 
@@ -25,10 +26,15 @@ def choose_dispatch(model, use_bf16: bool, device) -> str:
 
     - "fused": bf16 ConvTasNet through the whole-separator CUDA kernel
       (``fused_forward_eligible``: a CUDA device and the kernel's envelope);
+    - "kernels": bf16 TasNet on a CUDA device: the module cast to bf16,
+      whose attention and LSTM layers call the dual-path kernels (K4, K5,
+      K6) from inside ``ops/``;
     - "eager": the module itself, in its own dtype.
     """
     if use_bf16 and isinstance(model, ConvTasNet) and fused_forward_eligible(model, device):
         return "fused"
+    if use_bf16 and isinstance(model, TasNet) and torch.device(device).type == "cuda":
+        return "kernels"
     return "eager"
 
 
@@ -48,11 +54,15 @@ def serve(model, wavs: Sequence[np.ndarray], use_bf16: bool, device,
         packed = pack_convtasnet_full_params(
             model.state_dict(), model.R, model.X, model.num_spks, device=device
         )
+    elif dispatch == "kernels":
+        model = copy.deepcopy(model).to(device=device, dtype=torch.bfloat16)
 
     def forward(mix: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():
             if dispatch == "fused":
                 return fused_inference_forward(model, mix.to(torch.bfloat16), packed=packed)
+            if dispatch == "kernels":
+                return model(mix.to(torch.bfloat16))
             return model(mix)
 
     order = sorted(range(len(wavs)), key=lambda i: wavs[i].shape[-1])

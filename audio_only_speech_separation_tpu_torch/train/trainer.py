@@ -17,8 +17,9 @@ for the reference, written out.
   test_pit_sisnr / learning_rate (reference audio_litmodule.py:79-148).
 
 Validation runs every epoch, the test loader every ``TEST_EVERY`` epochs
-(reference audio_litmodule.py:109-123).  Data-parallel and multi-host
-training are not ported yet.
+(reference audio_litmodule.py:109-123).  The device is the CUDA card
+unless the caller passes ``device="cpu"``; there is no quiet fallback.
+Data-parallel and multi-host training are not ported yet.
 """
 
 from __future__ import annotations
@@ -71,7 +72,7 @@ class Trainer:
     def __init__(self, exp_dir: str, epochs: int = 500, early_stop: Optional[dict] = None,
                  logger_dir: Optional[str] = None, checkpoint: Optional[dict] = None,
                  precision: str = "float32",
-                 logger: Optional[BaseLogger] = None, fused_forward: bool = False, device=None):
+                 logger: Optional[BaseLogger] = None, fused_forward: bool = False, device="cuda"):
         if precision not in ("float32", "bfloat16"):
             raise ValueError(f"precision must be float32 or bfloat16, got {precision!r}")
         self.exp_dir = exp_dir
@@ -79,9 +80,9 @@ class Trainer:
         self.precision = precision
         # opt-in: bf16 training through the TCN chain's kernels
         self.fused_forward = fused_forward
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Trainer: no CUDA device; pass device=\"cpu\" to train on the CPU")
         es = dict(early_stop or {})
         es.setdefault("monitor", "val_loss/dataloader_idx_0")
         self.early_stop = EarlyStopping(**es)

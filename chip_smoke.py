@@ -7,7 +7,9 @@ Drives the port's serving path and its training path
 (``audio_only_speech_separation_tpu_torch``) for ConvTasNet-LRS3 at full
 width and depth with seeded random weights: serving through the
 whole-separator CUDA kernel (K1), training through the TCN chain's forward
-(K2) and backward (K3) CUDA kernels.  In phases:
+(K2) and backward (K3) CUDA kernels.  Then the TasNet dual-path serving
+path (DPTNet and DPRNN on the wsj0 configs, 8 kHz) through the attention
+(K4) and LSTM (K5, K6) CUDA kernels.  In phases:
 
 0. the card's name and power limit (fails without a CUDA device);
 1. build the kernels from ``csrc/`` with nvcc;
@@ -27,7 +29,23 @@ whole-separator CUDA kernel (K1), training through the TCN chain's forward
    (3 speakers, 2 s, batch 12, 3 optimizer steps) through K2 and K3, then
    serve the best_model.pth it wrote through K1 with phase 3's checks;
 9. time a train step of the kernel path, the plain bf16 path and the f32
-   module, and K2 and K3 alone against their plain versions, at B=12 x 2 s.
+   module, and K2 and K3 alone against their plain versions, at B=12 x 2 s;
+10. K4 against its plain version at the JAX validator's shapes and DPTNet's;
+11. K5 and 12. K6 against their plain versions at the validator's shapes,
+    the batch-1 inter-chunk pass and an odd batch;
+13. one backward through each of K4, K5 and K6 against autograd of its
+    plain version;
+14. DPTNet and DPRNN end to end at B=2 x 2 s and B=1 x 12 s: the kernel
+    path (bf16), the plain bf16 path and the f32 module;
+15. serve five requests (1.3 to 12 s) of each model from a checkpoint
+    through ``serve.serve`` (bf16, batch 1, 1 s buckets); K4 (DPTNet), K5
+    and K6 must each launch;
+16. time both models at B=8 x 2 s x 8 kHz (kernel path, plain bf16 path,
+    f32 module), profile the kernel path, and time K4, K5 and K6 alone
+    beside their plain versions and the PyTorch calls that compute the
+    same (or, for K5, a similar) function.
+
+TF32 is off for matmuls and cuDNN, so the f32 references are full f32.
 
 Every check raises on failure.  The second-to-last line is a JSON object
 describing the kernels; the last line is
@@ -36,6 +54,7 @@ describing the kernels; the last line is
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import statistics
@@ -55,6 +74,13 @@ SR = 16000
 CSRC = "audio_only_speech_separation_tpu_torch/csrc/"
 PALLAS = "audio_only_speech_separation_tpu/ops/pallas/"
 TRAIN_B = 12  # configs/convtasnet_lrs3.yml datamodule batch_size
+# configs/dptnet_wsj0.yml and configs/dprnn_wsj0.yml audionet_config (they
+# differ only in ``module``), written out; 8 kHz
+WSJ0_TASNET = dict(enc_dim=64, bn_dim=64, hidden_dim=128, win=16, layer=6, num_spk=2,
+                   group_size=1, block_size=100, unfold=False, sample_rate=8000)
+TSR = 8000
+PEAK_FLOPS = 989e12  # H100 SXM bf16 dense tensor-core peak, FLOP/s
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 
 
 def card_identity() -> str:
@@ -217,6 +243,342 @@ def lrs3_train_config(data_root: str, epochs: int) -> dict:
     }
 
 
+def least_time(nbytes: float, flops: float):
+    """(least ms the card could take, "bytes" or "operations"): the larger of
+    the bytes over HBM bandwidth and the tensor-core FLOPs over the bf16
+    peak."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def separator_work(B, T, N=512, C=128, nb=24, spk=3, win=16):
+    """(bytes, FLOPs) of the whole separator (K1) on [B, T', win] frames:
+    frames in and decoder frames out once, the weights once; the products
+    of the encoder, bottleneck, nb blocks (two 1x1s each), mask head and
+    decoder, and the depthwise taps."""
+    flops = B * T * (2 * win * N + 2 * N * C + nb * (2 * 2 * C * N + 6 * N)
+                     + 2 * C * spk * N + 2 * spk * N * win)
+    weights = (nb + 1) * (2 * C * N * 2 + 8 * N * 4 + 2 * C * 4 + 8) + 2 * win * N * 2 + C * spk * N * 6
+    return B * T * win * 2 * (1 + spk) + weights, flops
+
+
+def chain_work(B, T, nb=24, H=512, C=128, products=2):
+    """(bytes, FLOPs) of the TCN chain forward (K2, 2 products a block) or
+    backward (K3, 5: the recomputed 1x1, two input gradients, two weight
+    gradients): x and the cotangent or y in, y / dx and y_hist out once."""
+    tpad = -(-T // 64) * 64
+    weights = nb * (2 * C * H * 2 + 8 * H * 4 + 2 * C * 4 + 8)
+    nbytes = 2 * B * T * C * 2 + B * nb * tpad * C * 2 + B * nb * 16 + weights * (1 if products == 2 else 2)
+    return nbytes, B * T * nb * (products * 2 * C * H + 6 * H)
+
+
+def tasnet_model(module: str, seed: int, dev):
+    """A wsj0 TasNet (``module`` core) at full width and depth with seeded
+    weights: the seeded init, with the norm affines and biases redrawn."""
+    from audio_only_speech_separation_tpu_torch.models import TasNet
+
+    m = TasNet(**WSJ0_TASNET, module=module, generator=torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, p in m.named_parameters():
+            if ("norm" in name or name.startswith("bottleneck.0")) and p.ndim == 1:
+                p.add_(torch.from_numpy((0.2 * rng.standard_normal(p.shape)).astype(np.float32)))
+    return m.to(dev).eval()
+
+
+def rand_maker(seed: int, dev):
+    """rand(shape, scale, dtype): seeded normal tensors on ``dev``."""
+    rng = np.random.default_rng(seed)
+
+    def rand(shape, scale=1.0, dtype=torch.bfloat16):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev, dtype)
+
+    return rand
+
+
+def dualpath_kernel_checks(dev):
+    """Phases 10-13: K4, K5 and K6 against their plain versions, forward at
+    the listed shapes and one backward each; returns their worst forward
+    max abs errors."""
+    from audio_only_speech_separation_tpu_torch.ops.kernels.attention import (
+        attention_bdt_reference,
+        fused_attention_bdt,
+    )
+    from audio_only_speech_separation_tpu_torch.ops.kernels.lstm import (
+        bilstm_reference,
+        fused_bilstm,
+        resident_bilstm,
+        resident_bilstm_reference,
+    )
+
+    rand = rand_maker(20, dev)
+
+    def against_plain(label, kernel, plain, args, limit):
+        with torch.no_grad():
+            got, again, want = kernel(*args), kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again) or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{label}: two kernel runs differ or the output is not finite")
+        err = max_err(got, want)
+        print(f"  {label}: max abs {err:.6g} (bound {limit:g})")
+        if not err < limit:
+            raise AssertionError(f"{label}: kernel vs plain max abs {err} >= {limit}")
+        return err
+
+    print("phase 10: K4 (attention) vs plain, unit-normal bf16 q, k, v")
+    k4_err = max(
+        against_plain(f"[BH, dh, T] = {list(s)}", fused_attention_bdt, attention_bdt_reference,
+                      [rand(s) for _ in range(3)], 2e-2)
+        # the validator's (scripts/validate_pallas.py:183), then DPTNet's rows
+        # and columns at B=8 x 2 s and at B=1 x 12 s
+        for s in [(512, 32, 250), (528, 32, 250), (64, 32, 100), (16, 64, 129),
+                  (1344, 16, 100), (3200, 16, 42), (968, 16, 100), (400, 16, 242)])
+
+    print("phase 11: K5 (LSTM recurrence) vs plain, xw * 0.3, w_hh * 0.05")
+    k5_err = max(
+        against_plain(f"(T, D, B, H) = {(T, D, B, H)}", fused_bilstm, bilstm_reference,
+                      [rand((T, D, B, 4 * H), 0.3), rand((D, H, 4 * H), 0.05)], 1e-2)
+        for T, D, B, H in [(251, 2, 64, 256), (250, 2, 96, 128), (128, 1, 32, 128), (242, 2, 100, 128)])
+
+    print("phase 12: K6 (resident LSTM) vs plain, x * 0.5, w_ih * 0.08, w_hh * 0.05, bias * 0.05")
+    k6_err = max(
+        against_plain(f"(T, B, Din, H, D) = {(T, B, Din, H, D)}", resident_bilstm,
+                      resident_bilstm_reference,
+                      [rand((B, T, Din), 0.5), rand((D, Din, 4 * H), 0.08), rand((D, H, 4 * H), 0.05),
+                       rand((D, 4 * H), 0.05, torch.float32)], 1e-2)
+        for T, B, Din, H, D in [(100, 336, 64, 128, 2), (42, 800, 64, 128, 2), (250, 256, 128, 128, 2),
+                                (40, 800, 64, 128, 1), (100, 241, 64, 128, 2)])
+
+    print("phase 13: backward through K4, K5, K6 vs autograd of the plain version (rel-l2 < 2e-2)")
+
+    def backward_check(label, kernel, plain, inputs):
+        leaves = [a.clone().requires_grad_() for a in inputs]
+        ref = [a.clone().requires_grad_() for a in inputs]
+        out_k, out_p = kernel(*leaves), plain(*ref)
+        g = rand(tuple(out_p.shape), 1.0, out_p.dtype)
+        rels = [rel_l2(b, a) for a, b in zip(torch.autograd.grad(out_k, leaves, g),
+                                              torch.autograd.grad(out_p, ref, g))]
+        print(f"  {label}: rel-l2 " + ", ".join(f"{r:.4g}" for r in rels))
+        if not max(rels) < 2e-2:
+            raise AssertionError(f"{label} backward: rel-l2 {rels}")
+
+    backward_check("K4 [64, 16, 100]", fused_attention_bdt, attention_bdt_reference,
+                   [rand((64, 16, 100)) for _ in range(3)])
+    backward_check("K5 (40, 2, 24, 128)", fused_bilstm, bilstm_reference,
+                   [rand((40, 2, 24, 512), 0.3), rand((2, 128, 512), 0.05)])
+    backward_check("K6 (30, 150, 64, 128, 2)", resident_bilstm, resident_bilstm_reference,
+                   [rand((150, 30, 64), 0.5), rand((2, 64, 512), 0.08), rand((2, 128, 512), 0.05),
+                    rand((2, 512), 0.05, torch.float32)])
+    return k4_err, k5_err, k6_err
+
+
+def tasnet_paths(model):
+    """(kernel path, plain bf16 path, f32 module) of a TasNet: the first two
+    are a bf16 copy of the module, the second inside ``plain_versions()``."""
+    from audio_only_speech_separation_tpu_torch.ops.kernels import plain_versions
+
+    mk = copy.deepcopy(model).to(torch.bfloat16)
+
+    def kernel(x):
+        with torch.no_grad():
+            return mk(x.to(torch.bfloat16))
+
+    def plain(x):
+        with torch.no_grad(), plain_versions():
+            return mk(x.to(torch.bfloat16))
+
+    def f32(x):
+        with torch.no_grad():
+            return model(x)
+
+    return kernel, plain, f32
+
+
+def tasnet_serving(dev, tasnets):
+    """Phases 14-15: each model end to end against the f32 module, then five
+    requests served from its checkpoint; returns the launches of K4, K5 and
+    K6 while serving."""
+    from audio_only_speech_separation_tpu_torch.models import from_pretrain, save_serialized, serialize
+    from audio_only_speech_separation_tpu_torch.ops.kernels import plain_versions
+    from audio_only_speech_separation_tpu_torch.ops.kernels.attention import fused_attention_bdt
+    from audio_only_speech_separation_tpu_torch.ops.kernels.lstm import fused_bilstm, resident_bilstm
+    from audio_only_speech_separation_tpu_torch.serve import serve
+
+    print("phase 14: DPTNet and DPRNN (wsj0 configs, 8 kHz), kernel path vs plain bf16 vs f32")
+    for name, model in tasnets.items():
+        kernel, plain, f32 = tasnet_paths(model)
+        for batch, secs in ((2, 2.0), (1, 12.0)):
+            x = torch.from_numpy(np.random.default_rng(23).standard_normal(
+                (batch, int(secs * TSR))).astype(np.float32)).to(dev)
+            ref, got, pl = f32(x), kernel(x), plain(x)
+            torch.cuda.synchronize()
+            for out in (got, pl):
+                if out.shape != ref.shape or not torch.isfinite(out.float()).all():
+                    raise AssertionError(f"{name}: bad output {tuple(out.shape)}")
+            print(f"  {name} B={batch} x {secs} s (output scale {float(ref.abs().max()):.4g}):")
+            check_rule(f"{name} B={batch} x {secs} s", max_err(got, ref), max_err(pl, ref))
+
+    print("phase 15: serve 5 requests per model from a checkpoint (bf16, batch 1, 1 s buckets)")
+    req_rng = np.random.default_rng(24)
+    wavs = [req_rng.standard_normal(int(s * TSR)).astype(np.float32) for s in (1.3, 2.0, 4.0, 7.5, 12.0)]
+    served = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, model in tasnets.items():
+            ckpt = os.path.join(tmp, f"{name}.pth")
+            save_serialized(serialize(model), ckpt)
+            served[name] = from_pretrain(ckpt, device=dev).eval()
+    counters = (fused_attention_bdt, fused_bilstm, resident_bilstm)
+    for c in counters:
+        c.launches = 0
+    estimates, per_model = {}, {}
+    for name, model in served.items():
+        before = [c.launches for c in counters]
+        estimates[name] = serve(model, wavs, use_bf16=True, device=dev, bucket_seconds=1.0, batch_size=1)
+        torch.cuda.synchronize()
+        per_model[name] = [c.launches - b for c, b in zip(counters, before)]
+    launches = [c.launches for c in counters]
+    for name, (n4, n5, n6) in per_model.items():
+        print(f"  {name}: launches K4 {n4}, K5 {n5}, K6 {n6}")
+    if not (per_model["DPTNet"][0] > 0 and launches[1] > 0 and launches[2] > 0):
+        raise AssertionError(f"serving did not launch K4, K5 and K6: {per_model}")
+    for name, model in served.items():
+        ref = serve(model, wavs, use_bf16=False, device=dev, bucket_seconds=1.0, batch_size=1)
+        with plain_versions():
+            plain = serve(model, wavs, use_bf16=True, device=dev, bucket_seconds=1.0, batch_size=1)
+        for i, wav in enumerate(wavs):
+            est = estimates[name][i]
+            if est.shape != (2, len(wav)) or not np.isfinite(est).all():
+                raise AssertionError(f"{name} request {i}: bad estimate {est.shape}")
+            check_rule(f"{name} request {i} ({len(wav) / TSR:.1f} s)", float(np.abs(est - ref[i]).max()),
+                       float(np.abs(plain[i] - ref[i]).max()))
+    return tuple(launches)
+
+
+def tasnet_timing(dev, card, tasnets):
+    """Phase 16: both models at B=8 x 2 s x 8 kHz (kernel path, plain bf16
+    path, f32 module), the kernel path under torch.profiler, and K4, K5 and
+    K6 alone at main-path shapes beside their plain versions and PyTorch
+    yardsticks; returns the three kernels' timing entries."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio_only_speech_separation_tpu_torch.ops.kernels.attention import (
+        attention_bdt_reference,
+        fused_attention_bdt,
+    )
+    from audio_only_speech_separation_tpu_torch.ops.kernels.lstm import (
+        bilstm_reference,
+        fused_bilstm,
+        resident_bilstm,
+        resident_bilstm_reference,
+    )
+
+    print(f"phase 16: timing, B=8 x 2 s x 8 kHz, on {card}")
+    rand = rand_maker(26, dev)
+    x8 = torch.from_numpy(np.random.default_rng(25).standard_normal((8, 2 * TSR)).astype(np.float32)).to(dev)
+    runs = {}
+    for name, model in tasnets.items():
+        kernel, plain, f32 = tasnet_paths(model)
+        runs[f"{name} kernel path"] = lambda f=kernel: f(x8)
+        runs[f"{name} plain bf16 path"] = lambda f=plain: f(x8)
+        runs[f"{name} f32 module"] = lambda f=f32: f(x8)
+    for fn in runs.values():
+        for _ in range(2):
+            fn()
+    torch.cuda.synchronize()
+    times = {k: [] for k in runs}
+    for _ in range(10):  # in turns
+        for name, fn in runs.items():
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    for name, v in ms.items():
+        print(f"  {name}: {v:.4f} ms/call, {8 * 2.0 / (v / 1000):.2f} audio-sec/s (median of 10, {card})")
+
+    counters = (("K4", fused_attention_bdt, "attention_kernel"), ("K5", fused_bilstm, "lstm_kernel<false>"),
+                ("K6", resident_bilstm, "lstm_kernel<true>"))
+    for name in tasnets:
+        fn, calls = runs[f"{name} kernel path"], 5
+        for _, c, _ in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+        dev_us = {g: 0.0 for g, _, _ in counters}
+        busy_us = 0.0
+        for evt in prof.key_averages():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            busy_us += evt.self_device_time_total
+            for g, _, key in counters:
+                if key in evt.key:
+                    dev_us[g] += evt.self_device_time_total
+        busy_ms = busy_us / 1e3 / calls
+        print(f"  {name} kernel path under torch.profiler, per call: " + ", ".join(
+            f"{g} {dev_us[g] / 1e3 / calls:.4f} ms device, {c.launches / calls:g} launches"
+            for g, c, _ in counters)
+            + f"; all device work {busy_ms:.4f} ms; wall {wall_ms:.4f} ms with the profiler; idle share "
+            f"{1 - busy_ms / wall_ms:.4f} (profiler on), {1 - busy_ms / ms[f'{name} kernel path']:.4f} "
+            "(against the unprofiled time)")
+
+    def timed(fn, reps=20):
+        with torch.no_grad():
+            return cuda_time(fn, reps=reps, warmup=3)
+
+    def lstm_yardstick(x):
+        """bf16 nn.LSTM(64, 128, bidirectional) on x, or None where the
+        installed PyTorch has no bf16 LSTM on this card."""
+        lstm = torch.nn.LSTM(64, 128, batch_first=True, bidirectional=True).to(dev, torch.bfloat16)
+        lstm.flatten_parameters()
+        try:
+            return timed(lambda: lstm(x))
+        except RuntimeError as e:
+            print(f"  nn.LSTM in bf16 not timed: {e}")
+            return None
+
+    print(f"  kernels alone at main-path shapes (median of 20, CUDA events, {card}):")
+    q, k, v = (rand((1344, 16, 100)) for _ in range(3))  # DPTNet rows at B=8 x 2 s
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    k4 = {"ms": timed(lambda: fused_attention_bdt(q, k, v)),
+          "plain_ms": timed(lambda: attention_bdt_reference(q, k, v)),
+          "library_ms": timed(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))}
+    k4["bound_ms"], k4["bound_by"] = least_time(4 * q.numel() * 2, 4 * 1344 * 100 * 100 * 16)
+    xw, whh = rand((242, 2, 100, 512), 0.3), rand((2, 128, 512), 0.05)  # batch-1 12 s inter pass
+    k5 = {"ms": timed(lambda: fused_bilstm(xw, whh)), "plain_ms": timed(lambda: bilstm_reference(xw, whh), 3),
+          "library_ms": None, "yardstick_ms": lstm_yardstick(rand((100, 242, 64), 0.5))}
+    k5["bound_ms"], k5["bound_by"] = least_time((xw.numel() + xw.numel() // 4 + whh.numel()) * 2,
+                                           2 * 242 * 2 * 100 * 128 * 512)
+    x6, wih6, whh6, b6 = (rand((336, 100, 64), 0.5), rand((2, 64, 512), 0.08), rand((2, 128, 512), 0.05),
+                          rand((2, 512), 0.05, torch.float32))  # DPRNN rows at B=8 x 2 s
+    k6 = {"ms": timed(lambda: resident_bilstm(x6, wih6, whh6, b6)),
+          "plain_ms": timed(lambda: resident_bilstm_reference(x6, wih6, whh6, b6), 3),
+          "library_ms": lstm_yardstick(x6)}
+    k6["bound_ms"], k6["bound_by"] = least_time(
+        x6.numel() * 2 + (wih6.numel() + whh6.numel()) * 2 + b6.numel() * 4 + 100 * 2 * 336 * 128 * 2,
+        2 * 100 * 2 * 336 * (64 + 128) * 512)
+    for label, d in (("K4 [1344, 16, 100], SDPA beside it", k4),
+                     ("K5 (242, 2, 100, 128), nn.LSTM on [100, 242, 64] as a yardstick", k5),
+                     ("K6 (100, 336, 64, 128, 2), nn.LSTM beside it", k6)):
+        print(f"  {label}: " + ", ".join(f"{key} {val:.6g}" if isinstance(val, float) else f"{key} {val}"
+                                          for key, val in d.items()))
+    for label, T, B in (("DPRNN columns", 42, 800), ("batch-1 rows", 100, 242)):
+        x = rand((B, T, 64), 0.5)
+        lib = lstm_yardstick(x)
+        print(f"  K6 {label} (T={T}, B={B}): {timed(lambda: resident_bilstm(x, wih6, whh6, b6)):.4f} ms, "
+              f"nn.LSTM " + ("not timed" if lib is None else f"{lib:.4f} ms"))
+    qc, kc, vc = (rand((3200, 16, 42)) for _ in range(3))
+    print(f"  K4 DPTNet columns [3200, 16, 42]: {timed(lambda: fused_attention_bdt(qc, kc, vc)):.4f} ms")
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return k4, k5, k6
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels need one")
@@ -344,6 +706,7 @@ def main() -> None:
     packed = pack_convtasnet_full_params(model.state_dict(), 3, 8, 3, device=dev)
     x = torch.from_numpy(np.random.default_rng(6).standard_normal((8, 2 * SR)).astype(np.float32)).to(dev)
     frames = inference_frames(model, x)
+    frames_bench = frames.shape[1]
     *w, dils = packed
     kw = dict(dilations=dils, nspk=3)
     runs = {
@@ -580,16 +943,37 @@ def main() -> None:
         print(f"  {name}: {t:.4f} ms (B={batch} x 2 s, median, CUDA events, {card})")
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
+    k4_err, k5_err, k6_err = dualpath_kernel_checks(dev)
+    tasnets = {"DPTNet": tasnet_model("DPTNet", 21, dev), "DPRNN": tasnet_model("DPRNN", 22, dev)}
+    k4_launches, k5_launches, k6_launches = tasnet_serving(dev, tasnets)
+    k4, k5, k6 = tasnet_timing(dev, card, tasnets)
+
+    k1_b, k1_by = least_time(*separator_work(8, frames_bench))
+    k2_b, k2_by = least_time(*chain_work(batch, T_train))
+    k3_b, k3_by = least_time(*chain_work(batch, T_train, products=5))
+
     print(json.dumps({"kernels": [
         {"name": "convtasnet_separator", "route": "cuda", "source": CSRC + "convtasnet_separator.cu",
          "replaces": PALLAS + "convtasnet_block.py:74", "launches": k1_launches,
-         "max_abs_err": errs["lrs3"], "ms": ms["separator kernel"], "plain_ms": ms["separator plain"]},
+         "max_abs_err": errs["lrs3"], "ms": ms["separator kernel"], "plain_ms": ms["separator plain"],
+         "bound_ms": k1_b, "bound_by": k1_by, "library_ms": None},
         {"name": "tcn_separator", "route": "cuda", "source": CSRC + "convtasnet_separator.cu",
          "replaces": PALLAS + "convtasnet_block.py:801", "launches": k2_launches,
-         "max_abs_err": k2_err, "ms": ms9["K2 kernel"], "plain_ms": ms9["K2 plain"]},
+         "max_abs_err": k2_err, "ms": ms9["K2 kernel"], "plain_ms": ms9["K2 plain"],
+         "bound_ms": k2_b, "bound_by": k2_by, "library_ms": None},
         {"name": "tcn_backward", "route": "cuda", "source": CSRC + "convtasnet_backward.cu",
          "replaces": PALLAS + "convtasnet_backward.py:145", "launches": k3_launches,
-         "max_abs_err": k3_err, "ms": ms9["K3 kernel"], "plain_ms": ms9["K3 plain"]},
+         "max_abs_err": k3_err, "ms": ms9["K3 kernel"], "plain_ms": ms9["K3 plain"],
+         "bound_ms": k3_b, "bound_by": k3_by, "library_ms": None},
+        {"name": "attention_bdt", "route": "cuda", "source": CSRC + "attention.cu",
+         "replaces": PALLAS + "attention.py:43", "launches": k4_launches, "max_abs_err": k4_err,
+         **{key: k4[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+        {"name": "lstm_recurrence", "route": "cuda", "source": CSRC + "lstm.cu",
+         "replaces": PALLAS + "lstm.py:42", "launches": k5_launches, "max_abs_err": k5_err,
+         **{key: k5[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+        {"name": "lstm_resident", "route": "cuda", "source": CSRC + "lstm.cu",
+         "replaces": PALLAS + "lstm.py:211", "launches": k6_launches, "max_abs_err": k6_err,
+         **{key: k6[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -191,3 +191,151 @@ def test_train_step_through_the_kernels(cuda):
             assert float(a.sum()) * float(b.sum()) > 0 and _rel(a, b) < 0.5, name
         else:
             assert _rel(a, b) < 0.1, (name, _rel(a, b))
+
+
+# ---------------------------------------------------------------------------
+# The dual-path kernels: attention (K4) and the LSTM recurrences (K5, K6)
+# ---------------------------------------------------------------------------
+
+from audio_only_speech_separation_tpu_torch.ops.kernels.attention import (  # noqa: E402
+    attention_bdt_reference,
+    fused_attention_bdt,
+)
+from audio_only_speech_separation_tpu_torch.ops.kernels.lstm import (  # noqa: E402
+    bilstm_reference,
+    fused_bilstm,
+    resident_bilstm,
+    resident_bilstm_reference,
+)
+
+
+def _bf16(dev, a):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(dev, torch.bfloat16)
+
+
+# the JAX validator's shapes (scripts/validate_pallas.py:183), DPTNet's rows
+# and columns, and edge cases: dh not a multiple of 16, T = 1, a ragged tile
+ATTN_CASES = [(512, 32, 250), (16, 64, 129), (1344, 16, 100), (3200, 16, 42),
+              (3, 8, 1), (5, 24, 77), (2, 256, 300)]
+
+
+@pytest.mark.parametrize("BH,dh,T", ATTN_CASES)
+def test_attention_matches_plain_version(cuda, BH, dh, T):
+    """K4 against its plain version on unit-normal q, k, v: bf16 max abs
+    < 2e-2 (the validator's bound), one launch a call, bit-identical runs."""
+    rng = np.random.default_rng(BH + dh + T)
+    q, k, v = (_bf16(cuda, rng.standard_normal((BH, dh, T))) for _ in range(3))
+    before = fused_attention_bdt.launches
+    got = fused_attention_bdt(q, k, v)
+    again = fused_attention_bdt(q, k, v)
+    want = attention_bdt_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert fused_attention_bdt.launches - before == 2
+    assert torch.equal(got, again)
+    assert float((got.float() - want.float()).abs().max()) < 2e-2
+
+
+# (T, D, B, H): the validator's (scripts/validate_pallas.py:283), the batch-1
+# inter-chunk pass, and a small odd batch
+BILSTM_CASES = [(251, 2, 64, 256), (250, 2, 96, 128), (128, 1, 32, 128), (242, 2, 100, 128),
+                (9, 2, 3, 16)]
+
+
+@pytest.mark.parametrize("T,D,B,H", BILSTM_CASES)
+def test_bilstm_recurrence_matches_plain_version(cuda, T, D, B, H):
+    """K5 against its plain version on the validator's inputs (xw * 0.3,
+    w_hh * 0.05): max abs < 1e-2, one launch a call."""
+    rng = np.random.default_rng(T + B)
+    xw = _bf16(cuda, rng.standard_normal((T, D, B, 4 * H)) * 0.3)
+    whh = _bf16(cuda, rng.standard_normal((D, H, 4 * H)) * 0.05)
+    before = fused_bilstm.launches
+    got = fused_bilstm(xw, whh)
+    want = bilstm_reference(xw, whh)
+    torch.cuda.synchronize()
+    assert fused_bilstm.launches - before == 1
+    assert got.shape == (T, D, B, H)
+    assert float((got.float() - want.float()).abs().max()) < 1e-2
+
+
+# (T, B, Din, H, D, bias): the validator's (scripts/validate_pallas.py:246)
+# at this model's chunk counts, an odd batch, and no bias
+RESIDENT_CASES = [(100, 336, 64, 128, 2, True), (42, 800, 64, 128, 1, True),
+                  (100, 241, 64, 128, 2, True), (250, 256, 128, 128, 2, True),
+                  (7, 19, 32, 32, 2, False)]
+
+
+@pytest.mark.parametrize("T,B,Din,H,D,with_bias", RESIDENT_CASES)
+def test_resident_bilstm_matches_plain_version(cuda, T, B, Din, H, D, with_bias):
+    """K6 against its plain version on the validator's inputs (x * 0.5,
+    w_ih * 0.08, w_hh * 0.05, bias * 0.05): max abs < 1e-2."""
+    rng = np.random.default_rng(T + B + Din)
+    x = _bf16(cuda, rng.standard_normal((B, T, Din)) * 0.5)
+    wih = _bf16(cuda, rng.standard_normal((D, Din, 4 * H)) * 0.08)
+    whh = _bf16(cuda, rng.standard_normal((D, H, 4 * H)) * 0.05)
+    bias = (torch.from_numpy((rng.standard_normal((D, 4 * H)) * 0.05).astype(np.float32)).to(cuda)
+            if with_bias else None)
+    before = resident_bilstm.launches
+    got = resident_bilstm(x, wih, whh, bias)
+    want = resident_bilstm_reference(x, wih, whh, bias)
+    torch.cuda.synchronize()
+    assert resident_bilstm.launches - before == 1
+    assert got.shape == (T, D, B, H)
+    assert float((got.float() - want.float()).abs().max()) < 1e-2
+
+
+def test_dualpath_kernel_backward_matches_plain_autograd(cuda):
+    """Each wrapper's backward (autograd through its plain version) against
+    autograd of the plain version: rel-l2 < 2e-2 for every input."""
+    rng = np.random.default_rng(7)
+
+    def check(kernel, plain, *inputs):
+        leaves = [t.clone().requires_grad_(t.is_floating_point()) for t in inputs]
+        ref = [t.clone().requires_grad_(t.is_floating_point()) for t in inputs]
+        out_k, out_p = kernel(*leaves), plain(*ref)
+        g = torch.from_numpy(rng.standard_normal(out_p.shape).astype(np.float32)).to(cuda, out_p.dtype)
+        gk = torch.autograd.grad(out_k, leaves, g)
+        gp = torch.autograd.grad(out_p, ref, g)
+        for a, b in zip(gp, gk):
+            assert _rel(a, b) < 2e-2
+
+    q, k, v = (_bf16(cuda, rng.standard_normal((6, 16, 37))) for _ in range(3))
+    check(fused_attention_bdt, attention_bdt_reference, q, k, v)
+    xw = _bf16(cuda, rng.standard_normal((11, 2, 5, 64)) * 0.3)
+    whh = _bf16(cuda, rng.standard_normal((2, 16, 64)) * 0.05)
+    check(fused_bilstm, bilstm_reference, xw, whh)
+    x = _bf16(cuda, rng.standard_normal((140, 9, 16)) * 0.5)
+    wih = _bf16(cuda, rng.standard_normal((2, 16, 64)) * 0.08)
+    bias = torch.from_numpy((rng.standard_normal((2, 64)) * 0.05).astype(np.float32)).to(cuda)
+    check(resident_bilstm, resident_bilstm_reference, x, wih, whh, bias)
+
+
+@pytest.mark.parametrize("module", ["DPRNN", "DPTNet"])
+@pytest.mark.parametrize("batch", [1, 6])
+def test_tasnet_kernel_path_meets_the_validator_rule(cuda, module, batch):
+    """A small TasNet cast to bf16 on the card runs its LSTMs (and DPTNet
+    its attention) through the kernels (1.5 s: 62 chunks of 50 frames, so
+    batch 1 gives 62 and 50 sequences, all K5; batch 6 gives 372 and 300,
+    all K6) and stays within 1.5 * (plain bf16 error) + 1e-3 of the f32
+    module."""
+    import copy
+
+    from audio_only_speech_separation_tpu_torch.models import TasNet
+    from audio_only_speech_separation_tpu_torch.ops.kernels import plain_versions
+
+    m = TasNet(enc_dim=64, bn_dim=64, hidden_dim=128, layer=2, module=module, block_size=50,
+               sample_rate=8000, generator=torch.Generator().manual_seed(3)).to(cuda).eval()
+    mk = copy.deepcopy(m).to(torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((batch, 12000)).astype(np.float32)).to(cuda)
+    counters = (fused_attention_bdt, fused_bilstm, resident_bilstm)
+    before = [c.launches for c in counters]
+    with torch.no_grad():
+        ref = m(x)
+        got = mk(x.to(torch.bfloat16))
+        with plain_versions():
+            plain = mk(x.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    n4, n5, n6 = (c.launches - b for c, b in zip(counters, before))
+    assert (n4 > 0) == (module == "DPTNet")
+    assert (n5 > 0, n6 > 0) == ((True, False) if batch == 1 else (False, True))
+    err, plain_err = float((got.float() - ref).abs().max()), float((plain.float() - ref).abs().max())
+    assert err <= 1.5 * plain_err + 1e-3, (err, plain_err)

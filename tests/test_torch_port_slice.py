@@ -12,6 +12,7 @@ import numpy as np
 import torch
 from torch_port_helpers import make_pair
 
+from audio_only_speech_separation_tpu.models import TasNet as JTasNet
 from audio_only_speech_separation_tpu.models import save_serialized as jax_save
 from audio_only_speech_separation_tpu.models import serialize as jax_serialize
 from audio_only_speech_separation_tpu.utils.separator import separate as jax_separate
@@ -60,13 +61,13 @@ _GUARD = textwrap.dedent(
     import importlib, importlib.abc, pkgutil, sys
     BLOCKED = ("jax", "jaxlib", "flax", "optax", "yaml")
     JAX_PKG = "audio_only_speech_separation_tpu"
-    ALLOWED = (JAX_PKG, JAX_PKG + ".data")  # the JAX-free data layer
+    ALLOWED = ()  # no module of the JAX package, not even a JAX-free one
 
     def jax_package_module(name):
         return name == JAX_PKG or name.startswith(JAX_PKG + ".")
 
     def allowed(name):
-        return name in ALLOWED or name.startswith(JAX_PKG + ".data.")
+        return name in ALLOWED
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -82,10 +83,14 @@ _GUARD = textwrap.dedent(
     for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
         importlib.import_module(m.name)
     import chip_smoke
-    import audio_only_speech_separation_tpu.data as datas
-    assert datas.get("LRS3DataModule") is not None
+    import audio_only_speech_separation_tpu_torch.data as datas
+    assert datas.get("LRS3DataModule").__module__.startswith(pkg.__name__ + ".data")
+    assert datas.get("LRS2DataModule") is not None
     from audio_only_speech_separation_tpu_torch.models import ConvTasNet, from_pretrain
     assert from_pretrain(sys.argv[1]).num_spks == 2  # a JAX-written checkpoint
+    tasnet = from_pretrain(sys.argv[2]).eval()  # a JAX-written TasNet (DPTNet) checkpoint
+    with torch.no_grad():
+        assert tasnet(torch.zeros(1, 900)).shape == (1, 2, 900)
     from audio_only_speech_separation_tpu_torch.models.convtasnet import (
         fused_inference_forward, make_kernel_train_apply)
     model = ConvTasNet(N=128, H=128, X=2, R=1).eval()
@@ -116,14 +121,20 @@ _GUARD = textwrap.dedent(
 
 
 def test_port_imports_no_jax(tmp_path):
-    """Every module of the port, and chip_smoke.py, imports, loads a
-    checkpoint the JAX package wrote, runs a tiny forward and one bf16
-    train step, with jax, jaxlib, flax, optax, yaml and every module of the
-    JAX package but its JAX-free data layer blocked."""
+    """Every module of the port, and chip_smoke.py, imports, loads
+    checkpoints the JAX package wrote (a ConvTasNet and a TasNet), runs tiny
+    forwards and one bf16 train step, with jax, jaxlib, flax, optax, yaml and
+    every module of the JAX package blocked (its data layer too: the port
+    has its own)."""
     jm, params, _ = make_pair(seed=13)
     ckpt = str(tmp_path / "best_model.pth")
     jax_save(jax_serialize(jm, params), ckpt)
+    jt = JTasNet(enc_dim=16, bn_dim=16, hidden_dim=16, layer=1, module="DPTNet", block_size=10,
+                 sample_rate=8000)
+    tasnet_ckpt = str(tmp_path / "tasnet.pth")
+    jax_save(jax_serialize(jt, jt.init(jax.random.PRNGKey(0), np.zeros((1, 200), np.float32))),
+             tasnet_ckpt)
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    res = subprocess.run([sys.executable, "-c", _GUARD, ckpt], cwd=REPO, env=env,
+    res = subprocess.run([sys.executable, "-c", _GUARD, ckpt, tasnet_ckpt], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-3000:]

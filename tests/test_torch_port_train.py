@@ -14,8 +14,8 @@ import torch
 
 import audio_only_speech_separation_tpu.train.optimizers as jopt
 import audio_only_speech_separation_tpu.train.schedulers as jsched
-from audio_only_speech_separation_tpu.data.audio_io import write_wav
 from audio_only_speech_separation_tpu_torch import audio_train
+from audio_only_speech_separation_tpu_torch.data.audio_io import write_wav
 from audio_only_speech_separation_tpu_torch.models import ConvTasNet, from_pretrain
 from audio_only_speech_separation_tpu_torch.train import (
     AudioLightningModule,
@@ -171,13 +171,13 @@ def test_audio_train_main_trains_resumes_and_serves(manifests, tmp_path, monkeyp
     epochs resumes from last.ckpt and trains only epoch 1; best_model.pth
     loads through from_pretrain and separates."""
     monkeypatch.chdir(tmp_path)
-    exp_dir = audio_train.main(_config(manifests, epochs=1))
+    exp_dir = audio_train.main(_config(manifests, epochs=1), device="cpu")
     files = set(os.listdir(exp_dir))
     assert {"conf.yml", "last.ckpt", "epoch=0.ckpt", "best_k_models.json", "best_model.pth"} <= files
     assert json.loads(open(os.path.join(exp_dir, "conf.yml")).read())["training"]["fused_forward"]
     capsys.readouterr()
 
-    audio_train.main(_config(manifests, epochs=2))
+    audio_train.main(_config(manifests, epochs=2), device="cpu")
     out = capsys.readouterr().out
     assert "epoch 1:" in out and "epoch 0:" not in out
     assert "epoch=1.ckpt" in os.listdir(exp_dir)
@@ -197,7 +197,7 @@ def test_trainer_fit_other_precisions_and_resume_restores_weights(manifests, tmp
     """The f32 module and the bf16 module under autocast each train an
     epoch; a new Trainer on the same directory restores the weights of
     last.ckpt into a freshly built model."""
-    import audio_only_speech_separation_tpu.data as datas
+    from audio_only_speech_separation_tpu_torch import data as datas
     from audio_only_speech_separation_tpu_torch import losses
 
     def system(seed):
@@ -216,13 +216,50 @@ def test_trainer_fit_other_precisions_and_resume_restores_weights(manifests, tmp
     exp = str(tmp_path / "exp")
     first = system(seed=1)
     before = {k: v.clone() for k, v in first.audio_model.state_dict().items()}
-    Trainer(exp, epochs=1, precision=precision, fused_forward=fused,
+    Trainer(exp, epochs=1, precision=precision, fused_forward=fused, device="cpu",
             logger=CSVLogger(str(tmp_path / "logs"))).fit(first)
     trained = first.audio_model.state_dict()
     assert any(not torch.equal(before[k], trained[k]) for k in before)
 
     second = system(seed=2)
-    Trainer(exp, epochs=1, precision=precision, fused_forward=fused,
+    Trainer(exp, epochs=1, precision=precision, fused_forward=fused, device="cpu",
             logger=CSVLogger(str(tmp_path / "logs"))).fit(second)
     for k, v in second.audio_model.state_dict().items():
         assert torch.equal(v, trained[k]), k
+
+
+def test_data_layer_matches_jax(manifests):
+    """The port's data layer, built on the same manifests as the JAX
+    package's, yields the same train, val and test batches: the same random
+    crops, order and keys."""
+    import audio_only_speech_separation_tpu.data as jdatas
+    from audio_only_speech_separation_tpu_torch import data as datas
+
+    kw = dict(train_dir=str(manifests / "tr"), valid_dir=str(manifests / "cv"),
+              test_dir=str(manifests / "tt"), n_src=2, sample_rate=SR, segment=0.25,
+              batch_size=2, num_workers=2)
+    ours, theirs = datas.get("LRS2DataModule")(**kw), jdatas.get("LRS2DataModule")(**kw)
+    ours.setup()
+    theirs.setup()
+    for epoch in (0, 1):
+        for a, b in zip(ours.make_loader, theirs.make_loader):
+            a.set_epoch(epoch)
+            b.set_epoch(epoch)
+            got, want = list(a), list(b)
+            assert len(got) == len(want) > 0
+            for (m1, s1, k1), (m2, s2, k2) in zip(got, want):
+                assert np.array_equal(m1, m2) and np.array_equal(s1, s2) and k1 == k2
+    with pytest.raises(ValueError):
+        datas.get("WSJ0DataModule")  # not ported yet
+
+
+def test_trainer_and_main_default_to_the_card(manifests, tmp_path, monkeypatch):
+    """Without a card, ``Trainer`` and ``audio_train.main`` raise unless the
+    caller asks for the CPU: nothing trains on the CPU quietly."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(str(tmp_path / "exp"), logger=CSVLogger(str(tmp_path / "logs")))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        audio_train.main(_config(manifests, epochs=1))
+    assert Trainer(str(tmp_path / "exp"), device="cpu",
+                   logger=CSVLogger(str(tmp_path / "logs"))).device.type == "cpu"
