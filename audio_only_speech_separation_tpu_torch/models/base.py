@@ -76,8 +76,10 @@ def _is_jax_tree(state: Dict[str, Any]) -> bool:
     return set(state) == {"params"} and isinstance(state["params"], dict)
 
 
-def from_pretrain(pretrained_model_conf_or_path, device=None, **kwargs) -> BaseModel:
-    """Rebuild a model with its weights from a serialised checkpoint.
+def from_pretrain(pretrained_model_conf_or_path, device="cuda", **kwargs) -> BaseModel:
+    """Rebuild a model with its weights from a serialised checkpoint, on
+    ``device``: the CUDA card unless the caller asks for the CPU (raises
+    when there is no card).
 
     Accepts a path or an already-loaded dict, written by this package or by
     the JAX package (whose ``state_dict`` is the nested ``{"params": ...}``
@@ -86,6 +88,9 @@ def from_pretrain(pretrained_model_conf_or_path, device=None, **kwargs) -> BaseM
     from ..utils.jax_import import from_jax
     from . import get
 
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("from_pretrain: no CUDA device; pass device=\"cpu\" to load on the CPU")
     if isinstance(pretrained_model_conf_or_path, (str, bytes)):
         with open(pretrained_model_conf_or_path, "rb") as f:
             conf = pickle.load(f)

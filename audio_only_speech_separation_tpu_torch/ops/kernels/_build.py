@@ -95,6 +95,8 @@ def load_library() -> ctypes.CDLL:
     lib.tcn_backward_workspace_bytes.restype = ctypes.c_size_t
     lib.tcn_backward.argtypes = [p] * 14 + [i, i, i, i, ctypes.POINTER(i), p]
     lib.tcn_backward.restype = i
+    lib.tcn_backward_launches.argtypes = [i]
+    lib.tcn_backward_launches.restype = i
     lib.convtasnet_error_string.argtypes = [i]
     lib.convtasnet_error_string.restype = ctypes.c_char_p
     lib.attention_bdt.argtypes = [p] * 4 + [i, i, i, p]
@@ -103,6 +105,10 @@ def load_library() -> ctypes.CDLL:
     lib.lstm_recurrence.restype = i
     lib.lstm_resident.argtypes = [p] * 5 + [i] * 5 + [p]
     lib.lstm_resident.restype = i
+    lib.lstm_resident_launches.argtypes = []
+    lib.lstm_resident_launches.restype = i
+    lib.lstm_resident_cluster.argtypes = [i] * 4
+    lib.lstm_resident_cluster.restype = i
     return lib
 
 

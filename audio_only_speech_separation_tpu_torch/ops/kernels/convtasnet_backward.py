@@ -49,8 +49,8 @@ def fused_tcn_backward(g, y_hist, y_fin, stats, w1s, wsgs, vecs, cs, alphas,
     [nb, 128, H], dwsgs [nb, H, 128], dvecs [nb, 8, H] (row 7 zero), dcs
     [nb, 2, 128], dalphas [nb, 2]), all f32 but dx.
 
-    A CUDA tensor runs the CUDA kernel sequence (10*nb + 2 launches, added
-    to ``fused_tcn_backward.launches``) or raises; a CPU tensor runs
+    A CUDA tensor runs the CUDA kernel sequence (``tcn_backward_launches(nb)``
+    launches, added to ``fused_tcn_backward.launches``) or raises; a CPU tensor runs
     ``tcn_backward_reference``."""
     if g.device.type == "cpu":
         return tcn_backward_reference(g, y_hist, y_fin, stats, w1s, wsgs, vecs, cs, alphas,
@@ -96,13 +96,21 @@ def fused_tcn_backward(g, y_hist, y_fin, stats, w1s, wsgs, vecs, cs, alphas,
             B, T, H, nb, dils, stream,
         )
     check_launch(lib, "tcn_backward", rc)
-    fused_tcn_backward.launches += 10 * nb + 2
+    fused_tcn_backward.launches += lib.tcn_backward_launches(nb)
     dalphas = dvecs[:, 7, :2].clone()
     dvecs[:, 7] = 0.0
     return gbuf[:, :T].to(bf), dw1s, dwsgs, dvecs, dcs, dalphas
 
 
 fused_tcn_backward.launches = 0
+
+
+def tcn_backward_launches(nb: int) -> int:
+    """Launches of one ``fused_tcn_backward`` call over nb blocks on a CUDA
+    tensor, as the library reports them (loads the library)."""
+    from ._build import load_library
+
+    return load_library().tcn_backward_launches(nb)
 
 
 class TCNChain(torch.autograd.Function):

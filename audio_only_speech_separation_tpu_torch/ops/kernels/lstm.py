@@ -18,13 +18,17 @@ and the plain versions are the JAX package's ``_xla_bilstm`` and
 ``_xla_resident_ref``.
 
 Both kernels live in ``csrc/lstm.cu`` (bf16, H % 16 == 0, H <= 256; the
-resident form also Din % 16 == 0).  Their backward recomputes through the
-plain version under autograd, as the JAX package's custom VJPs do; no
+resident form also Din % 16 == 0).  The resident kernel takes W_ih and W_hh
+packed by ``pack_gate_fragments``: gate columns interleaved so that one
+thread's mma accumulators hold i, f, g and o of its own cells, in the
+fragment order of ``mma.sync.m16n8k16``.  Their backward recomputes through
+the plain version under autograd, as the JAX package's custom VJPs do; no
 backward kernel exists there to port.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -73,6 +77,54 @@ def resident_bilstm_reference(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.T
     return hs
 
 
+def gate_interleave(H: int) -> torch.Tensor:
+    """perm [4H]: packed gate column p is torch-order column perm[p].  In
+    each 16 packed columns (an n-tile pair of 8), the first 8 hold (i, f)
+    and the next 8 (g, o) of 4 hidden units, as accumulator columns 2q and
+    2q + 1 of lane q: column 8*nt + c is gate 2*(nt % 2) + c % 2 of unit
+    4*(nt // 2) + c // 2."""
+    p = torch.arange(4 * H)
+    nt, c = p // 8, p % 8
+    return (2 * (nt % 2) + c % 2) * H + 4 * (nt // 2) + c // 2
+
+
+def _fragment_order(w: torch.Tensor) -> torch.Tensor:
+    D, K, G = w.shape
+    wp = w[:, :, gate_interleave(G // 4).to(w.device)]
+    # k = 16 ks + 8 hi + 2 q + lo, n = 8 nt + r; lane = 4 r + q, e = 2 hi + lo
+    wr = wp.reshape(D, K // 16, 2, 4, 2, G // 8, 8)
+    return wr.permute(0, 5, 1, 6, 3, 2, 4).reshape(D, G // 8, K // 16, 32, 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _fragment_index(K: int, H: int, device: torch.device) -> torch.Tensor:
+    """Flat positions in a [K, 4H] weight of the packed elements, on
+    ``device`` (made once, so a call copies nothing from the host)."""
+    flat = torch.arange(K * 4 * H).reshape(1, K, 4 * H)
+    return _fragment_order(flat).reshape(-1).to(device)
+
+
+def pack_gate_fragments(w: torch.Tensor) -> torch.Tensor:
+    """w [D, K, 4H] (torch gate order) -> [D, 4H/8, K/16, 32, 4]: the gate
+    columns interleaved (``gate_interleave``), then each 16 x 8 block in
+    the B-fragment order of ``mma.sync.m16n8k16``: lane l of n-tile nt at
+    k-step ks holds B[16 ks + 2 (l % 4) + e % 2 + 8 (e // 2)][8 nt + l // 4]
+    for e = 0..3.  One gather."""
+    D, K, G = w.shape
+    idx = _fragment_index(K, G // 4, w.device)
+    return w.reshape(D, K * G)[:, idx].reshape(D, G // 8, K // 16, 32, 4)
+
+
+def unpack_gate_fragments(packed: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``pack_gate_fragments``: [D, 4H/8, K/16, 32, 4] ->
+    [D, K, 4H] in torch gate order."""
+    D, NT, KS = packed.shape[:3]
+    G = 8 * NT
+    wr = packed.reshape(D, NT, KS, 8, 4, 2, 2).permute(0, 2, 5, 4, 6, 1, 3)
+    wp = wr.reshape(D, 16 * KS, G)
+    return wp[:, :, torch.argsort(gate_interleave(G // 4)).to(packed.device)]
+
+
 def _check_hidden(H: int) -> None:
     if H % 16 != 0 or not 16 <= H <= 256:
         raise ValueError(f"kernel takes H % 16 == 0 and 16 <= H <= 256; got H={H}")
@@ -115,14 +167,15 @@ def _launch_resident(x, w_ih, w_hh, bias):
     if bias is None:
         bias = torch.zeros((D, G), dtype=torch.float32, device=dev)
     _check("bias", bias, (D, G), torch.float32, dev)
+    wih_p, whh_p = pack_gate_fragments(w_ih), pack_gate_fragments(w_hh)
     out = torch.empty((T, D, B, H), dtype=torch.bfloat16, device=dev)
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.lstm_resident(x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(),
+        rc = lib.lstm_resident(x.data_ptr(), wih_p.data_ptr(), whh_p.data_ptr(), bias.data_ptr(),
                                out.data_ptr(), T, D, B, Din, H, stream)
     check_launch(lib, "lstm_resident", rc)
-    resident_bilstm.launches += 1
+    resident_bilstm.launches += lib.lstm_resident_launches()
     return out
 
 
@@ -172,8 +225,8 @@ def resident_bilstm(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
     bf16, w_ih [D, Din, 4H] bf16, w_hh [D, H, 4H] bf16, bias [D, 4H] f32 or
     None -> [T, D, B, H] bf16, both directions aligned to input time.
 
-    A CUDA tensor launches the kernel (one launch, added to
-    ``resident_bilstm.launches``) or raises; a CPU tensor runs
+    A CUDA tensor launches the kernel (``resident_launches()`` launches,
+    added to ``resident_bilstm.launches``) or raises; a CPU tensor runs
     ``resident_bilstm_reference``.  Differentiable."""
     if x.device.type == "cpu":
         return resident_bilstm_reference(x, w_ih, w_hh, bias)
@@ -183,3 +236,22 @@ def resident_bilstm(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
 
 
 resident_bilstm.launches = 0
+
+
+def resident_launches() -> int:
+    """Launches of one ``resident_bilstm`` call on a CUDA tensor, as the
+    library reports them (loads the library)."""
+    from ._build import load_library
+
+    return load_library().lstm_resident_launches()
+
+
+def resident_cluster(B: int, D: int, Din: int, H: int) -> int:
+    """The thread-block cluster size (1, 2 or 4) ``resident_bilstm`` takes on
+    the current CUDA device for this shape (loads the library)."""
+    from ._build import load_library
+
+    cl = load_library().lstm_resident_cluster(B, D, Din, H)
+    if cl < 1:
+        raise RuntimeError("lstm_resident_cluster: CUDA error")
+    return cl

@@ -29,10 +29,11 @@ path (DPTNet and DPRNN on the wsj0 configs, 8 kHz) through the attention
    (3 speakers, 2 s, batch 12, 3 optimizer steps) through K2 and K3, then
    serve the best_model.pth it wrote through K1 with phase 3's checks;
 9. time a train step of the kernel path, the plain bf16 path and the f32
-   module, and K2 and K3 alone against their plain versions, at B=12 x 2 s;
+   module, and K2 and K3 alone against their plain versions, at B=12 x 2 s,
+   with K3's kernels timed one by one under torch.profiler;
 10. K4 against its plain version at the JAX validator's shapes and DPTNet's;
 11. K5 and 12. K6 against their plain versions at the validator's shapes,
-    the batch-1 inter-chunk pass and an odd batch;
+    the batch-1 inter-chunk pass, an odd batch, one step, and H 256;
 13. one backward through each of K4, K5 and K6 against autograd of its
     plain version;
 14. DPTNet and DPRNN end to end at B=2 x 2 s and B=1 x 12 s: the kernel
@@ -43,7 +44,8 @@ path (DPTNet and DPRNN on the wsj0 configs, 8 kHz) through the attention
 16. time both models at B=8 x 2 s x 8 kHz (kernel path, plain bf16 path,
     f32 module), profile the kernel path, and time K4, K5 and K6 alone
     beside their plain versions and the PyTorch calls that compute the
-    same (or, for K5, a similar) function.
+    same (or, for K5, a similar) function; K6 also per step, with the
+    thread-block cluster it takes, and at K5's batch-1 shape.
 
 TF32 is off for matmuls and cuDNN, so the f32 references are full f32.
 
@@ -243,6 +245,23 @@ def lrs3_train_config(data_root: str, epochs: int) -> dict:
     }
 
 
+def profile_kernels(fn, calls: int) -> dict:
+    """{kernel name: (device ms, launches) per call of ``fn``} under
+    torch.profiler, largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0],
+             e.self_device_time_total / 1e3 / calls, e.count / calls)
+            for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {k: (ms, n) for k, ms, n in sorted(rows, key=lambda r: -r[1])}
+
+
 def least_time(nbytes: float, flops: float):
     """(least ms the card could take, "bytes" or "operations"): the larger of
     the bytes over HBM bandwidth and the tensor-core FLOPs over the bf16
@@ -347,7 +366,8 @@ def dualpath_kernel_checks(dev):
                       [rand((B, T, Din), 0.5), rand((D, Din, 4 * H), 0.08), rand((D, H, 4 * H), 0.05),
                        rand((D, 4 * H), 0.05, torch.float32)], 1e-2)
         for T, B, Din, H, D in [(100, 336, 64, 128, 2), (42, 800, 64, 128, 2), (250, 256, 128, 128, 2),
-                                (40, 800, 64, 128, 1), (100, 241, 64, 128, 2)])
+                                (40, 800, 64, 128, 1), (100, 241, 64, 128, 2), (1, 40, 64, 128, 2),
+                                (20, 50, 128, 256, 2)])
 
     print("phase 13: backward through K4, K5, K6 vs autograd of the plain version (rel-l2 < 2e-2)")
 
@@ -470,6 +490,7 @@ def tasnet_timing(dev, card, tasnets):
         fused_bilstm,
         resident_bilstm,
         resident_bilstm_reference,
+        resident_cluster,
     )
 
     print(f"phase 16: timing, B=8 x 2 s x 8 kHz, on {card}")
@@ -499,7 +520,7 @@ def tasnet_timing(dev, card, tasnets):
         print(f"  {name}: {v:.4f} ms/call, {8 * 2.0 / (v / 1000):.2f} audio-sec/s (median of 10, {card})")
 
     counters = (("K4", fused_attention_bdt, "attention_kernel"), ("K5", fused_bilstm, "lstm_kernel<false>"),
-                ("K6", resident_bilstm, "lstm_kernel<true>"))
+                ("K6", resident_bilstm, "lstm_resident_kernel"))
     for name in tasnets:
         fn, calls = runs[f"{name} kernel path"], 5
         for _, c, _ in counters:
@@ -568,11 +589,16 @@ def tasnet_timing(dev, card, tasnets):
                      ("K6 (100, 336, 64, 128, 2), nn.LSTM beside it", k6)):
         print(f"  {label}: " + ", ".join(f"{key} {val:.6g}" if isinstance(val, float) else f"{key} {val}"
                                           for key, val in d.items()))
-    for label, T, B in (("DPRNN columns", 42, 800), ("batch-1 rows", 100, 242)):
+    for label, T, B in (("rows", 100, 336), ("DPRNN columns", 42, 800), ("batch-1 rows", 100, 242),
+                        ("K5's batch-1 columns", 242, 100)):
         x = rand((B, T, 64), 0.5)
         lib = lstm_yardstick(x)
-        print(f"  K6 {label} (T={T}, B={B}): {timed(lambda: resident_bilstm(x, wih6, whh6, b6)):.4f} ms, "
-              f"nn.LSTM " + ("not timed" if lib is None else f"{lib:.4f} ms"))
+        with torch.no_grad():
+            dev_ms = sum(ms for k, (ms, _) in profile_kernels(lambda: resident_bilstm(x, wih6, whh6, b6), 5).items()
+                         if k.startswith("lstm_resident_kernel"))
+        print(f"  K6 {label} (T={T}, B={B}): {timed(lambda: resident_bilstm(x, wih6, whh6, b6)):.4f} ms a call; "
+              f"the kernel {dev_ms:.4f} ms on the device (torch.profiler), {dev_ms / T * 1e3:.3f} us a step, "
+              f"cluster of {resident_cluster(B, 2, 64, 128)}; nn.LSTM " + ("not timed" if lib is None else f"{lib:.4f} ms"))
     qc, kc, vc = (rand((3200, 16, 42)) for _ in range(3))
     print(f"  K4 DPTNet columns [3200, 16, 42]: {timed(lambda: fused_attention_bdt(qc, kc, vc)):.4f} ms")
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -593,6 +619,7 @@ def main() -> None:
     from audio_only_speech_separation_tpu_torch.ops.kernels import _build
     from audio_only_speech_separation_tpu_torch.ops.kernels.convtasnet_backward import (
         fused_tcn_backward,
+        tcn_backward_launches,
         tcn_backward_reference,
     )
     from audio_only_speech_separation_tpu_torch.ops.kernels.convtasnet_block import (
@@ -878,7 +905,7 @@ def main() -> None:
             scalars = {row.split(",")[1]: float(row.split(",")[2]) for row in f.read().splitlines()[1:]}
         steps = 3
         # per train step one K2 and one K3 call; eval (cv + tt) one K2 call per batch
-        want_k2, want_k3 = (steps + 2) * (2 * 24 + 1), steps * (10 * 24 + 2)
+        want_k2, want_k3 = (steps + 2) * (2 * 24 + 1), steps * tcn_backward_launches(24)
         print(f"  {train_s:.1f} s; train_loss {scalars['train_loss']:.6g}, val_loss "
               f"{scalars['val_loss']:.6g}; K2 launches {k2_launches} (want {want_k2}), "
               f"K3 launches {k3_launches} (want {want_k3})")
@@ -925,22 +952,25 @@ def main() -> None:
             out["K2 kernel"] = cuda_time(lambda: fused_tcn_separator(x, *w, dils, save_state=True), reps=10)
             out["K2 plain"] = cuda_time(lambda: tcn_separator_reference(x, *w, dils, save_state=True), reps=5)
             out["K3 kernel"] = cuda_time(lambda: fused_tcn_backward(g, y_hist, y, stats, *w, dils), reps=10)
+            k3_kernels = profile_kernels(lambda: fused_tcn_backward(g, y_hist, y, stats, *w, dils), 3)
         out["K3 plain"] = cuda_time(lambda: tcn_backward_reference(g, y_hist, y, stats, *w, dils), reps=3, warmup=1)
-        return out
+        return out, k3_kernels
 
     print(f"phase 9: train-step and K2/K3 timing, LRS3 full model, 2 s, on {card}")
     batch = TRAIN_B
     try:
-        ms9 = train_timings(batch)
+        ms9, k3_kernels = train_timings(batch)
     except torch.cuda.OutOfMemoryError:
         ms9 = None  # retried below, once the failed attempt's tensors are freed
     if ms9 is None:
         torch.cuda.empty_cache()
         batch = 4
         print(f"  out of memory at B={TRAIN_B}; all of phase 9 at B={batch}")
-        ms9 = train_timings(batch)
+        ms9, k3_kernels = train_timings(batch)
     for name, t in ms9.items():
         print(f"  {name}: {t:.4f} ms (B={batch} x 2 s, median, CUDA events, {card})")
+    print(f"  K3 by kernel (torch.profiler, per call of {tcn_backward_launches(24)} launches, {card}): "
+          + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]:g} launches)" for k, v in k3_kernels.items()))
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     k4_err, k5_err, k6_err = dualpath_kernel_checks(dev)

@@ -35,7 +35,7 @@ def test_jax_checkpoint_serves_through_the_port(tmp_path):
     jm, params, _ = make_pair(seed=11)
     ckpt = str(tmp_path / "best_model.pth")
     jax_save(jax_serialize(jm, params), ckpt)
-    model = from_pretrain(ckpt).eval()
+    model = from_pretrain(ckpt, device="cpu").eval()
     assert model.model_args()["num_spks"] == jm.num_spks
 
     rng = np.random.default_rng(12)
@@ -87,8 +87,8 @@ _GUARD = textwrap.dedent(
     assert datas.get("LRS3DataModule").__module__.startswith(pkg.__name__ + ".data")
     assert datas.get("LRS2DataModule") is not None
     from audio_only_speech_separation_tpu_torch.models import ConvTasNet, from_pretrain
-    assert from_pretrain(sys.argv[1]).num_spks == 2  # a JAX-written checkpoint
-    tasnet = from_pretrain(sys.argv[2]).eval()  # a JAX-written TasNet (DPTNet) checkpoint
+    assert from_pretrain(sys.argv[1], device="cpu").num_spks == 2  # a JAX-written checkpoint
+    tasnet = from_pretrain(sys.argv[2], device="cpu").eval()  # a JAX-written TasNet (DPTNet) checkpoint
     with torch.no_grad():
         assert tasnet(torch.zeros(1, 900)).shape == (1, 2, 900)
     from audio_only_speech_separation_tpu_torch.models.convtasnet import (

@@ -272,7 +272,7 @@ def test_jax_checkpoint_serves_through_the_port(tmp_path, module):
     jm, params, _ = tasnet_pair(module, True)
     ckpt = str(tmp_path / "best_model.pth")
     jax_save(jax_serialize(jm, params), ckpt)
-    model = from_pretrain(ckpt).eval()
+    model = from_pretrain(ckpt, device="cpu").eval()
     assert isinstance(model, TasNet) and model.module == module and model.unfold
     assert choose_dispatch(model, True, "cpu") == "eager"
     rng = np.random.default_rng(4)

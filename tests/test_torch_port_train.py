@@ -185,7 +185,7 @@ def test_audio_train_main_trains_resumes_and_serves(manifests, tmp_path, monkeyp
     train = [float(r.split(",")[2]) for r in rows[1:] if r.split(",")[1] == "train_loss"]
     assert len(train) == 2 and np.isfinite(train).all()
 
-    model = from_pretrain(os.path.join(exp_dir, "best_model.pth")).eval()
+    model = from_pretrain(os.path.join(exp_dir, "best_model.pth"), device="cpu").eval()
     assert isinstance(model, ConvTasNet) and model.num_spks == 2
     with torch.no_grad():
         est = model(torch.randn(1, 2400, generator=torch.Generator().manual_seed(0)))
