@@ -454,8 +454,8 @@ bwd_p3_kernel(const float* __restrict__ du, const float* __restrict__ z,
   block_sum2_store(da1, 0.f, partDa1 + ((size_t)b * n_tiles + tile) * 2);
 }
 
-// mma.sync m16n8k16 (bf16 in, f32 accumulate) with ldmatrix and cp.async,
-// for the weight-gradient products.
+// mma.sync m16n8k16 (bf16 in, f32 accumulate) with ldmatrix, for the
+// weight-gradient products.
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
   const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -470,18 +470,6 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // One weight-gradient product out[M][N] = sum_s scale_s * A_s^T Bm_s over

@@ -2,12 +2,14 @@
 // the separator and TCN-chain forward (convtasnet_separator.cu) and the
 // chain backward (convtasnet_backward.cu).
 //
-// Tiles: a thread block of 8 warps owns TILE = 64 frames of one sample.
-// Products use bf16 WMMA fragments (16x16x16, f32 accumulate) on operand
-// tiles staged in shared memory with row stride LDA (bf16) and products
-// staged with row stride LDC (f32).  Reductions are written as per-tile
-// partials and summed in a fixed order: no atomics anywhere, so a run
-// repeats bit for bit.
+// Tiles: a thread block (or, in the forward's block body, a warpgroup)
+// owns TILE = 64 frames of one sample.  Products use bf16 WMMA fragments
+// (16x16x16, f32 accumulate) on operand tiles staged in shared memory with
+// row stride LDA (bf16) and products staged with row stride LDC (f32);
+// the backward's weight gradients use mma.sync fed by cp.async, and the
+// forward's block body wgmma fed by bulk copies (in their own files).
+// Reductions are written as per-tile partials and summed in a fixed order:
+// no atomics anywhere, so a run repeats bit for bit.
 
 #pragma once
 
@@ -66,7 +68,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Sum (s, q) over the block in a fixed order; thread 0 writes out[0..1].
+// Sum (s, q) over the block (blockDim.x a multiple of 32, at most 256) in
+// a fixed order; thread 0 writes out[0..1].
 __device__ void block_sum2_store(float s, float q, float* out) {
   __shared__ float red[2][NWARPS];
   s = warp_sum(s);
@@ -79,7 +82,7 @@ __device__ void block_sum2_store(float s, float q, float* out) {
   __syncthreads();
   if (threadIdx.x == 0) {
     float ts = 0.f, tq = 0.f;
-    for (int i = 0; i < NWARPS; ++i) {
+    for (int i = 0; i < (int)(blockDim.x >> 5); ++i) {
       ts += red[0][i];
       tq += red[1][i];
     }
@@ -184,6 +187,26 @@ __device__ __forceinline__ void store_acc(const Acc* acc, float* dst, int ld) {
   float* base = dst + (w & 3) * 16 * ld + (w >> 2) * 64;
 #pragma unroll
   for (int j = 0; j < 4; ++j) wmma::store_matrix_sync(base + 16 * j, acc[j], ld, wmma::mem_row_major);
+}
+
+// cp.async (16-byte global -> shared copies) and its groups.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(src));
+}
+
+// As cp_async16, but writes 16 zero bytes and reads nothing unless ``valid``.
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool valid) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 }  // namespace

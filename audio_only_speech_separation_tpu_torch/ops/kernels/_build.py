@@ -89,8 +89,12 @@ def load_library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.convtasnet_separator.argtypes = [p] * 17 + [i, i, i, i, ctypes.POINTER(i), i, i, p]
     lib.convtasnet_separator.restype = i
-    lib.tcn_separator.argtypes = [p] * 13 + [i, i, i, i, ctypes.POINTER(i), p]
+    lib.convtasnet_separator_launches.argtypes = [i]
+    lib.convtasnet_separator_launches.restype = i
+    lib.tcn_separator.argtypes = [p] * 12 + [i, i, i, i, ctypes.POINTER(i), p]
     lib.tcn_separator.restype = i
+    lib.tcn_separator_launches.argtypes = [i]
+    lib.tcn_separator_launches.restype = i
     lib.tcn_backward_workspace_bytes.argtypes = [i, i, i, i]
     lib.tcn_backward_workspace_bytes.restype = ctypes.c_size_t
     lib.tcn_backward.argtypes = [p] * 14 + [i, i, i, i, ctypes.POINTER(i), p]

@@ -41,6 +41,8 @@ _EPS = 1e-8
 _C = 128  # bottleneck channels the kernel takes
 _WIN = 16  # filter length the kernel takes
 _TILE = 64  # frames per thread block, as in csrc/convtasnet_common.cuh
+_H_MAX = 640  # the block body holds all of W1^T in shared memory
+_SUB = 64  # hidden channels per sub-chunk of the block body's products
 
 
 def _np(a, dtype=np.float64) -> np.ndarray:
@@ -213,6 +215,56 @@ def _block_reference(y, w1, wsg, vec, c, alpha, d: int):
     return y, (mu1, r1, mu2, r2)
 
 
+def _block_split_reference(y, w1, wsg, vec, c, alpha, d: int, tile: int = _TILE):
+    """``_block_reference`` computed the way the CUDA kernels split it, as a
+    CPU oracle of that split (nothing on the main path calls it):
+
+    1. a statistics pass (block_p1_kernel): per ``tile`` rows, h = PReLU(y
+       @ W1 + b1) only for per-tile (sum, sum of squares) partials of the
+       rows < T, summed in tile order; no h is kept;
+    2. a tap pass (block_p2_kernel): per tile, h recomputed from y in the
+       three windows of rows t - d, t, t + d, normalised, and zeroed where
+       the row lies outside [0, T); u, v, v's per-tile partials and the
+       pending product, as the kernel does them.
+
+    Same arguments and results as ``_block_reference``."""
+    B, T, _ = y.shape
+    H = w1.shape[1]
+    starts = range(0, T, tile)
+
+    def h_at(rows):  # h at rows (any ints) from y; rows outside [0, T) read zero input
+        ok = (rows >= 0) & (rows < T)
+        yr = torch.zeros((B, len(rows), y.shape[2]), dtype=y.dtype)
+        yr[:, ok] = y[:, rows[ok]]
+        return _prelu(_dot(yr, w1) + vec[_B1], alpha[0]), ok[None, :, None]
+
+    def finish(parts):  # mean and 1/std from per-tile (sum, sumsq) partials, in order
+        s = q = 0.0
+        for ps, pq in parts:
+            s, q = s + ps, q + pq
+        mean = s / (T * H)
+        return mean, torch.rsqrt(torch.clamp(q / (T * H) - mean * mean, min=0.0) + _EPS)
+
+    def part(x):
+        return x.sum(dim=(1, 2), keepdim=True), (x * x).sum(dim=(1, 2), keepdim=True)
+
+    mu1, r1 = finish([part(h_at(torch.arange(t0, min(t0 + tile, T)))[0]) for t0 in starts])
+    sc1 = vec[_G1] * r1
+    sh1 = vec[_BT1] - mu1 * sc1
+    vs = []
+    for t0 in starts:
+        rows = torch.arange(t0, min(t0 + tile, T))
+        u = vec[_DWB]
+        for k, dw in zip((-1, 0, 1), (_DW0, _DW1, _DW2)):
+            h, ok = h_at(rows + k * d)
+            u = u + vec[dw] * torch.where(ok, h * sc1 + sh1, 0.0)
+        vs.append(_prelu(u, alpha[1]))
+    mu2, r2 = finish([part(v) for v in vs])
+    p = _dot(torch.cat(vs, dim=1).to(torch.bfloat16), wsg)
+    y = (y.float() + r2 * p + (c[0] - mu2 * r2 * c[1])).to(torch.bfloat16)
+    return y, (mu1, r1, mu2, r2)
+
+
 def tcn_chain_reference(x, w1s, wsgs, vecs, cs, alphas, dilations: Sequence[int]):
     """[B, T, C] bf16 -> [B, T, C] bf16: the packed TCN chain with the
     kernel's dtype policy (counterpart of the JAX package's
@@ -283,15 +335,33 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _core_w1(w1s: torch.Tensor) -> torch.Tensor:
+    """W1 [nb, 128, H] -> W1^T in the block body's wgmma operand layout:
+    per sub-chunk of 64 hidden channels (rows n) a [64, 128] tile cut into
+    8 x 8 core matrices, the contraction dimension (k) fastest, so that one
+    bulk copy stages a sub-chunk (csrc/convtasnet_separator.cu, core_index)."""
+    nb, C, H = w1s.shape
+    return w1s.view(nb, C // 8, 8, H // _SUB, _SUB // 8, 8).permute(0, 3, 4, 1, 5, 2).contiguous()
+
+
+def _core_wsg(wsgs: torch.Tensor) -> torch.Tensor:
+    """wsg [nb, H, 128] -> wsg^T in the same layout: per sub-chunk of 64
+    hidden channels (now k) a [128, 64] tile of core matrices."""
+    nb, H, C = wsgs.shape
+    return wsgs.view(nb, H // _SUB, _SUB // 8, 8, C // 8, 8).permute(0, 1, 4, 2, 5, 3).contiguous()
+
+
 def fused_convtasnet_separator(frames, we, w1s, wsgs, vecs, cs, alphas, wm, bm, wd,
                                dilations: Sequence[int], nspk: int, sigmoid: bool = False):
     """Whole-separator forward: encoder, bottleneck, R*X TCN blocks, mask
     head, mask*enc and decoder, from [B, T', 16] bf16 frames to
     [B, nspk, T', 16] bf16 decoder frames for ``overlap_add``.
 
-    A CUDA tensor runs the CUDA kernel sequence (2 + 2*nb launches, added to
+    A CUDA tensor runs the CUDA kernel sequence
+    (``convtasnet_separator_launches(nb)`` launches, added to
     ``fused_convtasnet_separator.launches``) or raises; a CPU tensor runs
-    ``convtasnet_separator_reference``."""
+    ``convtasnet_separator_reference``.  No [B, Tpad, H] hidden state is
+    allocated: the kernels recompute h from each block's bf16 input."""
     if frames.device.type == "cpu":
         return convtasnet_separator_reference(
             frames, we, w1s, wsgs, vecs, cs, alphas, wm, bm, wd, dilations, nspk, sigmoid
@@ -304,8 +374,9 @@ def fused_convtasnet_separator(frames, we, w1s, wsgs, vecs, cs, alphas, wm, bm, 
     B, T, W = frames.shape
     H = we.shape[1]
     nb = len(dilations)
-    if W != _WIN or H % 128 != 0 or T < 1 or nspk < 1:
-        raise ValueError(f"kernel takes win={_WIN}, H % 128 == 0, T >= 1; got {W}, {H}, {T}")
+    if W != _WIN or H % 128 != 0 or H > _H_MAX or T < 1 or nspk < 1:
+        raise ValueError(f"kernel takes win={_WIN}, H % 128 == 0, H <= {_H_MAX}, T >= 1; "
+                         f"got {W}, {H}, {T}")
     bf, f32 = torch.bfloat16, torch.float32
     _check("frames", frames, (B, T, W), bf, dev)
     _check("we", we, (W, H), bf, dev)
@@ -323,7 +394,6 @@ def fused_convtasnet_separator(frames, we, w1s, wsgs, vecs, cs, alphas, wm, bm, 
     out = torch.empty((B, nspk, T, W), dtype=bf, device=dev)
     enc = torch.empty((B, Tpad, H), dtype=bf, device=dev)
     y = torch.empty((B, Tpad, _C), dtype=bf, device=dev)
-    h = torch.empty((B, Tpad, H), dtype=f32, device=dev)
     p = torch.empty((B, Tpad, _C), dtype=f32, device=dev)
     part1 = torch.empty((B, n_tiles, 2), dtype=f32, device=dev)
     part2 = torch.empty((B, n_tiles, 2), dtype=f32, device=dev)
@@ -332,15 +402,16 @@ def fused_convtasnet_separator(frames, we, w1s, wsgs, vecs, cs, alphas, wm, bm, 
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        w1c, wsgc = _core_w1(w1s), _core_wsg(wsgs)
         rc = lib.convtasnet_separator(
-            frames.data_ptr(), we.data_ptr(), w1s.data_ptr(), wsgs.data_ptr(),
+            frames.data_ptr(), we.data_ptr(), w1c.data_ptr(), wsgs.data_ptr(), wsgc.data_ptr(),
             vecs.data_ptr(), cs.data_ptr(), alphas.data_ptr(), wm.data_ptr(),
             bm.data_ptr(), wd.data_ptr(), out.data_ptr(), enc.data_ptr(), y.data_ptr(),
-            h.data_ptr(), p.data_ptr(), part1.data_ptr(), part2.data_ptr(),
+            p.data_ptr(), part1.data_ptr(), part2.data_ptr(),
             B, T, H, nb, dils, nspk, int(bool(sigmoid)), stream,
         )
     check_launch(lib, "convtasnet_separator", rc)
-    fused_convtasnet_separator.launches += 2 + 2 * nb
+    fused_convtasnet_separator.launches += lib.convtasnet_separator_launches(nb)
     return out
 
 
@@ -353,9 +424,11 @@ def fused_tcn_separator(x, w1s, wsgs, vecs, cs, alphas, dilations: Sequence[int]
     [B, T', 128] bf16; with ``save_state`` also y_hist [B, nb, Tpad, 128]
     bf16 and stats [B, nb, 4] f32 (see ``tcn_separator_reference``).
 
-    A CUDA tensor runs the CUDA kernel sequence (2*nb + 1 launches, added
-    to ``fused_tcn_separator.launches``; the state is kept either way) or
-    raises; a CPU tensor runs ``tcn_separator_reference``."""
+    A CUDA tensor runs the CUDA kernel sequence
+    (``tcn_separator_launches(nb)`` launches, added to
+    ``fused_tcn_separator.launches``; the state is kept either way) or
+    raises; a CPU tensor runs ``tcn_separator_reference``.  As in the
+    separator, no [B, Tpad, H] hidden state is allocated."""
     if x.device.type == "cpu":
         return tcn_separator_reference(x, w1s, wsgs, vecs, cs, alphas, dilations, save_state)
     if x.device.type != "cuda":
@@ -365,8 +438,8 @@ def fused_tcn_separator(x, w1s, wsgs, vecs, cs, alphas, dilations: Sequence[int]
     dev = x.device
     B, T, C = x.shape
     nb, _, H = w1s.shape
-    if C != _C or H % 128 != 0 or T < 1 or nb < 1 or len(dilations) != nb:
-        raise ValueError(f"kernel takes C={_C}, H % 128 == 0, T >= 1, nb >= 1; "
+    if C != _C or H % 128 != 0 or H > _H_MAX or T < 1 or nb < 1 or len(dilations) != nb:
+        raise ValueError(f"kernel takes C={_C}, H % 128 == 0, H <= {_H_MAX}, T >= 1, nb >= 1; "
                          f"got {C}, {H}, {T}, {nb} ({len(dilations)} dilations)")
     bf, f32 = torch.bfloat16, torch.float32
     _check("x", x, (B, T, C), bf, dev)
@@ -381,7 +454,6 @@ def fused_tcn_separator(x, w1s, wsgs, vecs, cs, alphas, dilations: Sequence[int]
     y = torch.empty((B, T, C), dtype=bf, device=dev)
     y_hist = torch.empty((B, nb, Tpad, C), dtype=bf, device=dev)
     stats = torch.empty((B, nb, 4), dtype=f32, device=dev)
-    h = torch.empty((B, Tpad, H), dtype=f32, device=dev)
     p = torch.empty((B, Tpad, C), dtype=f32, device=dev)
     part1 = torch.empty((B, n_tiles, 2), dtype=f32, device=dev)
     part2 = torch.empty((B, n_tiles, 2), dtype=f32, device=dev)
@@ -390,14 +462,31 @@ def fused_tcn_separator(x, w1s, wsgs, vecs, cs, alphas, dilations: Sequence[int]
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        w1c, wsgc = _core_w1(w1s), _core_wsg(wsgs)
         rc = lib.tcn_separator(
-            x.data_ptr(), w1s.data_ptr(), wsgs.data_ptr(), vecs.data_ptr(), cs.data_ptr(),
-            alphas.data_ptr(), y.data_ptr(), y_hist.data_ptr(), stats.data_ptr(), h.data_ptr(),
+            x.data_ptr(), w1c.data_ptr(), wsgc.data_ptr(), vecs.data_ptr(), cs.data_ptr(),
+            alphas.data_ptr(), y.data_ptr(), y_hist.data_ptr(), stats.data_ptr(),
             p.data_ptr(), part1.data_ptr(), part2.data_ptr(), B, T, H, nb, dils, stream,
         )
     check_launch(lib, "tcn_separator", rc)
-    fused_tcn_separator.launches += 2 * nb + 1
+    fused_tcn_separator.launches += lib.tcn_separator_launches(nb)
     return (y, y_hist, stats) if save_state else y
 
 
 fused_tcn_separator.launches = 0
+
+
+def convtasnet_separator_launches(nb: int) -> int:
+    """Launches of one ``fused_convtasnet_separator`` call over nb blocks on
+    a CUDA tensor, as the library reports them (loads the library)."""
+    from ._build import load_library
+
+    return load_library().convtasnet_separator_launches(nb)
+
+
+def tcn_separator_launches(nb: int) -> int:
+    """Launches of one ``fused_tcn_separator`` call over nb blocks on a
+    CUDA tensor, as the library reports them (loads the library)."""
+    from ._build import load_library
+
+    return load_library().tcn_separator_launches(nb)

@@ -18,7 +18,8 @@ path (DPTNet and DPRNN on the wsj0 configs, 8 kHz) through the attention
 3. serve five utterances from a checkpoint through ``serve.serve`` with
    bf16, and check each against the f32 eager model and the launch count;
 4. time the K1 path, its plain bf16 version and the f32 eager module at
-   the bench shape (B=8 x 2 s x 16 kHz);
+   the bench shape (B=8 x 2 s x 16 kHz), with K1's kernels timed one by one
+   under torch.profiler beside the device bytes the design moves;
 5. K2 against its plain version at the LRS3 train shape (B=12 x 2 s);
 6. K3 against its plain version (autograd of the plain chain): at full
    width and depth under the JAX validator's rule, and at a small case
@@ -30,7 +31,8 @@ path (DPTNet and DPRNN on the wsj0 configs, 8 kHz) through the attention
    serve the best_model.pth it wrote through K1 with phase 3's checks;
 9. time a train step of the kernel path, the plain bf16 path and the f32
    module, and K2 and K3 alone against their plain versions, at B=12 x 2 s,
-   with K3's kernels timed one by one under torch.profiler;
+   with K2's and K3's kernels timed one by one under torch.profiler (K2's
+   beside the device bytes its design moves);
 10. K4 against its plain version at the JAX validator's shapes and DPTNet's;
 11. K5 and 12. K6 against their plain versions at the validator's shapes,
     the batch-1 inter-chunk pass, an odd batch, one step, and H 256;
@@ -279,6 +281,39 @@ def separator_work(B, T, N=512, C=128, nb=24, spk=3, win=16):
                      + 2 * C * spk * N + 2 * spk * N * win)
     weights = (nb + 1) * (2 * C * N * 2 + 8 * N * 4 + 2 * C * 4 + 8) + 2 * win * N * 2 + C * spk * N * 6
     return B * T * win * 2 * (1 + spk) + weights, flops
+
+
+def separator_design_bytes(B, T, N=512, C=128, nb=24, spk=3, win=16):
+    """Device-memory bytes the K1 design moves a call: the encoder reads the
+    frames and writes enc (bf16) and P (f32); each block's P1 reads y and P
+    and writes y, its P2 reads y (its halo counted once) and writes P; the
+    head reads y, P and enc and writes the decoder frames; the weights
+    once.  No hidden state: h never reaches device memory."""
+    rows = B * (-(-T // 64) * 64)
+    weights = separator_work(B, T, N, C, nb, spk, win)[0] - B * T * win * 2 * (1 + spk)
+    return (B * T * win * 2 + rows * (N * 2 + C * 4) + nb * rows * C * (2 + 4 + 2 + 2 + 4)
+            + rows * (C * 2 + C * 4 + N * 2) + B * spk * T * win * 2 + weights)
+
+
+def chain_design_bytes(B, T, nb=24, H=512, C=128):
+    """Device-memory bytes the K2 design moves a call: per block P1 reads y
+    and P and writes the next y_hist slot, P2 reads that slot (its halo
+    counted once) and writes P; the epilogue reads the last y and P and
+    writes y; the weights once."""
+    rows = B * (-(-T // 64) * 64)
+    weights = nb * (2 * C * H * 2 + 8 * H * 4 + 2 * C * 4 + 8)
+    return nb * rows * C * (2 + 4 + 2 + 2 + 4) + rows * C * (2 + 4) + B * T * C * 2 + B * nb * 16 + weights
+
+
+def print_kernels(label: str, kernels: dict, launches: int, design_bytes: float, work, card: str) -> None:
+    """One line of a profile_kernels breakdown, then the design's device
+    bytes beside the function's least time."""
+    print(f"  {label} by kernel (torch.profiler, per call of {launches} launches, {card}): "
+          + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]:g} launches)" for k, v in kernels.items()))
+    bound, by = least_time(*work)
+    print(f"  {label} design moves {design_bytes / 1e9:.4f} GB of device memory a call "
+          f"({design_bytes / PEAK_BYTES * 1e3:.4f} ms at 3.35 TB/s); the function's least time "
+          f"{bound:.4f} ms ({by})")
 
 
 def chain_work(B, T, nb=24, H=512, C=128, products=2):
@@ -623,11 +658,13 @@ def main() -> None:
         tcn_backward_reference,
     )
     from audio_only_speech_separation_tpu_torch.ops.kernels.convtasnet_block import (
+        convtasnet_separator_launches,
         convtasnet_separator_reference,
         fused_convtasnet_separator,
         fused_tcn_separator,
         pack_convtasnet_full_params,
         tcn_chain_reference,
+        tcn_separator_launches,
         tcn_separator_reference,
     )
     from audio_only_speech_separation_tpu_torch.serve import serve
@@ -694,7 +731,7 @@ def main() -> None:
         est = serve(model, wavs, use_bf16=True, device=dev, bucket_seconds=1.0, batch_size=2)
         torch.cuda.synchronize()
         launches = fused_convtasnet_separator.launches
-        n_batches, per_call = 3, 2 + 2 * LRS3["R"] * LRS3["X"]
+        n_batches, per_call = 3, convtasnet_separator_launches(LRS3["R"] * LRS3["X"])
         print(f"  launches {launches} (want {n_batches} batches x {per_call})")
         if launches != n_batches * per_call:
             raise AssertionError(f"launch count {launches} != {n_batches * per_call}")
@@ -758,10 +795,13 @@ def main() -> None:
                 end.record()
                 end.synchronize()
                 times[name].append(start.elapsed_time(end))
+        k1_kernels = profile_kernels(runs["separator kernel"], 3)
     ms = {k: statistics.median(v) for k, v in times.items()}
     for name, t in ms.items():
         print(f"  {name}: {t:.4f} ms/call, {8 * 2.0 / (t / 1000):.2f} audio-sec/s "
               f"(median of 20, {card})")
+    print_kernels("K1", k1_kernels, convtasnet_separator_launches(len(dils)),
+                  separator_design_bytes(8, frames_bench), separator_work(8, frames_bench), card)
     del model, packed, frames, w, runs
 
     # ---- phase 5: K2 vs its plain version at the LRS3 train shape
@@ -905,7 +945,7 @@ def main() -> None:
             scalars = {row.split(",")[1]: float(row.split(",")[2]) for row in f.read().splitlines()[1:]}
         steps = 3
         # per train step one K2 and one K3 call; eval (cv + tt) one K2 call per batch
-        want_k2, want_k3 = (steps + 2) * (2 * 24 + 1), steps * tcn_backward_launches(24)
+        want_k2, want_k3 = (steps + 2) * tcn_separator_launches(24), steps * tcn_backward_launches(24)
         print(f"  {train_s:.1f} s; train_loss {scalars['train_loss']:.6g}, val_loss "
               f"{scalars['val_loss']:.6g}; K2 launches {k2_launches} (want {want_k2}), "
               f"K3 launches {k3_launches} (want {want_k3})")
@@ -951,24 +991,27 @@ def main() -> None:
             y, y_hist, stats = fused_tcn_separator(x, *w, dils, save_state=True)
             out["K2 kernel"] = cuda_time(lambda: fused_tcn_separator(x, *w, dils, save_state=True), reps=10)
             out["K2 plain"] = cuda_time(lambda: tcn_separator_reference(x, *w, dils, save_state=True), reps=5)
+            k2_kernels = profile_kernels(lambda: fused_tcn_separator(x, *w, dils, save_state=True), 3)
             out["K3 kernel"] = cuda_time(lambda: fused_tcn_backward(g, y_hist, y, stats, *w, dils), reps=10)
             k3_kernels = profile_kernels(lambda: fused_tcn_backward(g, y_hist, y, stats, *w, dils), 3)
         out["K3 plain"] = cuda_time(lambda: tcn_backward_reference(g, y_hist, y, stats, *w, dils), reps=3, warmup=1)
-        return out, k3_kernels
+        return out, k2_kernels, k3_kernels
 
     print(f"phase 9: train-step and K2/K3 timing, LRS3 full model, 2 s, on {card}")
     batch = TRAIN_B
     try:
-        ms9, k3_kernels = train_timings(batch)
+        ms9, k2_kernels, k3_kernels = train_timings(batch)
     except torch.cuda.OutOfMemoryError:
         ms9 = None  # retried below, once the failed attempt's tensors are freed
     if ms9 is None:
         torch.cuda.empty_cache()
         batch = 4
         print(f"  out of memory at B={TRAIN_B}; all of phase 9 at B={batch}")
-        ms9, k3_kernels = train_timings(batch)
+        ms9, k2_kernels, k3_kernels = train_timings(batch)
     for name, t in ms9.items():
         print(f"  {name}: {t:.4f} ms (B={batch} x 2 s, median, CUDA events, {card})")
+    print_kernels("K2", k2_kernels, tcn_separator_launches(24), chain_design_bytes(batch, T_train),
+                  chain_work(batch, T_train), card)
     print(f"  K3 by kernel (torch.profiler, per call of {tcn_backward_launches(24)} launches, {card}): "
           + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]:g} launches)" for k, v in k3_kernels.items()))
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")

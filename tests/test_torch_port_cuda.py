@@ -25,11 +25,13 @@ from audio_only_speech_separation_tpu_torch.ops.kernels.convtasnet_backward impo
     tcn_backward_reference,
 )
 from audio_only_speech_separation_tpu_torch.ops.kernels.convtasnet_block import (
+    convtasnet_separator_launches,
     convtasnet_separator_reference,
     fused_convtasnet_separator,
     fused_tcn_separator,
     pack_convtasnet_full_params,
     tcn_chain_reference,
+    tcn_separator_launches,
     tcn_separator_reference,
 )
 
@@ -63,7 +65,7 @@ def _model(cuda, **kw):
 def test_kernel_matches_plain_version(cuda, act, T):
     """Same frames and weights: the kernel against its plain version to
     bf16 output rounding (atol 2e-2 of the frames' scale), bit-identical
-    from run to run (no atomics), and 2 + 2*nb launches counted."""
+    from run to run (no atomics), and the launches the library reports."""
     m = _model(cuda, activate=act)
     x = torch.from_numpy(np.random.default_rng(2).standard_normal((2, max(T, 32))).astype(np.float32)).to(cuda)
     frames = inference_frames(m, x)[:, :T].contiguous()
@@ -74,8 +76,33 @@ def test_kernel_matches_plain_version(cuda, act, T):
     again = fused_convtasnet_separator(frames, *w, **kw)
     want = convtasnet_separator_reference(frames, *w, **kw)
     torch.cuda.synchronize()
-    assert fused_convtasnet_separator.launches - before == 2 * (2 + 2 * len(dils))
+    assert fused_convtasnet_separator.launches - before == 2 * convtasnet_separator_launches(len(dils))
     assert torch.equal(got, again)
+    scale = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2 * max(scale, 1.0)
+
+
+# K1 at the edges of its tiling: dilations up to 128 with T' = 100 (d > T'),
+# B = 1 with T' % 64 != 0, and T' = 1 at full depth of one repeat
+SEPARATOR_EDGES = [(8, 2, 100), (3, 1, 333), (8, 1, 1)]  # X, B, T'
+
+
+@pytest.mark.parametrize("X,B,T", SEPARATOR_EDGES)
+def test_separator_kernel_at_the_edges(cuda, X, B, T):
+    """As test_kernel_matches_plain_version, where the recomputed taps
+    reach past either end of the utterance from every tile."""
+    m = _model(cuda, X=X, num_spks=3)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((B, 4 * T + 32)).astype(np.float32)).to(cuda)
+    frames = inference_frames(m, x)[:, :T].contiguous()
+    *w, dils = pack_convtasnet_full_params(m.state_dict(), m.R, m.X, m.num_spks, device=cuda)
+    kw = dict(dilations=dils, nspk=m.num_spks)
+    before = fused_convtasnet_separator.launches
+    got = fused_convtasnet_separator(frames, *w, **kw)
+    again = fused_convtasnet_separator(frames, *w, **kw)
+    want = convtasnet_separator_reference(frames, *w, **kw)
+    torch.cuda.synchronize()
+    assert fused_convtasnet_separator.launches - before == 2 * convtasnet_separator_launches(len(dils))
+    assert got.shape == (B, 3, T, 16) and torch.equal(got, again)
     scale = float(want.float().abs().max())
     assert float((got.float() - want.float()).abs().max()) <= 2e-2 * max(scale, 1.0)
 
@@ -133,21 +160,52 @@ def _rel(a, b):
 def test_chain_forward_matches_plain_version(cuda, nb, H, B, T):
     """K2 against its plain version: y and y_hist to bf16 rounding (atol
     5e-2, rtol 2e-2, as the JAX package's kernel-vs-oracle check), stats
-    to 1e-3 relative, bit-identical from run to run, 2*nb + 1 launches."""
+    to 1e-3 relative, bit-identical from run to run, y_hist rows >= T'
+    zero, and the launches the library reports."""
     x, w, dils, _ = _chain_inputs(cuda, nb, H, B, T)
     before = fused_tcn_separator.launches
     got = fused_tcn_separator(x, *w, dils, save_state=True)
     again = fused_tcn_separator(x, *w, dils, save_state=True)
     want = tcn_separator_reference(x, *w, dils, save_state=True)
     torch.cuda.synchronize()
-    assert fused_tcn_separator.launches - before == 2 * (2 * nb + 1)
+    assert fused_tcn_separator.launches - before == 2 * tcn_separator_launches(nb)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
     for a, b in zip(got[:2], want[:2]):
         assert a.shape == b.shape and a.dtype == b.dtype
         torch.testing.assert_close(a.float(), b.float(), atol=5e-2, rtol=2e-2)
-    assert torch.equal(got[1][:, 0, :T], x)
+    assert torch.equal(got[1][:, 0, :T], x) and not bool(got[1][:, :, T:].any())
     torch.testing.assert_close(got[2], want[2], rtol=1e-3, atol=0.0)
+
+
+# K2 at the edges of its tiling: dilations up to 128 with T' = 100 (d > T'),
+# T' = 1, B = 1 with T' % 64 != 0, and H 512 at ConvTasNet-LRS3's full depth
+CHAIN_EDGES = [(8, 256, 2, 100), (3, 128, 2, 1), (4, 256, 1, 333), (24, 512, 2, 700)]
+
+
+@pytest.mark.parametrize("nb,H,B,T", CHAIN_EDGES)
+def test_chain_forward_at_the_edges(cuda, nb, H, B, T):
+    """K2 block by block against the plain block on the kernel's own saved
+    input (chip_smoke.py phase 5's gates: each block's output within atol
+    5e-2 + rtol 2e-2, its statistics within 1e-3 relative; end to end
+    rel-l2 <= 2e-2, which bounds the bf16 drift over the depth),
+    bit-identical from run to run, y_hist slot 0 = x, rows >= T' zero."""
+    x, w, dils, _ = _chain_inputs(cuda, nb, H, B, T)
+    before = fused_tcn_separator.launches
+    y, hist, st = fused_tcn_separator(x, *w, dils, save_state=True)
+    again = fused_tcn_separator(x, *w, dils, save_state=True)
+    torch.cuda.synchronize()
+    assert fused_tcn_separator.launches - before == 2 * tcn_separator_launches(nb)
+    for a, b in zip((y, hist, st), again):
+        assert torch.equal(a, b) and bool(torch.isfinite(a.float()).all())
+    assert torch.equal(hist[:, 0, :T], x) and not bool(hist[:, :, T:].any())
+    for b in range(nb):
+        one = [t[b : b + 1] for t in w]
+        y_b, _, st_b = tcn_separator_reference(hist[:, b, :T], *one, dils[b : b + 1], save_state=True)
+        out = hist[:, b + 1, :T] if b + 1 < nb else y
+        torch.testing.assert_close(out.float(), y_b.float(), atol=5e-2, rtol=2e-2)
+        torch.testing.assert_close(st[:, b], st_b[:, 0], rtol=1e-3, atol=0.0)
+    assert _rel(tcn_separator_reference(x, *w, dils), y) <= 2e-2
 
 
 @pytest.mark.parametrize("nb,H,B,T,full", BACKWARD_CASES)
