@@ -4,7 +4,9 @@
 // Replaces the TPU kernel ops/pallas/attention.py::_kernel of the JAX
 // package, entered through fused_attention_bdt.  The contract is the same:
 // f32 logits and softmax, the probabilities rounded to v's dtype (bf16)
-// before the product with v, f32 accumulation, output in bf16.
+// before the product with v, f32 accumulation, output in bf16.  The keys
+// are walked with an online softmax, so the probabilities are rounded
+// before their normalisation (by the f32 sum of the unrounded ones).
 //
 // What bounds it on this card.  Dual-path attention runs over chunks (DPTNet:
 // T = 100 rows, T = S columns) with dh = 16 and a huge head count, so the
@@ -12,177 +14,278 @@
 // moved.  At dh = 16 that is T/4 FLOP per byte, far below the ~295 the card
 // needs before the tensor cores are the limit, so the floor is the bytes:
 // q, k and v read once and o written once.  The TPU kernel kept the whole
-// [T, T] logits of a head in VMEM (which capped T at 1024); a thread block
-// here keeps one tile of 64 queries and walks the keys in tiles of 64 with
-// an online softmax, so no logits reach device memory and T has no cap.
+// [T, T] logits of a head in VMEM (which capped T at 1024); here no logits
+// reach memory at all, and T has no cap.
 //
-// Layout.  q, k and v are read in the [BH, dh, T] layout the callers build
-// (the tokens are contiguous, so a tile loads coalesced) straight into
-// shared memory, where q is the col-major A operand, k the row-major B
-// operand of q^T k and v the col-major B operand of P v.  Products are bf16
-// WMMA 16x16x16 with f32 accumulation.  dh is zero-padded to a multiple of
-// 16 (one k-step at dh = 16); ragged key tiles get -inf logits before the
-// exponent and zero v rows.  The running output stays in shared memory in
-// f32 and is rescaled per row by exp(m_old - m_new) before each P v product.
+// What the design does about it, in the FlashAttention-2 manner on
+// mma.sync m16n8k16:
+// - One thread block per (head, block of up to 128 queries), one warp per
+//   16 queries: T = 100 takes 7 warps (112 rows), T = 42 three (48).  The
+//   block's q, and the head's k and v in chunks of up to 128 keys (64 at
+//   dh > 128; so for T <= 128, as at the B=8 dual-path shapes, one block
+//   and one chunk a head, and k and v are read once), are staged in shared
+//   memory as [dh][tokens] tiles, zero-padded to multiples of 16 in both (q
+//   to the block's warps).  They are read from the head's contiguous [dh, T]
+//   slab with 16-byte loads along the flat slab (16-byte aligned as dh % 8
+//   == 0; its rows are not where T % 8 != 0, which rules out cp.async into
+//   16-byte tile rows), each element placed in its tile row.
+// - The [dh, T] layout is met with ldmatrix: .trans gives q^T as the A and
+//   k as the B operand of q^T k, the plain form v as the B operand of P v.
+// - S = q^T k lives in the accumulator registers, 64 keys a step (16-key
+//   groups past the chunk's end skipped, keys past T masked in registers);
+//   the row max and sum take two quad shuffles; the exponent is exp2f with
+//   log2(e)/sqrt(dh) folded into one scale.
+// - P's accumulators are re-packed to bf16 in registers as the A fragment
+//   of P v (the C layout of S over 16 keys is the A layout of P): no shared
+//   memory.  The output accumulators stay in registers and are rescaled in
+//   place; the row sums stay per thread and are reduced once at the end.
+// - The output is normalised once and written through a shared-memory
+//   transpose (each warp into its own query columns of the q tile), so the
+//   [dh, T] stores are coalesced.
+// - Two barriers a chunk: one before its k and v are in place, one before
+//   they are replaced (none within a chunk).
+// The first port's kernel (elementwise loads with div/mod, k and v reloaded
+// by every 64-query block, logits and the running output through shared
+// memory as f32, a serial row-by-row softmax, three barriers a key tile)
+// took 0.105 ms on the device at [1344, 16, 100].
 //
-// One thread block of 4 warps per (head, tile of 64 queries); each warp owns
-// 16 queries.  One launch a call.
+// One launch a call; dh is rounded up to DP = 16, 32, 64, 128 or 256, one
+// instantiation each.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
+#include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
-constexpr int QT = 64;          // queries per thread block
-constexpr int KT = 64;          // keys per step
-constexpr int THREADS = 128;    // 4 warps x 16 queries
-constexpr int LQ = QT + 8;      // bf16 row stride of q^T staged as [DP][LQ]
-constexpr int LK = KT + 8;      // bf16 row stride of k, v ([DP][LK]) and P ([QT][LK])
-constexpr int LS = KT + 4;      // f32 row stride of the logits [QT][LS]
+constexpr int QB = 128;     // queries per thread block at most (8 warps x 16)
+constexpr int LQ = QB + 8;  // bf16 row stride of the q tile [DP][LQ], also the output transpose
+constexpr int KS = 64;      // keys a step of the online softmax
 
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragAc;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBc;
+// keys staged at a time for a padded head width DP
+__host__ __device__ constexpr int chunk_keys(int DP) { return DP <= 128 ? 128 : 64; }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Shared-memory bytes for a padded head width DP (a multiple of 16); every
-// region is a multiple of 128 bytes, so each stays aligned for WMMA.
 __host__ __device__ constexpr size_t smem_bytes(int DP) {
-  return (size_t)DP * LQ * 2 + 2 * (size_t)DP * LK * 2 + (size_t)QT * LK * 2 +
-         (size_t)QT * LS * 4 + (size_t)QT * (DP + 4) * 4 + 2 * QT * 4;
+  return ((size_t)DP * LQ + 2 * (size_t)DP * (chunk_keys(DP) + 8)) * 2;
 }
 
-__global__ void __launch_bounds__(THREADS)
-attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int T, int dh, int DP,
-                 float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int LO = DP + 4;  // f32 row stride of the running output [QT][LO]
-  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [DP][LQ]: q^T, col-major A
-  bf16* Ks = Qs + DP * LQ;                   // [DP][LK]: row-major B
-  bf16* Vs = Ks + DP * LK;                   // [DP][LK]: v^T as col-major B
-  bf16* Ps = Vs + DP * LK;                   // [QT][LK]: probabilities, row-major A
-  float* Ss = reinterpret_cast<float*>(Ps + QT * LK);  // [QT][LS]: logits
-  float* Os = Ss + QT * LS;                            // [QT][LO]: running output
-  float* row_m = Os + QT * LO;                         // [QT]: running max
-  float* row_l = row_m + QT;                           // [QT]: running sum
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
 
-  const int bh = blockIdx.x, q0 = blockIdx.y * QT;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const size_t base = (size_t)bh * dh * T;
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// bf16(lo) in the low half, bf16(hi) in the high half: an mma A register
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Tokens [c0, c0 + n) of rows [0, dh) of a head's [dh, T] slab into
+// dst[DP][ld] at columns [0, n); zeros in columns [n, ncols) of those rows
+// and in columns [0, ncols) of rows [dh, DP).  16-byte loads along the
+// flat slab: VPR of them cover a row's run of at most VPR * 8 - 8 tokens
+// at any alignment.
+template <int VPR>
+__device__ __forceinline__ void stage(bf16* dst, int ld, const bf16* __restrict__ slab, int T, int dh,
+                                      int DP, int c0, int n, int ncols, int tid, int nthr) {
+  for (int i = tid; i < dh * VPR; i += nthr) {
+    const int d = i / VPR, j = i - d * VPR;
+    const int start = d * T + c0;            // flat index of (d, c0)
+    const int v = (start & ~7) + 8 * j;      // this load's first element
+    if (v >= start + n) continue;
+    const uint4 w = __ldg(reinterpret_cast<const uint4*>(slab + v));
+    const bf16* e = reinterpret_cast<const bf16*>(&w);
+    bf16* row = dst + d * ld;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int col = v + k - start;
+      if (col >= 0 && col < n) row[col] = e[k];
+    }
+  }
   const bf16 zero = __float2bfloat16(0.f);
-
-  for (int i = tid; i < DP * QT; i += THREADS) {
-    const int d = i / QT, t = i % QT;
-    Qs[d * LQ + t] = (d < dh && q0 + t < T) ? q[base + (size_t)d * T + q0 + t] : zero;
+  const int pad = ncols - n;
+  for (int i = tid; i < dh * pad; i += nthr) {
+    const int d = i / pad;
+    dst[d * ld + n + (i - d * pad)] = zero;
   }
-  for (int i = tid; i < QT * DP; i += THREADS) Os[(i / DP) * LO + i % DP] = 0.f;
-  if (tid < QT) {
-    row_m[tid] = -INFINITY;
-    row_l[tid] = 0.f;
+  for (int i = tid; i < (DP - dh) * ncols; i += nthr) {
+    const int d = i / ncols;
+    dst[(dh + d) * ld + (i - d * ncols)] = zero;
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(256)
+attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                 bf16* __restrict__ o, int T, int dh, float scale_log2) {
+  constexpr int KC = chunk_keys(DP), LK = KC + 8;
+  constexpr int NO = DP / 8;  // n-tiles of the output (8 of dh each)
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [DP][LQ]: q of the block, then the output
+  bf16* Ks = Qs + DP * LQ;                   // [DP][LK]
+  bf16* Vs = Ks + DP * LK;                   // [DP][LK]
+
+  const int bh = blockIdx.x, q0 = blockIdx.y * QB, nq = min(QB, T - q0);
+  const int tid = threadIdx.x, nthr = blockDim.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, qd = lane & 3;  // accumulator row g (and g + 8), columns 2qd, 2qd + 1
+  const size_t base = (size_t)bh * dh * T;
+  stage<QB / 8 + 1>(Qs, LQ, q + base, T, dh, DP, q0, nq, 16 * (nthr / 32), tid, nthr);
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};  // rows g, g + 8
+  const bf16* qw = Qs + warp * 16;  // this warp's 16 query columns
+
+  for (int c0 = 0; c0 < T; c0 += KC) {
+    const int nk = min(KC, T - c0);
+    if (c0 > 0) __syncthreads();  // every warp is done with the previous chunk
+    stage<KC / 8 + 1>(Ks, LK, k + base, T, dh, DP, c0, nk, (nk + 15) & ~15, tid, nthr);
+    stage<KC / 8 + 1>(Vs, LK, v + base, T, dh, DP, c0, nk, (nk + 15) & ~15, tid, nthr);
+    __syncthreads();  // q (first chunk), k and v in place
+
+    for (int s0 = 0; s0 < nk; s0 += KS) {
+      // logits of the warp's 16 queries against keys s0 .. s0 + 63 of the
+      // chunk: n-tiles of 8 keys, two per 16-key group
+      float s[KS / 8][4];
+#pragma unroll
+      for (int j = 0; j < KS / 16; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[2 * j][e] = s[2 * j + 1][e] = 0.f;
+        if (s0 + 16 * j < nk) {
+#pragma unroll
+          for (int ks = 0; ks < DP / 16; ++ks) {
+            uint32_t a[4], b[4];
+            ldsm_x4_trans(a, qw + (ks * 16 + (lane >> 4) * 8 + (lane & 7)) * LQ + ((lane >> 3) & 1) * 8);
+            ldsm_x4_trans(b, Ks + (ks * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LK + s0 + 16 * j +
+                                 (lane >> 4) * 8);
+            mma(s[2 * j], a, b[0], b[1]);
+            mma(s[2 * j + 1], a, b[2], b[3]);
+          }
+        }
+      }
+      // scale into log2 units, mask keys past the chunk, new row maxima
+      float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+      for (int jt = 0; jt < KS / 8; ++jt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = s0 + 8 * jt + 2 * qd + (e & 1);
+          s[jt][e] = key < nk ? s[jt][e] * scale_log2 : -INFINITY;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[jt][e]);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = exp2f(m_run[r] - mx[r]);  // 0 on the first step
+        m_run[r] = mx[r];
+        l_run[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+      // P = exp2(S - m) by 16-key groups: summed unrounded, rounded to bf16
+      // as the A fragment of P v
+#pragma unroll
+      for (int j = 0; j < KS / 16; ++j) {
+        if (s0 + 16 * j < nk) {
+          float p[8];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            p[e] = exp2f(s[2 * j][e] - mx[e >> 1]);
+            p[4 + e] = exp2f(s[2 * j + 1][e] - mx[e >> 1]);
+          }
+          l_run[0] += p[0] + p[1] + p[4] + p[5];
+          l_run[1] += p[2] + p[3] + p[6] + p[7];
+          const uint32_t a[4] = {pack_bf16(p[0], p[1]), pack_bf16(p[2], p[3]), pack_bf16(p[4], p[5]),
+                                 pack_bf16(p[6], p[7])};
+#pragma unroll
+          for (int n = 0; n < NO / 2; ++n) {  // 16 columns of dh at a time
+            uint32_t b[4];
+            ldsm_x4(b, Vs + (n * 16 + (lane >> 4) * 8 + (lane & 7)) * LK + s0 + 16 * j + ((lane >> 3) & 1) * 8);
+            mma(acc[2 * n], a, b[0], b[1]);
+            mma(acc[2 * n + 1], a, b[2], b[3]);
+          }
+        }
+      }
+    }
   }
 
-  for (int k0 = 0; k0 < T; k0 += KT) {
-    __syncthreads();  // the previous step is done with Ks, Vs and Ps
-    for (int i = tid; i < DP * KT; i += THREADS) {
-      const int d = i / KT, t = i % KT;
-      const bool in = d < dh && k0 + t < T;
-      const size_t at = base + (size_t)d * T + k0 + t;
-      Ks[d * LK + t] = in ? k[at] : zero;
-      Vs[d * LK + t] = in ? v[at] : zero;
-    }
-    __syncthreads();
-
-    // logits of the warp's 16 queries against this key tile
-    for (int n = 0; n < KT / 16; ++n) {
-      Acc acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        FragAc a;
-        FragB b;
-        wmma::load_matrix_sync(a, Qs + kk * 16 * LQ + warp * 16, LQ);
-        wmma::load_matrix_sync(b, Ks + kk * 16 * LK + n * 16, LK);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(Ss + warp * 16 * LS + n * 16, acc, LS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax, one row at a time, two keys a lane
-    const int nvalid = min(KT, T - k0);
-    for (int r = 0; r < 16; ++r) {
-      const int row = warp * 16 + r;
-      const float m_old = row_m[row];
-      const float* srow = Ss + row * LS;
-      const float s0 = lane < nvalid ? srow[lane] * scale : -INFINITY;
-      const float s1 = lane + 32 < nvalid ? srow[lane + 32] * scale : -INFINITY;
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-      const float alpha = expf(m_old - m_new);  // 0 on the first tile
-      const float sum = warp_sum(p0 + p1);
-      Ps[row * LK + lane] = __float2bfloat16(p0);
-      Ps[row * LK + lane + 32] = __float2bfloat16(p1);
-      for (int d = lane; d < DP; d += 32) Os[row * LO + d] *= alpha;
-      if (lane == 0) {
-        row_m[row] = m_new;
-        row_l[row] = row_l[row] * alpha + sum;
-      }
-    }
-    __syncwarp();
-
-    // running output += P v
-    for (int n = 0; n < DP / 16; ++n) {
-      Acc acc;
-      wmma::load_matrix_sync(acc, Os + warp * 16 * LO + n * 16, LO, wmma::mem_row_major);
-      for (int kk = 0; kk < KT / 16; ++kk) {
-        FragA a;
-        FragBc b;
-        wmma::load_matrix_sync(a, Ps + warp * 16 * LK + kk * 16, LK);
-        wmma::load_matrix_sync(b, Vs + n * 16 * LK + kk * 16, LK);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(Os + warp * 16 * LO + n * 16, acc, LO, wmma::mem_row_major);
-    }
+  // normalise, and transpose into this warp's own query columns of the q
+  // tile (no other warp reads them)
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    inv[r] = 1.f / l_run[r];
   }
+  __syncwarp();
+  bf16* ow = Qs + warp * 16;
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * n + 2 * qd + (e & 1);
+      if (col < dh) ow[col * LQ + g + 8 * (e >> 1)] = __float2bfloat16(acc[n][e] * inv[e >> 1]);
+    }
   __syncthreads();
+  // row d of the block's output is nq contiguous tokens in o
+  for (int d = warp; d < dh; d += nthr / 32)
+    for (int c = lane; c < nq; c += 32) o[base + (size_t)d * T + q0 + c] = Qs[d * LQ + c];
+}
 
-  for (int i = tid; i < dh * QT; i += THREADS) {
-    const int d = i / QT, t = i % QT;
-    if (q0 + t < T) o[base + (size_t)d * T + q0 + t] = __float2bfloat16(Os[t * LO + d] / row_l[t]);
-  }
+template <int DP>
+int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int BH, int dh, int T,
+           cudaStream_t stream) {
+  const size_t smem = smem_bytes(DP);
+  cudaError_t err = cudaFuncSetAttribute(attention_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int warps = (T + 15) / 16 < QB / 16 ? (T + 15) / 16 : QB / 16;
+  const dim3 grid(BH, (T + QB - 1) / QB);
+  attention_kernel<DP><<<grid, 32 * warps, smem, stream>>>(q, k, v, o, T, dh,
+                                                          1.4426950408889634f / sqrtf((float)dh));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // o = softmax(q^T k / sqrt(dh)) v on ``stream``, one launch.  q, k, v and o
-// are contiguous [BH, dh, T] bf16 device tensors; 8 <= dh <= 256 with
-// dh % 8 == 0, T >= 1.  Returns a cudaError_t.
+// are contiguous, 16-byte aligned [BH, dh, T] bf16 device tensors;
+// 8 <= dh <= 256 with dh % 8 == 0, T >= 1.  Returns a cudaError_t.
 extern "C" int attention_bdt(const void* q, const void* k, const void* v, void* o, int BH,
                              int dh, int T, void* stream_ptr) {
-  const int DP = (dh + 15) / 16 * 16;
-  const size_t smem = smem_bytes(DP);
-  cudaError_t err = cudaFuncSetAttribute(attention_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(BH, (T + QT - 1) / QT);
-  attention_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream_ptr)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), T, dh, DP, 1.0f / sqrtf((float)dh));
-  return (int)cudaGetLastError();
+  const bf16* q_ = static_cast<const bf16*>(q);
+  const bf16* k_ = static_cast<const bf16*>(k);
+  const bf16* v_ = static_cast<const bf16*>(v);
+  bf16* o_ = static_cast<bf16*>(o);
+  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  if (dh <= 16) return launch<16>(q_, k_, v_, o_, BH, dh, T, s);
+  if (dh <= 32) return launch<32>(q_, k_, v_, o_, BH, dh, T, s);
+  if (dh <= 64) return launch<64>(q_, k_, v_, o_, BH, dh, T, s);
+  if (dh <= 128) return launch<128>(q_, k_, v_, o_, BH, dh, T, s);
+  return launch<256>(q_, k_, v_, o_, BH, dh, T, s);
 }

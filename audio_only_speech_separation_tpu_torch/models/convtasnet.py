@@ -26,6 +26,7 @@ from ..ops.conv import ConvDecoder, ConvEncoder, frame_signal, overlap_add
 from ..ops.kernels.convtasnet_backward import tcn_chain
 from ..ops.kernels.convtasnet_block import (
     _dot,
+    block_kernel_ok,
     fused_convtasnet_separator,
     pack_convtasnet_full_params,
     pack_convtasnet_full_params_differentiable,
@@ -155,14 +156,13 @@ class ConvTasNet(BaseModel):
 
 def _fused_shape_ok(model: ConvTasNet) -> bool:
     """Envelope of the whole-separator kernel: N == H (the bottleneck rides
-    the block weight stream as pseudo-block 0), H a multiple of 128, a
-    128-channel bottleneck, 16-sample filters (one 16-deep tensor-core step),
-    3-tap depthwise, non-causal gLN, relu or sigmoid mask."""
+    the block weight stream as pseudo-block 0), the block body's own
+    (``block_kernel_ok``: H a multiple of 128 up to 640, a 128-channel
+    bottleneck, 16-sample filters), 3-tap depthwise, non-causal gLN, relu
+    or sigmoid mask."""
     return (
         model.N == model.H
-        and model.H % 128 == 0
-        and model.B == 128
-        and model.L == 16
+        and block_kernel_ok(model.H, model.B, model.L)
         and model.P == 3
         and not model.causal
         and model.norm == "gLN"
@@ -177,7 +177,7 @@ def _require_fused_shape(model: ConvTasNet) -> None:
     if not _fused_shape_ok(model):
         raise ValueError(
             "config is outside the fused kernels' envelope "
-            "(needs N == H, H % 128 == 0, B == 128, L == 16, P == 3, "
+            "(needs N == H, H % 128 == 0, H <= 640, B == 128, L == 16, P == 3, "
             "non-causal gLN, relu|sigmoid mask)"
         )
 

@@ -6,16 +6,19 @@ look2hear checkpoints load: ``in_proj_weight`` [3E, E], ``in_proj_bias``
 
 Dispatch, per call:
 
-- bf16 self-attention on a CUDA device, with no mask and no training
-  dropout: the kernel form.  The q, k and v projections are written straight
-  in the kernel's [B*h, dh, T] layout (library matmuls, f32-accumulated,
-  rounded to bf16, as the JAX package leaves them to XLA), attention is the
-  CUDA kernel K4 (``ops/kernels/attention.py::fused_attention_bdt``, or its
-  plain version inside ``ops.kernels.plain_versions()``), then the output
-  projection.  Any T: the JAX package's TPU gate (``attention_eligible``) is
-  dropped.
+- bf16 self-attention on a CUDA device (``kernels.kernel_input``), with no
+  mask and no training dropout, and a head width the kernel takes
+  (``attention_kernel_ok``: dh % 8 == 0, 8 <= dh <= 256): the kernel form.
+  The q, k and v projections are written straight in the kernel's
+  [B*h, dh, T] layout (library matmuls, f32-accumulated, rounded to bf16,
+  as the JAX package leaves them to XLA), attention is the CUDA kernel K4
+  (``ops/kernels/attention.py::fused_attention_bdt``, FlashAttention-2 on
+  mma.sync, or its plain version inside ``ops.kernels.plain_versions()``),
+  then the output projection.  Any T: the JAX package's TPU gate
+  (``attention_eligible``) is dropped.
 - anything else (f32, a CPU tensor, a mask, cross-attention, training
-  dropout): the plain einsum form, f32 logits and softmax.
+  dropout, a head width outside the envelope): the plain einsum form, f32
+  logits and softmax.
 
 The 4-D batched-axis form of the JAX module (``_mha_batched_axis1``,
 Sandglasset's) is not ported yet (ROADMAP Queue 1).
@@ -31,7 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import kernels
-from .kernels.attention import attention_bdt_reference, fused_attention_bdt
+from .kernels.attention import attention_bdt_reference, attention_kernel_ok, fused_attention_bdt
 
 
 def mha_kernel_form(x, w_in, b_in, w_out, b_out, num_heads: int, attention=fused_attention_bdt):
@@ -102,8 +105,8 @@ class MultiheadAttention(nn.Module):
         self_attention = (key is None or key is query) and (value is None or value is query)
         w = (self.in_proj_weight, self.in_proj_bias, self.out_proj.weight, self.out_proj.bias)
         dropping = self.training and self.dropout > 0.0
-        if (self_attention and mask is None and not dropping and query.is_cuda
-                and query.dtype == torch.bfloat16):
+        if (self_attention and mask is None and not dropping and kernels.kernel_input(query)
+                and attention_kernel_ok(self.embed_dim // self.num_heads)):
             attention = kernels.pick(fused_attention_bdt, attention_bdt_reference)
             return mha_kernel_form(query, *w, self.num_heads, attention)
         key = query if key is None else key

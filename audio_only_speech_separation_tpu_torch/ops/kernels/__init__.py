@@ -2,10 +2,13 @@
 PyTorch version and a launch counter.
 
 The layers that call the dual-path kernels (``ops/attention.py`` and
-``ops/rnn.py``) take them through ``pick``: the kernel wrapper, or inside a
-``plain_versions()`` block its plain version, on any device.  That block is
-how the bf16 kernel path is compared with the same path without the
-kernels; nothing enters it on its own, and a wrapper never falls back.
+``ops/rnn.py``) take the kernel form for a ``kernel_input`` (bf16 on a
+CUDA device) inside the kernel's envelope predicate, and the plain form
+otherwise: the choice is made there, before any wrapper is called.  In the
+kernel form they take the kernels through ``pick``: the kernel wrapper, or
+inside a ``plain_versions()`` block its plain version, on any device.  That
+block is how the bf16 kernel path is compared with the same path without
+the kernels; nothing enters it on its own, and a wrapper never falls back.
 
 ``grad_through_plain`` is the backward of the dual-path wrappers: autograd
 through the kernel's plain version, as the JAX package's custom VJPs
@@ -34,6 +37,12 @@ def plain_versions():
 
 def pick(kernel, plain):
     return plain if _plain else kernel
+
+
+def kernel_input(x: torch.Tensor) -> bool:
+    """Whether ``x`` is what the dual-path kernels take: bf16 on a CUDA
+    device."""
+    return x.is_cuda and x.dtype == torch.bfloat16
 
 
 def grad_through_plain(plain, saved, needs, g):

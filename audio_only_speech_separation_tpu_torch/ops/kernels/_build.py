@@ -107,6 +107,8 @@ def load_library() -> ctypes.CDLL:
     lib.attention_bdt.restype = i
     lib.lstm_recurrence.argtypes = [p] * 3 + [i] * 4 + [p]
     lib.lstm_recurrence.restype = i
+    lib.lstm_recurrence_cluster.argtypes = [i] * 3
+    lib.lstm_recurrence_cluster.restype = i
     lib.lstm_resident.argtypes = [p] * 5 + [i] * 5 + [p]
     lib.lstm_resident.restype = i
     lib.lstm_resident_launches.argtypes = []

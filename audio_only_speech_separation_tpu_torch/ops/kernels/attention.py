@@ -1,17 +1,21 @@
 """Short-sequence self-attention on [BH, dh, T] (K4; counterpart of
 ``audio_only_speech_separation_tpu/ops/pallas/attention.py``): the CUDA
-wrapper ``fused_attention_bdt``, its plain version and its launch counter.
+wrapper ``fused_attention_bdt``, its plain version, its launch counter and
+its envelope ``attention_kernel_ok``.
 
 ``softmax(q^T k / sqrt(dh)) v`` per head, no mask: f32 logits and softmax,
 the probabilities rounded to v's dtype, f32-accumulated products, output in
 v's dtype.  The kernel (``csrc/attention.cu``) takes bf16 with dh % 8 == 0,
-dh <= 256 and any T >= 1; it walks the keys in tiles with an online softmax,
-so it rounds the probabilities before their normalisation, where the plain
-version rounds after it.
+8 <= dh <= 256 and any T >= 1.  It works in the FlashAttention-2 manner on
+mma.sync: one warp per 16 queries, the logits and the output in registers,
+an online softmax over 64-key steps.  So it rounds the probabilities before
+their normalisation, where the plain version rounds after it.
 
-The backward recomputes through the plain version under autograd, as the
-JAX package's custom VJP does through its einsum form; no backward kernel
-exists there to port.
+Dispatch (``ops/attention.py``) takes the kernel only where
+``attention_kernel_ok`` holds; on a CUDA tensor outside it the wrapper
+raises.  The backward recomputes through the plain version under autograd,
+as the JAX package's custom VJP does through its einsum form; no backward
+kernel exists there to port.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import math
 import torch
 
 from . import grad_through_plain
-from .convtasnet_block import _check
+from .convtasnet_block import _check, _check_aligned
 
 
 def attention_bdt_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -33,15 +37,21 @@ def attention_bdt_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -
     return torch.matmul(v.float(), attn.float().transpose(1, 2)).to(v.dtype)  # [BH, dh, Tq]
 
 
+def attention_kernel_ok(dh: int) -> bool:
+    """Whether the kernel takes heads of width ``dh`` (any T >= 1)."""
+    return dh % 8 == 0 and 8 <= dh <= 256
+
+
 def _launch(q, k, v):
     from ._build import check_launch, load_library
 
     dev = q.device
     BH, dh, T = q.shape
-    if dh % 8 != 0 or not 8 <= dh <= 256 or T < 1:
+    if not attention_kernel_ok(dh) or T < 1:
         raise ValueError(f"kernel takes dh % 8 == 0, 8 <= dh <= 256, T >= 1; got dh={dh}, T={T}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(name, t, q.shape, torch.bfloat16, dev)
+        _check_aligned(name, t)
     out = torch.empty_like(q)
     lib = load_library()
     with torch.cuda.device(dev):

@@ -335,6 +335,19 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_aligned(name, t):
+    """Kernels that read with 16-byte copies take 16-byte aligned tensors."""
+    if t.data_ptr() % 16 != 0:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
+def block_kernel_ok(H: int, C: int = _C, win: int = _WIN) -> bool:
+    """Whether the TCN block body of K1 and K2 takes hidden width ``H``,
+    bottleneck ``C`` and filter length ``win``: H a multiple of 128 up to
+    ``_H_MAX`` (all of W1^T sits in shared memory), C 128, win 16."""
+    return H % 128 == 0 and 0 < H <= _H_MAX and C == _C and win == _WIN
+
+
 def _core_w1(w1s: torch.Tensor) -> torch.Tensor:
     """W1 [nb, 128, H] -> W1^T in the block body's wgmma operand layout:
     per sub-chunk of 64 hidden channels (rows n) a [64, 128] tile cut into
@@ -374,7 +387,7 @@ def fused_convtasnet_separator(frames, we, w1s, wsgs, vecs, cs, alphas, wm, bm, 
     B, T, W = frames.shape
     H = we.shape[1]
     nb = len(dilations)
-    if W != _WIN or H % 128 != 0 or H > _H_MAX or T < 1 or nspk < 1:
+    if not block_kernel_ok(H, win=W) or T < 1 or nspk < 1:
         raise ValueError(f"kernel takes win={_WIN}, H % 128 == 0, H <= {_H_MAX}, T >= 1; "
                          f"got {W}, {H}, {T}")
     bf, f32 = torch.bfloat16, torch.float32
@@ -438,7 +451,7 @@ def fused_tcn_separator(x, w1s, wsgs, vecs, cs, alphas, dilations: Sequence[int]
     dev = x.device
     B, T, C = x.shape
     nb, _, H = w1s.shape
-    if C != _C or H % 128 != 0 or H > _H_MAX or T < 1 or nb < 1 or len(dilations) != nb:
+    if not block_kernel_ok(H, C=C) or T < 1 or nb < 1 or len(dilations) != nb:
         raise ValueError(f"kernel takes C={_C}, H % 128 == 0, H <= {_H_MAX}, T >= 1, nb >= 1; "
                          f"got {C}, {H}, {T}, {nb} ({len(dilations)} dilations)")
     bf, f32 = torch.bfloat16, torch.float32

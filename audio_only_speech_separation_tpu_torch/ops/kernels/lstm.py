@@ -1,7 +1,7 @@
 """(Bi)LSTM recurrence kernels (K5 and K6; counterpart of
 ``audio_only_speech_separation_tpu/ops/pallas/lstm.py``): the CUDA wrappers
-``fused_bilstm`` and ``resident_bilstm``, their plain versions and their
-launch counters.
+``fused_bilstm`` and ``resident_bilstm``, their plain versions, their launch
+counters and their envelope ``lstm_kernel_ok``.
 
 - ``fused_bilstm(xw, w_hh)``: pre-projected gates xw [T, D, B, 4H] ->
   hidden states [T, D, B, H]; the backward direction comes pre-reversed in
@@ -17,13 +17,18 @@ resident form; sigmoid and tanh in f32; ``c = bf16(f*c + i*g)``,
 and the plain versions are the JAX package's ``_xla_bilstm`` and
 ``_xla_resident_ref``.
 
-Both kernels live in ``csrc/lstm.cu`` (bf16, H % 16 == 0, H <= 256; the
-resident form also Din % 16 == 0).  The resident kernel takes W_ih and W_hh
-packed by ``pack_gate_fragments``: gate columns interleaved so that one
-thread's mma accumulators hold i, f, g and o of its own cells, in the
-fragment order of ``mma.sync.m16n8k16``.  Their backward recomputes through
-the plain version under autograd, as the JAX package's custom VJPs do; no
-backward kernel exists there to port.
+Both kernels live in ``csrc/lstm.cu`` and run one step body (bf16; the
+envelope ``lstm_kernel_ok``: H % 16 == 0, 16 <= H <= 256, and for the
+resident form Din % 16 == 0).  Each wrapper packs W_hh (and the resident
+form W_ih) by ``pack_gate_fragments``, one gather on the device: gate
+columns interleaved so that one thread's mma accumulators hold i, f, g and
+o of its own cells, in the fragment order of ``mma.sync.m16n8k16``.  A step
+is spread over a thread-block cluster of 1, 2 or 4 blocks
+(``recurrence_cluster``, ``resident_cluster``).  Dispatch (``ops/rnn.py``)
+takes the kernels only inside the envelope; on a CUDA tensor outside it
+the wrappers raise.  Their backward recomputes through the plain version
+under autograd, as the JAX package's custom VJPs do; no backward kernel
+exists there to port.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from typing import Optional
 import torch
 
 from . import grad_through_plain
-from .convtasnet_block import _check
+from .convtasnet_block import _check, _check_aligned
 
 
 def _step(gates_in: torch.Tensor, h: torch.Tensor, c: torch.Tensor, w_hh: torch.Tensor):
@@ -125,8 +130,14 @@ def unpack_gate_fragments(packed: torch.Tensor) -> torch.Tensor:
     return wp[:, :, torch.argsort(gate_interleave(G // 4)).to(packed.device)]
 
 
+def lstm_kernel_ok(H: int, Din: Optional[int] = None) -> bool:
+    """Whether the kernels take hidden width ``H`` (and, for the resident
+    form, input width ``Din``)."""
+    return H % 16 == 0 and 16 <= H <= 256 and (Din is None or Din % 16 == 0)
+
+
 def _check_hidden(H: int) -> None:
-    if H % 16 != 0 or not 16 <= H <= 256:
+    if not lstm_kernel_ok(H):
         raise ValueError(f"kernel takes H % 16 == 0 and 16 <= H <= 256; got H={H}")
 
 
@@ -140,12 +151,14 @@ def _launch_recurrence(xw, w_hh):
     if T < 1 or B < 1 or D not in (1, 2) or G != 4 * H:
         raise ValueError(f"kernel takes T >= 1, B >= 1, D in (1, 2); got xw {tuple(xw.shape)}")
     _check("xw", xw, (T, D, B, G), torch.bfloat16, dev)
+    _check_aligned("xw", xw)
     _check("w_hh", w_hh, (D, H, G), torch.bfloat16, dev)
+    whh_p = pack_gate_fragments(w_hh)
     out = torch.empty((T, D, B, H), dtype=torch.bfloat16, device=dev)
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.lstm_recurrence(xw.data_ptr(), w_hh.data_ptr(), out.data_ptr(), T, D, B, H, stream)
+        rc = lib.lstm_recurrence(xw.data_ptr(), whh_p.data_ptr(), out.data_ptr(), T, D, B, H, stream)
     check_launch(lib, "lstm_recurrence", rc)
     fused_bilstm.launches += 1
     return out
@@ -157,11 +170,11 @@ def _launch_resident(x, w_ih, w_hh, bias):
     dev = x.device
     B, T, Din = x.shape
     D, H, G = w_hh.shape
-    _check_hidden(H)
-    if T < 1 or B < 1 or D not in (1, 2) or Din % 16 != 0 or G != 4 * H:
-        raise ValueError(f"kernel takes T >= 1, B >= 1, D in (1, 2), Din % 16 == 0; "
-                         f"got x {tuple(x.shape)}, w_hh {tuple(w_hh.shape)}")
+    if not lstm_kernel_ok(H, Din) or T < 1 or B < 1 or D not in (1, 2) or G != 4 * H:
+        raise ValueError(f"kernel takes H % 16 == 0, 16 <= H <= 256, Din % 16 == 0, T >= 1, B >= 1, "
+                         f"D in (1, 2); got x {tuple(x.shape)}, w_hh {tuple(w_hh.shape)}")
     _check("x", x, (B, T, Din), torch.bfloat16, dev)
+    _check_aligned("x", x)
     _check("w_ih", w_ih, (D, Din, G), torch.bfloat16, dev)
     _check("w_hh", w_hh, (D, H, G), torch.bfloat16, dev)
     if bias is None:
@@ -207,8 +220,8 @@ def fused_bilstm(xw: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     directions; the backward one pre-reversed in time).
 
     A CUDA tensor launches the kernel (one launch, added to
-    ``fused_bilstm.launches``) or raises; a CPU tensor runs
-    ``bilstm_reference``.  Differentiable."""
+    ``fused_bilstm.launches``, after one gather that packs w_hh) or raises;
+    a CPU tensor runs ``bilstm_reference``.  Differentiable."""
     if xw.device.type == "cpu":
         return bilstm_reference(xw, w_hh)
     if xw.device.type != "cuda":
@@ -254,4 +267,15 @@ def resident_cluster(B: int, D: int, Din: int, H: int) -> int:
     cl = load_library().lstm_resident_cluster(B, D, Din, H)
     if cl < 1:
         raise RuntimeError("lstm_resident_cluster: CUDA error")
+    return cl
+
+
+def recurrence_cluster(B: int, D: int, H: int) -> int:
+    """The thread-block cluster size (1, 2 or 4) ``fused_bilstm`` takes on
+    the current CUDA device for this shape (loads the library)."""
+    from ._build import load_library
+
+    cl = load_library().lstm_recurrence_cluster(B, D, H)
+    if cl < 1:
+        raise RuntimeError("lstm_recurrence_cluster: CUDA error")
     return cl

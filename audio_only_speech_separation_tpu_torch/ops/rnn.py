@@ -7,7 +7,9 @@ them in the JAX package's layout: w_ih [D, in, 4H], w_hh [D, H, 4H] and one
 f32 bias [D, 4H], the sum of the two.  Gate order i, f, g, o; the state
 starts at zero.
 
-Dispatch, for a bf16 input on a CUDA device (the kernel form), by the
+Dispatch: the kernel form for a bf16 input on a CUDA device
+(``kernels.kernel_input``) whose hidden width the kernels take
+(``lstm_kernel_ok``: H % 16 == 0, 16 <= H <= 256); within it, by the
 number B of sequences:
 
 - B > 128 (and an input width that is a multiple of 16): the resident
@@ -16,13 +18,15 @@ number B of sequences:
 - otherwise: the input projection as a library matmul (the JAX package
   leaves it to XLA), then the recurrence kernel K5 (``fused_bilstm``).
 
+Both kernels run one step (``csrc/lstm.cu``): gates in mma.sync registers,
+h exchanged across a cluster of up to four blocks, one barrier a step.
 Inside ``ops.kernels.plain_versions()`` the same form runs the kernels'
-plain versions.  Anything else (f32, a CPU tensor) takes the plain path,
-``resident_bilstm_reference``: the JAX package's scan in the input dtype.
-The JAX package's TPU gates (T >= 128, T >= 200, the VMEM tile test) are
-dropped.  A bidirectional layer can fuse a following projection
-(``proj_w``/``proj_b``, with ``proj_act`` applied before it) into its
-output, as the JAX package does.
+plain versions.  Anything else (f32, a CPU tensor, a hidden width outside
+the envelope) takes the plain path, ``resident_bilstm_reference``: the JAX
+package's scan in the input dtype.  The JAX package's TPU gates (T >= 128,
+T >= 200, the VMEM tile test) are dropped.  A bidirectional layer can fuse
+a following projection (``proj_w``/``proj_b``, with ``proj_act`` applied
+before it) into its output, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from . import kernels
 from .kernels.lstm import (
     bilstm_reference,
     fused_bilstm,
+    lstm_kernel_ok,
     resident_bilstm,
     resident_bilstm_reference,
 )
@@ -65,7 +70,7 @@ def lstm_hidden_kernel_form(x, w_ih, w_hh, bias, recurrence=fused_bilstm,
 def lstm_hidden(x, w_ih, w_hh, bias) -> torch.Tensor:
     """[T, D, B, H] time-aligned hidden states, dispatched as the module
     docstring says."""
-    if x.is_cuda and x.dtype == torch.bfloat16:
+    if kernels.kernel_input(x) and lstm_kernel_ok(w_hh.shape[1]):
         return lstm_hidden_kernel_form(
             x, w_ih, w_hh, bias, kernels.pick(fused_bilstm, bilstm_reference),
             kernels.pick(resident_bilstm, resident_bilstm_reference))

@@ -33,9 +33,11 @@ path (DPTNet and DPRNN on the wsj0 configs, 8 kHz) through the attention
    module, and K2 and K3 alone against their plain versions, at B=12 x 2 s,
    with K2's and K3's kernels timed one by one under torch.profiler (K2's
    beside the device bytes its design moves);
-10. K4 against its plain version at the JAX validator's shapes and DPTNet's;
+10. K4 against its plain version at the JAX validator's shapes, DPTNet's
+    and the kernel's edges (T around a 16-query tile, long T, dh 8 and 256);
 11. K5 and 12. K6 against their plain versions at the validator's shapes,
-    the batch-1 inter-chunk pass, an odd batch, one step, and H 256;
+    the batch-1 inter-chunk pass, an odd batch, one step, H 48 and 256, and
+    batches past one cluster a tile;
 13. one backward through each of K4, K5 and K6 against autograd of its
     plain version;
 14. DPTNet and DPRNN end to end at B=2 x 2 s and B=1 x 12 s: the kernel
@@ -43,11 +45,12 @@ path (DPTNet and DPRNN on the wsj0 configs, 8 kHz) through the attention
 15. serve five requests (1.3 to 12 s) of each model from a checkpoint
     through ``serve.serve`` (bf16, batch 1, 1 s buckets); K4 (DPTNet), K5
     and K6 must each launch;
-16. time both models at B=8 x 2 s x 8 kHz (kernel path, plain bf16 path,
-    f32 module), profile the kernel path, and time K4, K5 and K6 alone
+16. time both models at B=8 x 2 s and at B=1 x 12 s x 8 kHz (kernel path,
+    plain bf16 path, f32 module), profile the kernel path (K4, K5, K6
+    device time and launches, idle share), and time K4, K5 and K6 alone
     beside their plain versions and the PyTorch calls that compute the
-    same (or, for K5, a similar) function; K6 also per step, with the
-    thread-block cluster it takes, and at K5's batch-1 shape.
+    same (or, for K5, a similar) function; K5 and K6 also per step, with
+    the thread-block cluster they take, K6 also at K5's batch-1 shape.
 
 TF32 is off for matmuls and cuDNN, so the f32 references are full f32.
 
@@ -264,6 +267,14 @@ def profile_kernels(fn, calls: int) -> dict:
     return {k: (ms, n) for k, ms, n in sorted(rows, key=lambda r: -r[1])}
 
 
+def launch_ms(fn, prefix: str, calls: int = 5) -> float:
+    """Device ms of one launch of the kernels whose names start with
+    ``prefix``, under torch.profiler: their time over the launches the
+    trace holds (a trace can miss launches, so not over the calls)."""
+    rows = [(ms, n) for k, (ms, n) in profile_kernels(fn, calls).items() if k.startswith(prefix)]
+    return sum(ms for ms, _ in rows) / sum(n for _, n in rows)
+
+
 def least_time(nbytes: float, flops: float):
     """(least ms the card could take, "bytes" or "operations"): the larger of
     the bytes over HBM bandwidth and the tensor-core FLOPs over the bf16
@@ -384,15 +395,24 @@ def dualpath_kernel_checks(dev):
         against_plain(f"[BH, dh, T] = {list(s)}", fused_attention_bdt, attention_bdt_reference,
                       [rand(s) for _ in range(3)], 2e-2)
         # the validator's (scripts/validate_pallas.py:183), then DPTNet's rows
-        # and columns at B=8 x 2 s and at B=1 x 12 s
+        # and columns at B=8 x 2 s and at B=1 x 12 s; then the kernel's edges:
+        # T on either side of a 16-query tile, several 128-key chunks, dh 8
+        # and 256
         for s in [(512, 32, 250), (528, 32, 250), (64, 32, 100), (16, 64, 129),
-                  (1344, 16, 100), (3200, 16, 42), (968, 16, 100), (400, 16, 242)])
+                  (1344, 16, 100), (3200, 16, 42), (968, 16, 100), (400, 16, 242),
+                  (3, 16, 15), (3, 16, 16), (3, 16, 17), (4, 16, 300), (6, 8, 50), (3, 256, 40),
+                  (2, 256, 300)])
 
     print("phase 11: K5 (LSTM recurrence) vs plain, xw * 0.3, w_hh * 0.05")
     k5_err = max(
         against_plain(f"(T, D, B, H) = {(T, D, B, H)}", fused_bilstm, bilstm_reference,
                       [rand((T, D, B, 4 * H), 0.3), rand((D, H, 4 * H), 0.05)], 1e-2)
-        for T, D, B, H in [(251, 2, 64, 256), (250, 2, 96, 128), (128, 1, 32, 128), (242, 2, 100, 128)])
+        # the validator's, the batch-1 12 s column pass; then the kernel's
+        # edges: T = 1, a partial 16-row tile, B 100 with a short T, H 48 (a
+        # cluster of 2) and 256 at B 2, and one block a tile (B 1100)
+        for T, D, B, H in [(251, 2, 64, 256), (250, 2, 96, 128), (128, 1, 32, 128), (242, 2, 100, 128),
+                           (1, 2, 4, 32), (6, 2, 17, 16), (5, 2, 100, 128), (40, 2, 3, 48),
+                           (4, 1, 2, 256), (3, 2, 1100, 128)])
 
     print("phase 12: K6 (resident LSTM) vs plain, x * 0.5, w_ih * 0.08, w_hh * 0.05, bias * 0.05")
     k6_err = max(
@@ -509,40 +529,32 @@ def tasnet_serving(dev, tasnets):
     return tuple(launches)
 
 
-def tasnet_timing(dev, card, tasnets):
-    """Phase 16: both models at B=8 x 2 s x 8 kHz (kernel path, plain bf16
-    path, f32 module), the kernel path under torch.profiler, and K4, K5 and
-    K6 alone at main-path shapes beside their plain versions and PyTorch
-    yardsticks; returns the three kernels' timing entries."""
+def time_tasnet_calls(dev, card, tasnets, batch: int, secs: float, reps: int) -> dict:
+    """DPTNet and DPRNN at B=batch x secs s x 8 kHz: the kernel path, the
+    plain bf16 path and the f32 module timed in turns (CUDA events, median
+    of ``reps``), then the kernel path under torch.profiler: K4, K5 and K6
+    device time and launches a call, all device work and the idle share.
+    Returns {label: ms}."""
     from torch.profiler import ProfilerActivity, profile
 
-    from audio_only_speech_separation_tpu_torch.ops.kernels.attention import (
-        attention_bdt_reference,
-        fused_attention_bdt,
-    )
-    from audio_only_speech_separation_tpu_torch.ops.kernels.lstm import (
-        bilstm_reference,
-        fused_bilstm,
-        resident_bilstm,
-        resident_bilstm_reference,
-        resident_cluster,
-    )
+    from audio_only_speech_separation_tpu_torch.ops.kernels.attention import fused_attention_bdt
+    from audio_only_speech_separation_tpu_torch.ops.kernels.lstm import fused_bilstm, resident_bilstm
 
-    print(f"phase 16: timing, B=8 x 2 s x 8 kHz, on {card}")
-    rand = rand_maker(26, dev)
-    x8 = torch.from_numpy(np.random.default_rng(25).standard_normal((8, 2 * TSR)).astype(np.float32)).to(dev)
+    shape = f"B={batch} x {secs:g} s x 8 kHz"
+    x = torch.from_numpy(np.random.default_rng(25).standard_normal(
+        (batch, int(secs * TSR))).astype(np.float32)).to(dev)
     runs = {}
     for name, model in tasnets.items():
         kernel, plain, f32 = tasnet_paths(model)
-        runs[f"{name} kernel path"] = lambda f=kernel: f(x8)
-        runs[f"{name} plain bf16 path"] = lambda f=plain: f(x8)
-        runs[f"{name} f32 module"] = lambda f=f32: f(x8)
+        runs[f"{name} kernel path"] = lambda f=kernel: f(x)
+        runs[f"{name} plain bf16 path"] = lambda f=plain: f(x)
+        runs[f"{name} f32 module"] = lambda f=f32: f(x)
     for fn in runs.values():
         for _ in range(2):
             fn()
     torch.cuda.synchronize()
     times = {k: [] for k in runs}
-    for _ in range(10):  # in turns
+    for _ in range(reps):  # in turns
         for name, fn in runs.items():
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
@@ -552,9 +564,10 @@ def tasnet_timing(dev, card, tasnets):
             times[name].append(start.elapsed_time(end))
     ms = {k: statistics.median(v) for k, v in times.items()}
     for name, v in ms.items():
-        print(f"  {name}: {v:.4f} ms/call, {8 * 2.0 / (v / 1000):.2f} audio-sec/s (median of 10, {card})")
+        print(f"  {shape}, {name}: {v:.4f} ms/call, {batch * secs / (v / 1000):.2f} audio-sec/s "
+              f"(median of {reps}, {card})")
 
-    counters = (("K4", fused_attention_bdt, "attention_kernel"), ("K5", fused_bilstm, "lstm_kernel<false>"),
+    counters = (("K4", fused_attention_bdt, "attention_kernel"), ("K5", fused_bilstm, "lstm_recurrence_kernel"),
                 ("K6", resident_bilstm, "lstm_resident_kernel"))
     for name in tasnets:
         fn, calls = runs[f"{name} kernel path"], 5
@@ -577,12 +590,38 @@ def tasnet_timing(dev, card, tasnets):
                 if key in evt.key:
                     dev_us[g] += evt.self_device_time_total
         busy_ms = busy_us / 1e3 / calls
-        print(f"  {name} kernel path under torch.profiler, per call: " + ", ".join(
+        print(f"  {shape}, {name} kernel path under torch.profiler, per call: " + ", ".join(
             f"{g} {dev_us[g] / 1e3 / calls:.4f} ms device, {c.launches / calls:g} launches"
             for g, c, _ in counters)
             + f"; all device work {busy_ms:.4f} ms; wall {wall_ms:.4f} ms with the profiler; idle share "
             f"{1 - busy_ms / wall_ms:.4f} (profiler on), {1 - busy_ms / ms[f'{name} kernel path']:.4f} "
-            "(against the unprofiled time)")
+            f"(against the unprofiled time); {card}")
+    return ms
+
+
+def tasnet_timing(dev, card, tasnets):
+    """Phase 16: both models at B=8 x 2 s and B=1 x 12 s x 8 kHz (kernel
+    path, plain bf16 path, f32 module, the kernel path profiled), and K4,
+    K5 and K6 alone at main-path shapes beside their plain versions and
+    PyTorch yardsticks, K5 and K6 also per step with the thread-block
+    cluster they take; returns the three kernels' timing entries."""
+    from audio_only_speech_separation_tpu_torch.ops.kernels.attention import (
+        attention_bdt_reference,
+        fused_attention_bdt,
+    )
+    from audio_only_speech_separation_tpu_torch.ops.kernels.lstm import (
+        bilstm_reference,
+        fused_bilstm,
+        recurrence_cluster,
+        resident_bilstm,
+        resident_bilstm_reference,
+        resident_cluster,
+    )
+
+    print(f"phase 16: timing, B=8 x 2 s and B=1 x 12 s x 8 kHz, on {card}")
+    time_tasnet_calls(dev, card, tasnets, 8, 2.0, 10)
+    time_tasnet_calls(dev, card, tasnets, 1, 12.0, 5)
+    rand = rand_maker(26, dev)
 
     def timed(fn, reps=20):
         with torch.no_grad():
@@ -624,15 +663,18 @@ def tasnet_timing(dev, card, tasnets):
                      ("K6 (100, 336, 64, 128, 2), nn.LSTM beside it", k6)):
         print(f"  {label}: " + ", ".join(f"{key} {val:.6g}" if isinstance(val, float) else f"{key} {val}"
                                           for key, val in d.items()))
+    with torch.no_grad():
+        k5_dev = launch_ms(lambda: fused_bilstm(xw, whh), "lstm_recurrence_kernel")
+    print(f"  K5 (T=242, D=2, B=100, H=128): the kernel {k5_dev:.4f} ms a launch on the device (torch.profiler), "
+          f"{k5_dev / 242 * 1e3:.3f} us a step, cluster of {recurrence_cluster(100, 2, 128)}")
     for label, T, B in (("rows", 100, 336), ("DPRNN columns", 42, 800), ("batch-1 rows", 100, 242),
                         ("K5's batch-1 columns", 242, 100)):
         x = rand((B, T, 64), 0.5)
         lib = lstm_yardstick(x)
         with torch.no_grad():
-            dev_ms = sum(ms for k, (ms, _) in profile_kernels(lambda: resident_bilstm(x, wih6, whh6, b6), 5).items()
-                         if k.startswith("lstm_resident_kernel"))
+            dev_ms = launch_ms(lambda: resident_bilstm(x, wih6, whh6, b6), "lstm_resident_kernel")
         print(f"  K6 {label} (T={T}, B={B}): {timed(lambda: resident_bilstm(x, wih6, whh6, b6)):.4f} ms a call; "
-              f"the kernel {dev_ms:.4f} ms on the device (torch.profiler), {dev_ms / T * 1e3:.3f} us a step, "
+              f"the kernel {dev_ms:.4f} ms a launch on the device (torch.profiler), {dev_ms / T * 1e3:.3f} us a step, "
               f"cluster of {resident_cluster(B, 2, 64, 128)}; nn.LSTM " + ("not timed" if lib is None else f"{lib:.4f} ms"))
     qc, kc, vc = (rand((3200, 16, 42)) for _ in range(3))
     print(f"  K4 DPTNet columns [3200, 16, 42]: {timed(lambda: fused_attention_bdt(qc, kc, vc)):.4f} ms")

@@ -273,6 +273,7 @@ from audio_only_speech_separation_tpu_torch.ops.kernels.attention import (  # no
 from audio_only_speech_separation_tpu_torch.ops.kernels.lstm import (  # noqa: E402
     bilstm_reference,
     fused_bilstm,
+    recurrence_cluster,
     resident_bilstm,
     resident_bilstm_reference,
     resident_cluster,
@@ -285,9 +286,12 @@ def _bf16(dev, a):
 
 
 # the JAX validator's shapes (scripts/validate_pallas.py:183), DPTNet's rows
-# and columns, and edge cases: dh not a multiple of 16, T = 1, a ragged tile
+# and columns, and edge cases: dh not a multiple of 16, T = 1, a ragged tile;
+# T on either side of a 16-query tile, the batch-1 12 s rows (T 242: two
+# query blocks, two key chunks), several key chunks at dh 16, dh 8 and 256
 ATTN_CASES = [(512, 32, 250), (16, 64, 129), (1344, 16, 100), (3200, 16, 42),
-              (3, 8, 1), (5, 24, 77), (2, 256, 300)]
+              (3, 8, 1), (5, 24, 77), (2, 256, 300), (3, 16, 15), (3, 16, 16), (3, 16, 17),
+              (400, 16, 242), (4, 16, 300), (6, 8, 50), (3, 256, 40)]
 
 
 @pytest.mark.parametrize("BH,dh,T", ATTN_CASES)
@@ -307,25 +311,40 @@ def test_attention_matches_plain_version(cuda, BH, dh, T):
 
 
 # (T, D, B, H): the validator's (scripts/validate_pallas.py:283), the batch-1
-# inter-chunk pass, and a small odd batch
+# inter-chunk pass, and a small odd batch; T = 1, a partial 16-row tile
+# (B 17), 100 sequences at H 128 with a short T, H 48 (a cluster of 2) and
+# H 256 at B 2; and batches too large for a cluster (one block a tile),
+# where the xw ring is 4H wide and W_hh (H 256) is read from L2
 BILSTM_CASES = [(251, 2, 64, 256), (250, 2, 96, 128), (128, 1, 32, 128), (242, 2, 100, 128),
-                (9, 2, 3, 16)]
+                (9, 2, 3, 16), (1, 2, 4, 32), (6, 2, 17, 16), (5, 2, 100, 128), (40, 2, 3, 48),
+                (4, 1, 2, 256), (3, 2, 1100, 128), (3, 2, 1100, 256)]
 
 
 @pytest.mark.parametrize("T,D,B,H", BILSTM_CASES)
 def test_bilstm_recurrence_matches_plain_version(cuda, T, D, B, H):
     """K5 against its plain version on the validator's inputs (xw * 0.3,
-    w_hh * 0.05): max abs < 1e-2, one launch a call."""
+    w_hh * 0.05): max abs < 1e-2, bit-identical from run to run, one
+    launch a call."""
     rng = np.random.default_rng(T + B)
     xw = _bf16(cuda, rng.standard_normal((T, D, B, 4 * H)) * 0.3)
     whh = _bf16(cuda, rng.standard_normal((D, H, 4 * H)) * 0.05)
     before = fused_bilstm.launches
     got = fused_bilstm(xw, whh)
+    again = fused_bilstm(xw, whh)
     want = bilstm_reference(xw, whh)
     torch.cuda.synchronize()
-    assert fused_bilstm.launches - before == 1
+    assert fused_bilstm.launches - before == 2
     assert got.shape == (T, D, B, H)
+    assert torch.equal(got, again)
     assert float((got.float() - want.float()).abs().max()) < 1e-2
+
+
+def test_recurrence_cases_cover_each_cluster_plan(cuda):
+    """K5 runs K6's step: a cluster of 4 (H 128 at a small batch), 2 (H 48,
+    whose 12 gate pairs do not split four ways) and 1 (too many tiles for
+    the card at once) are all among the cases above."""
+    plans = {recurrence_cluster(B, D, H) for _, D, B, H in BILSTM_CASES}
+    assert plans == {1, 2, 4}, plans
 
 
 # (T, B, Din, H, D, bias): the validator's (scripts/validate_pallas.py:246)

@@ -41,8 +41,12 @@ def max_err(got, want):
     return float(np.abs(np.asarray(got, np.float32) - np.asarray(want, np.float32)).max())
 
 
-# [BH, dh, T], T not a multiple of 16 included
-ATTN = [(4, 16, 100), (3, 8, 37), (2, 32, 1), (5, 24, 129)]
+# [BH, dh, T], T not a multiple of 16 included; the kernel's edges: T on
+# either side of a 16-query tile (15, 16, 17), DPTNet's columns (42) and
+# the batch-1 12 s rows (242, past a 128-query block and a 128-key chunk),
+# dh 8 and 256
+ATTN = [(4, 16, 100), (3, 8, 37), (2, 32, 1), (5, 24, 129), (3, 16, 15), (3, 16, 16), (3, 16, 17),
+        (4, 16, 42), (2, 16, 242), (2, 8, 50), (1, 256, 40)]
 
 
 @pytest.mark.parametrize("BH,dh,T", ATTN)
@@ -60,8 +64,12 @@ def test_attention_plain_version_matches_jax(BH, dh, T):
     assert max_err(got_b, want_b) < 2e-2
 
 
-# (T, D, B, H): one and two directions, an odd batch
-BILSTM = [(13, 2, 5, 16), (9, 1, 3, 32), (20, 2, 1, 16)]
+# (T, D, B, H): one and two directions, an odd batch; the kernel's edges:
+# T = 1, a partial 16-row tile (B 17), the batch-1 column pass's 100
+# sequences at H 128 with a short T, and H 48 and 256 (other cluster and
+# pairs-per-warp plans)
+BILSTM = [(13, 2, 5, 16), (9, 1, 3, 32), (20, 2, 1, 16), (1, 2, 4, 32), (6, 2, 17, 16),
+          (5, 2, 100, 128), (7, 2, 3, 48), (4, 1, 2, 256)]
 
 
 @pytest.mark.parametrize("T,D,B,H", BILSTM)
