@@ -1,6 +1,6 @@
 """Model registry (counterpart of ``audio_only_speech_separation_tpu/models``).
 
-The port has ConvTasNet and TasNet (DPRNN and DPTNet cores) so far."""
+The port has ConvTasNet, TasNet (DPRNN and DPTNet cores) and Sepformer so far."""
 
 from ..utils.registry import Registry
 from .base import BaseModel, from_pretrain, save_serialized, serialize
@@ -23,11 +23,13 @@ def available_models():
 
 from .convtasnet import ConvTasNet  # noqa: E402  (self-registers)
 from .tasnet import TasNet  # noqa: E402  (self-registers)
+from .sepformer import Sepformer  # noqa: E402  (self-registers)
 
 __all__ = [
     "BaseModel",
     "ConvTasNet",
     "TasNet",
+    "Sepformer",
     "register_model",
     "get",
     "available_models",

@@ -10,6 +10,7 @@ look2hear key names, so a checkpoint needs neither framework to unpickle.
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import pickle
 from typing import Any, Dict, Tuple
@@ -30,6 +31,20 @@ def normalize_input(wav: torch.Tensor) -> Tuple[torch.Tensor, bool]:
 
 def restore_output(out: torch.Tensor, was_one_d: bool) -> torch.Tensor:
     return out[0] if was_one_d else out
+
+
+@contextlib.contextmanager
+def eval_mode(model: nn.Module):
+    """``model`` in eval mode inside the block (the JAX package's
+    ``apply(..., train=False)``); on leaving it every submodule gets back
+    its own ``training`` flag."""
+    modes = [(m, m.training) for m in model.modules()]
+    model.eval()
+    try:
+        yield model
+    finally:
+        for m, training in modes:
+            m.training = training
 
 
 _NOT_ARGS = ("self", "device", "generator")

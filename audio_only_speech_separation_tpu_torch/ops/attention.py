@@ -22,6 +22,10 @@ Dispatch, per call:
 
 The 4-D batched-axis form of the JAX module (``_mha_batched_axis1``,
 Sandglasset's) is not ported yet (ROADMAP Queue 1).
+
+Also the fixed sinusoidal positions (``sinusoidal_positions``,
+``PositionalEncoding``) that Sepformer adds to each transformer stack's
+input.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -113,3 +118,31 @@ class MultiheadAttention(nn.Module):
         value = key if value is None else value
         return mha_plain_form(query, key, value, *w, self.num_heads, mask,
                               self.dropout, self.training)
+
+
+def sinusoidal_positions(max_len: int, d_model: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Sinusoidal table [max_len, d_model] (reference sepformer.py:53-80),
+    built in float64 and rounded once to ``dtype``; at an odd ``d_model``
+    the cosine columns take the first d_model // 2 frequencies."""
+    pos = np.arange(max_len)[:, None].astype(np.float64)
+    div = np.exp(np.arange(0, d_model, 2) * (-np.log(10000.0) / d_model))
+    table = np.zeros((max_len, d_model))
+    table[:, 0::2] = np.sin(pos * div)
+    table[:, 1::2] = np.cos(pos * div[: (d_model + 1) // 2][: table[:, 1::2].shape[1]])
+    return torch.from_numpy(table).to(device=device, dtype=dtype)
+
+
+class PositionalEncoding(nn.Module):
+    """Adds fixed sinusoidal positions to [B, T, E], in x's dtype.  No
+    parameters; each (T, dtype, device) table is built once and kept."""
+
+    def __init__(self, d_model: int):
+        super().__init__()
+        self.d_model = d_model
+        self._tables = {}
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        key = (x.shape[1], x.dtype, x.device)
+        if key not in self._tables:
+            self._tables[key] = sinusoidal_positions(x.shape[1], self.d_model, x.dtype, x.device)
+        return x + self._tables[key][None]

@@ -14,6 +14,7 @@ Layouts translated:
 - LSTM w_ih/w_hh [D, in, 4H] -> ``weight_{ih,hh}_l0[_reverse]`` [4H, in];
   the folded bias [D, 4H] -> ``bias_ih_*``, zeros in ``bias_hh_*``
 - dense kernel [in, out] -> Linear weight [out, in]; LayerNorm scale -> weight
+- Sepformer's ``conv2d_kernel`` [N, N*spks] -> Conv2d weight [N*spks, N, 1, 1]
 - dual-path gate weight [C] -> Conv2d weight [C, 1, 1, 1]; core
   ``out_kernel`` [in, out] -> Conv2d weight [out, in, 1, 1]
 """
@@ -85,6 +86,17 @@ def _lstm(sd, prefix: str, p) -> None:
         sd[f"{prefix}.bias_hh_l0{s}"] = np.zeros_like(_f32(bias[d]))
 
 
+def _layer_norm(sd, prefix: str, p) -> None:
+    sd[f"{prefix}.weight"] = _f32(p["scale"])
+    sd[f"{prefix}.bias"] = _f32(p["bias"])
+
+
+def _mha(sd, prefix: str, p) -> None:
+    sd[f"{prefix}.in_proj_weight"] = _f32(p["in_proj_weight"])
+    sd[f"{prefix}.in_proj_bias"] = _f32(p["in_proj_bias"])
+    _dense(sd, f"{prefix}.out_proj", p["out_proj"])
+
+
 def _gate(sd, prefix: str, p) -> None:
     sd[f"{prefix}.0.weight"] = _f32(p["weight"]).reshape(-1, 1, 1, 1)
     sd[f"{prefix}.0.bias"] = _f32(p["bias"])
@@ -113,12 +125,9 @@ def tasnet_from_jax(params_np, module: str, layer: int, unfold: bool) -> Dict[st
             for side in ("row", "col"):
                 x = core[f"{side}_xfmr{jax_sfx}"]
                 tp = f"{pre}.{side}_xfmr.{i}.transformer"
-                sd[f"{tp}.self_attn.in_proj_weight"] = _f32(x["self_attn"]["in_proj_weight"])
-                sd[f"{tp}.self_attn.in_proj_bias"] = _f32(x["self_attn"]["in_proj_bias"])
-                _dense(sd, f"{tp}.self_attn.out_proj", x["self_attn"]["out_proj"])
+                _mha(sd, f"{tp}.self_attn", x["self_attn"])
                 for n in ("norm1", "norm2"):
-                    sd[f"{tp}.{n}.weight"] = _f32(x[n]["scale"])
-                    sd[f"{tp}.{n}.bias"] = _f32(x[n]["bias"])
+                    _layer_norm(sd, f"{tp}.{n}", x[n])
                 _lstm(sd, f"{tp}.linear1", x["ffn_lstm"])
                 _dense(sd, f"{tp}.linear2", x["ffn_proj"])
         else:
@@ -132,6 +141,38 @@ def tasnet_from_jax(params_np, module: str, layer: int, unfold: bool) -> Dict[st
     return sd
 
 
+def sepformer_from_jax(params_np, masknet_numlayers: int, intra_numlayers: int,
+                       inter_numlayers: int) -> Dict[str, np.ndarray]:
+    """JAX Sepformer params -> port Sepformer ``state_dict`` (numpy): the
+    inverse of the JAX package's ``utils/torch_import.py::convert_sepformer``."""
+    p = params_np["params"] if "params" in params_np else params_np
+    sd: Dict[str, np.ndarray] = {}
+    sd["encoder.conv1d.weight"] = _f32(np.asarray(p["encoder"]["kernel"]).T[:, None, :])
+    _norm(sd, "masknet.norm", p["mask_norm"])
+    sd["masknet.conv1d.weight"] = _f32(np.asarray(p["mask_conv1d"]["kernel"]).T[:, :, None])
+    for i in range(masknet_numlayers):
+        blk = p[f"dual_mdl_{i}"]
+        for side, n_layers in (("intra", intra_numlayers), ("inter", inter_numlayers)):
+            mdl, pre = blk[f"{side}_mdl"], f"masknet.dual_mdl.{i}.{side}_mdl.mdl"
+            for j in range(n_layers):
+                layer, lp = mdl[f"layer_{j}"], f"{pre}.layers.{j}"
+                _mha(sd, f"{lp}.self_att.att", layer["self_att"])
+                _layer_norm(sd, f"{lp}.norm1", layer["norm1"])
+                _layer_norm(sd, f"{lp}.norm2", layer["norm2"])
+                _dense(sd, f"{lp}.pos_ffn.ffn.0", layer["ffn1"])
+                _dense(sd, f"{lp}.pos_ffn.ffn.3", layer["ffn2"])
+            _layer_norm(sd, f"{pre}.norm", mdl["norm"])
+            _norm(sd, f"masknet.dual_mdl.{i}.{side}_norm", blk[f"{side}_norm"])
+    sd["masknet.prelu.weight"] = _f32(p["mask_prelu"]["alpha"]).reshape(1)
+    sd["masknet.conv2d.weight"] = _f32(np.asarray(p["conv2d_kernel"]).T[:, :, None, None])
+    sd["masknet.conv2d.bias"] = _f32(p["conv2d_bias"])
+    _pointwise(sd, "masknet.output.0", p["output"])
+    _pointwise(sd, "masknet.output_gate.0", p["output_gate"])
+    sd["masknet.end_conv1x1.weight"] = _f32(np.asarray(p["end_conv1x1"]["kernel"]).T[:, :, None])
+    sd["decoder.weight"] = _f32(np.asarray(p["decoder"]["kernel"])[:, None, :])
+    return sd
+
+
 def from_jax(model, params_np) -> Dict[str, np.ndarray]:
     """Convert a JAX tree for ``model`` (a port model instance)."""
     name = type(model).__name__
@@ -139,4 +180,7 @@ def from_jax(model, params_np) -> Dict[str, np.ndarray]:
         return convtasnet_from_jax(params_np, model.R, model.X)
     if name == "TasNet":
         return tasnet_from_jax(params_np, model.module, model.layer, model.unfold)
+    if name == "Sepformer":
+        return sepformer_from_jax(params_np, model.masknet_numlayers, model.intra_numlayers,
+                                  model.inter_numlayers)
     raise NotImplementedError(f"no JAX converter for {name}")

@@ -9,7 +9,9 @@ width and depth with seeded random weights: serving through the
 whole-separator CUDA kernel (K1), training through the TCN chain's forward
 (K2) and backward (K3) CUDA kernels.  Then the TasNet dual-path serving
 path (DPTNet and DPRNN on the wsj0 configs, 8 kHz) through the attention
-(K4) and LSTM (K5, K6) CUDA kernels.  In phases:
+(K4) and LSTM (K5, K6) CUDA kernels, Sepformer (sepformer_base, 16 kHz)
+through K4, and the eval CLI (``audio_test.main``) over all three
+families.  In phases:
 
 0. the card's name and power limit (fails without a CUDA device);
 1. build the kernels from ``csrc/`` with nvcc;
@@ -50,7 +52,21 @@ path (DPTNet and DPRNN on the wsj0 configs, 8 kHz) through the attention
     device time and launches, idle share), and time K4, K5 and K6 alone
     beside their plain versions and the PyTorch calls that compute the
     same (or, for K5, a similar) function; K5 and K6 also per step, with
-    the thread-block cluster they take, K6 also at K5's batch-1 shape.
+    the thread-block cluster they take, K6 also at K5's batch-1 shape;
+17. Sepformer at full width and depth, seeded weights, at B=2 x 2 s and
+    B=1 x 8 s: the kernel path (``serve``'s "kernels" dispatch), the plain
+    bf16 path and the f32 module under the 1.5x rule, exactly 32 K4
+    launches a call; K4 against its plain version at the two shapes of
+    B=2 x 2 s ([544, 32, 250] intra, [4000, 32, 34] inter);
+18. the eval CLI, ``audio_test.main(config, device="cuda")`` with --bf16,
+    on phase 8's ConvTasNet-LRS3 experiment (K1), a DPTNet at 8 kHz (K4,
+    K5, K6) and phase 17's Sepformer (K4), each on five synthetic
+    utterances of 1.3-8 s: well-formed CSV files whose rows equal the
+    port's ``MetricsTracker`` on ``serve()``'s estimates within 1e-3 dB;
+19. time the Sepformer at B=2 x 2 s (kernel path, plain bf16 path, f32
+    module; the kernel path profiled: K4, the library matmuls, the rest,
+    the idle share), and K4 alone at its two shapes beside its plain
+    version, SDPA on [B, h, T, dh] and its bound.
 
 TF32 is off for matmuls and cuDNN, so the f32 references are full f32.
 
@@ -61,9 +77,9 @@ describing the kernels; the last line is
 
 from __future__ import annotations
 
-import copy
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import tempfile
@@ -86,6 +102,17 @@ TRAIN_B = 12  # configs/convtasnet_lrs3.yml datamodule batch_size
 WSJ0_TASNET = dict(enc_dim=64, bn_dim=64, hidden_dim=128, win=16, layer=6, num_spk=2,
                    group_size=1, block_size=100, unfold=False, sample_rate=8000)
 TSR = 8000
+# configs/sepformer_base.yml audionet_config, written out; 16 kHz
+SEPFORMER = dict(encoder_kernel_size=16, encoder_in_nchannels=1, encoder_out_nchannels=256,
+                 masknet_chunksize=250, masknet_numlayers=2, masknet_norm="gLN", masknet_numspks=2,
+                 intra_numlayers=8, inter_numlayers=8, intra_nhead=8, inter_nhead=8, intra_dffn=1024,
+                 inter_dffn=1024, intra_use_positional=True, inter_use_positional=True,
+                 intra_norm_before=True, inter_norm_before=True, intra_causal=False, inter_causal=False)
+SEPFORMER_K4 = 2 * (8 + 8)  # K4 launches a call: 2 dual blocks x (8 intra + 8 inter) attentions
+# K4's [BH, dh, T] at B=2 x 2 s x 16 kHz: L = 3999 frames, S = 34 chunks of K = 250, h = 8, dh = 32
+SEPFORMER_SHAPES = {"intra": (2 * 34 * 8, 32, 250), "inter": (2 * 250 * 8, 32, 34)}
+# utterances of the eval CLI phase, seconds
+EVAL_SECONDS = (1.3, 2.0, 4.0, 6.5, 8.0)
 PEAK_FLOPS = 989e12  # H100 SXM bf16 dense tensor-core peak, FLOP/s
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 
@@ -188,12 +215,12 @@ def chain_inputs(dev, nb, H, B, T, seed):
     return x, w, tuple(2 ** (i % 8) for i in range(nb)), g
 
 
-def write_wav(path: str, data: np.ndarray) -> None:
-    """float32 in [-1, 1] -> mono PCM16 at SR."""
+def write_wav(path: str, data: np.ndarray, sr: int = SR) -> None:
+    """float32 in [-1, 1] -> mono PCM16 at ``sr``."""
     with wave.open(path, "wb") as w:
         w.setnchannels(1)
         w.setsampwidth(2)
-        w.setframerate(SR)
+        w.setframerate(sr)
         w.writeframes((np.clip(data, -1.0, 1.0) * 32767.0).astype("<i2").tobytes())
 
 
@@ -204,20 +231,23 @@ def train_frames(T: int, L: int = 16) -> int:
     return (T + rest + 2 * (win - pad_stride) - win) // (L // 4) + 1
 
 
-def write_lrs3_manifests(root: str, n_per_split, seed: int) -> None:
-    """Synthetic LRS3-layout manifests (mix_noise.json, s1-s3.json, lists of
-    [wav path, samples]) with 2 s utterances of 3 random speakers."""
+def write_manifests(root: str, lengths_per_split, seed: int, mix: str = "mix_noise", n_src: int = 3,
+                    sr: int = SR) -> None:
+    """Synthetic manifests (``<mix>.json``, s1.json ..., lists of [wav path,
+    samples]) of random speakers and their sum; ``lengths_per_split`` maps
+    each split to its utterances' lengths in samples.  The defaults are the
+    LRS3 layout (mix_noise, 3 speakers, 16 kHz); LRS2's is mix, 2."""
     rng = np.random.default_rng(seed)
-    for split, n in n_per_split.items():
-        infos = {c: [] for c in ("mix_noise", "s1", "s2", "s3")}
+    for split, lengths in lengths_per_split.items():
+        infos = {c: [] for c in (mix, *(f"s{j + 1}" for j in range(n_src)))}
         for c in infos:
             os.makedirs(os.path.join(root, split, c), exist_ok=True)
-        for i in range(n):
-            srcs = (0.1 * rng.standard_normal((3, 2 * SR))).astype(np.float32)
+        for i, n in enumerate(lengths):
+            srcs = (0.1 * rng.standard_normal((n_src, n))).astype(np.float32)
             for c, wav in zip(infos, (srcs.sum(0), *srcs)):
                 path = os.path.join(root, split, c, f"u{i}.wav")
-                write_wav(path, wav)
-                infos[c].append([path, 2 * SR])
+                write_wav(path, wav, sr)
+                infos[c].append([path, n])
         for c, lst in infos.items():
             with open(os.path.join(root, split, f"{c}.json"), "w") as f:
                 json.dump(lst, f)
@@ -267,12 +297,21 @@ def profile_kernels(fn, calls: int) -> dict:
     return {k: (ms, n) for k, ms, n in sorted(rows, key=lambda r: -r[1])}
 
 
-def launch_ms(fn, prefix: str, calls: int = 5) -> float:
+def launch_ms(fn, prefix: str, calls: int = 5):
     """Device ms of one launch of the kernels whose names start with
     ``prefix``, under torch.profiler: their time over the launches the
-    trace holds (a trace can miss launches, so not over the calls)."""
+    trace holds (a trace can miss launches, so not over the calls); None
+    where it holds none."""
     rows = [(ms, n) for k, (ms, n) in profile_kernels(fn, calls).items() if k.startswith(prefix)]
-    return sum(ms for ms, _ in rows) / sum(n for _, n in rows)
+    launches = sum(n for _, n in rows)
+    return sum(ms for ms, _ in rows) / launches if launches else None
+
+
+def back_to_back_ms(fn, n: int = 50) -> float:
+    """CUDA-event ms of ``n`` calls of ``fn`` issued back to back, over n:
+    the device time of one where the host issues faster than the device
+    runs."""
+    return cuda_time(lambda: [fn() for _ in range(n)], reps=5, warmup=1) / n
 
 
 def least_time(nbytes: float, flops: float):
@@ -361,6 +400,21 @@ def rand_maker(seed: int, dev):
     return rand
 
 
+def kernel_vs_plain(label, kernel, plain, args, limit) -> float:
+    """``kernel`` against ``plain`` on ``args``: two kernel runs
+    bit-identical and finite, max abs error below ``limit``; returns it."""
+    with torch.no_grad():
+        got, again, want = kernel(*args), kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again) or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{label}: two kernel runs differ or the output is not finite")
+    err = max_err(got, want)
+    print(f"  {label}: max abs {err:.6g} (bound {limit:g})")
+    if not err < limit:
+        raise AssertionError(f"{label}: kernel vs plain max abs {err} >= {limit}")
+    return err
+
+
 def dualpath_kernel_checks(dev):
     """Phases 10-13: K4, K5 and K6 against their plain versions, forward at
     the listed shapes and one backward each; returns their worst forward
@@ -377,18 +431,7 @@ def dualpath_kernel_checks(dev):
     )
 
     rand = rand_maker(20, dev)
-
-    def against_plain(label, kernel, plain, args, limit):
-        with torch.no_grad():
-            got, again, want = kernel(*args), kernel(*args), plain(*args)
-        torch.cuda.synchronize()
-        if not torch.equal(got, again) or not torch.isfinite(got.float()).all():
-            raise AssertionError(f"{label}: two kernel runs differ or the output is not finite")
-        err = max_err(got, want)
-        print(f"  {label}: max abs {err:.6g} (bound {limit:g})")
-        if not err < limit:
-            raise AssertionError(f"{label}: kernel vs plain max abs {err} >= {limit}")
-        return err
+    against_plain = kernel_vs_plain
 
     print("phase 10: K4 (attention) vs plain, unit-normal bf16 q, k, v")
     k4_err = max(
@@ -447,20 +490,23 @@ def dualpath_kernel_checks(dev):
     return k4_err, k5_err, k6_err
 
 
-def tasnet_paths(model):
-    """(kernel path, plain bf16 path, f32 module) of a TasNet: the first two
-    are a bf16 copy of the module, the second inside ``plain_versions()``."""
+def dualpath_paths(model):
+    """(kernel path, plain bf16 path, f32 module) of a TasNet or Sepformer:
+    the first two are ``serve``'s "kernels" dispatch (a bf16 copy of the
+    module in eval mode), the second inside ``plain_versions()``."""
     from audio_only_speech_separation_tpu_torch.ops.kernels import plain_versions
+    from audio_only_speech_separation_tpu_torch.serve import Server
 
-    mk = copy.deepcopy(model).to(torch.bfloat16)
+    server = Server(model, True, next(model.parameters()).device)
+    if server.dispatch != "kernels":
+        raise AssertionError(f"{type(model).__name__}: dispatch {server.dispatch!r}, not 'kernels'")
 
     def kernel(x):
-        with torch.no_grad():
-            return mk(x.to(torch.bfloat16))
+        return server.forward(x)
 
     def plain(x):
-        with torch.no_grad(), plain_versions():
-            return mk(x.to(torch.bfloat16))
+        with plain_versions():
+            return server.forward(x)
 
     def f32(x):
         with torch.no_grad():
@@ -481,7 +527,7 @@ def tasnet_serving(dev, tasnets):
 
     print("phase 14: DPTNet and DPRNN (wsj0 configs, 8 kHz), kernel path vs plain bf16 vs f32")
     for name, model in tasnets.items():
-        kernel, plain, f32 = tasnet_paths(model)
+        kernel, plain, f32 = dualpath_paths(model)
         for batch, secs in ((2, 2.0), (1, 12.0)):
             x = torch.from_numpy(np.random.default_rng(23).standard_normal(
                 (batch, int(secs * TSR))).astype(np.float32)).to(dev)
@@ -529,23 +575,26 @@ def tasnet_serving(dev, tasnets):
     return tuple(launches)
 
 
-def time_tasnet_calls(dev, card, tasnets, batch: int, secs: float, reps: int) -> dict:
-    """DPTNet and DPRNN at B=batch x secs s x 8 kHz: the kernel path, the
-    plain bf16 path and the f32 module timed in turns (CUDA events, median
-    of ``reps``), then the kernel path under torch.profiler: K4, K5 and K6
-    device time and launches a call, all device work and the idle share.
-    Returns {label: ms}."""
+LIBRARY_GEMMS = ("gemm", "xmma", "nvjet", "cutlass")  # kernel names of cuBLAS/CUTLASS matmuls
+
+
+def time_calls(dev, card, models, batch: int, secs: float, sr: int, reps: int, counters) -> dict:
+    """Each model at B=batch x secs s x sr: the kernel path, the plain bf16
+    path and the f32 module timed in turns (CUDA events, median of
+    ``reps``), then the kernel path under torch.profiler: each of
+    ``counters`` (label, wrapper, kernel name) by device time and launches a
+    call, the library matmuls, the rest (the plain ops), all device work
+    and the idle share, and the largest kernels by name.  Returns {label:
+    ms} with, per model, "<name> profile": {"K…", "matmuls", "busy",
+    "wall"} in ms a call."""
     from torch.profiler import ProfilerActivity, profile
 
-    from audio_only_speech_separation_tpu_torch.ops.kernels.attention import fused_attention_bdt
-    from audio_only_speech_separation_tpu_torch.ops.kernels.lstm import fused_bilstm, resident_bilstm
-
-    shape = f"B={batch} x {secs:g} s x 8 kHz"
+    shape = f"B={batch} x {secs:g} s x {sr // 1000} kHz"
     x = torch.from_numpy(np.random.default_rng(25).standard_normal(
-        (batch, int(secs * TSR))).astype(np.float32)).to(dev)
+        (batch, int(secs * sr))).astype(np.float32)).to(dev)
     runs = {}
-    for name, model in tasnets.items():
-        kernel, plain, f32 = tasnet_paths(model)
+    for name, model in models.items():
+        kernel, plain, f32 = dualpath_paths(model)
         runs[f"{name} kernel path"] = lambda f=kernel: f(x)
         runs[f"{name} plain bf16 path"] = lambda f=plain: f(x)
         runs[f"{name} f32 module"] = lambda f=f32: f(x)
@@ -567,9 +616,7 @@ def time_tasnet_calls(dev, card, tasnets, batch: int, secs: float, reps: int) ->
         print(f"  {shape}, {name}: {v:.4f} ms/call, {batch * secs / (v / 1000):.2f} audio-sec/s "
               f"(median of {reps}, {card})")
 
-    counters = (("K4", fused_attention_bdt, "attention_kernel"), ("K5", fused_bilstm, "lstm_recurrence_kernel"),
-                ("K6", resident_bilstm, "lstm_resident_kernel"))
-    for name in tasnets:
+    for name in models:
         fn, calls = runs[f"{name} kernel path"], 5
         for _, c, _ in counters:
             c.launches = 0
@@ -581,22 +628,39 @@ def time_tasnet_calls(dev, card, tasnets, batch: int, secs: float, reps: int) ->
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / calls
         dev_us = {g: 0.0 for g, _, _ in counters}
-        busy_us = 0.0
+        busy_us = gemm_us = 0.0
+        by_name = {}
         for evt in prof.key_averages():
             if evt.device_type != torch.autograd.DeviceType.CUDA:
                 continue
             busy_us += evt.self_device_time_total
+            by_name[evt.key.split("(")[0][:60]] = evt.self_device_time_total / 1e3 / calls
+            if any(g in evt.key.lower() for g in LIBRARY_GEMMS):
+                gemm_us += evt.self_device_time_total
             for g, _, key in counters:
                 if key in evt.key:
                     dev_us[g] += evt.self_device_time_total
-        busy_ms = busy_us / 1e3 / calls
+        busy_ms, gemm_ms = busy_us / 1e3 / calls, gemm_us / 1e3 / calls
+        prof_ms = {g: dev_us[g] / 1e3 / calls for g in dev_us}
         print(f"  {shape}, {name} kernel path under torch.profiler, per call: " + ", ".join(
-            f"{g} {dev_us[g] / 1e3 / calls:.4f} ms device, {c.launches / calls:g} launches"
-            for g, c, _ in counters)
-            + f"; all device work {busy_ms:.4f} ms; wall {wall_ms:.4f} ms with the profiler; idle share "
+            f"{g} {prof_ms[g]:.4f} ms device, {c.launches / calls:g} launches" for g, c, _ in counters)
+            + f"; library matmuls {gemm_ms:.4f} ms; the rest {busy_ms - gemm_ms - sum(prof_ms.values()):.4f} ms"
+            f"; all device work {busy_ms:.4f} ms; wall {wall_ms:.4f} ms with the profiler; idle share "
             f"{1 - busy_ms / wall_ms:.4f} (profiler on), {1 - busy_ms / ms[f'{name} kernel path']:.4f} "
             f"(against the unprofiled time); {card}")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        print(f"  {shape}, {name} largest kernels (ms a call): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in top))
+        ms[f"{name} profile"] = dict(prof_ms, matmuls=gemm_ms, busy=busy_ms, wall=wall_ms)
     return ms
+
+
+def tasnet_counters():
+    from audio_only_speech_separation_tpu_torch.ops.kernels.attention import fused_attention_bdt
+    from audio_only_speech_separation_tpu_torch.ops.kernels.lstm import fused_bilstm, resident_bilstm
+
+    return (("K4", fused_attention_bdt, "attention_kernel"), ("K5", fused_bilstm, "lstm_recurrence_kernel"),
+            ("K6", resident_bilstm, "lstm_resident_kernel"))
 
 
 def tasnet_timing(dev, card, tasnets):
@@ -619,8 +683,8 @@ def tasnet_timing(dev, card, tasnets):
     )
 
     print(f"phase 16: timing, B=8 x 2 s and B=1 x 12 s x 8 kHz, on {card}")
-    time_tasnet_calls(dev, card, tasnets, 8, 2.0, 10)
-    time_tasnet_calls(dev, card, tasnets, 1, 12.0, 5)
+    time_calls(dev, card, tasnets, 8, 2.0, TSR, 10, tasnet_counters())
+    time_calls(dev, card, tasnets, 1, 12.0, TSR, 5, tasnet_counters())
     rand = rand_maker(26, dev)
 
     def timed(fn, reps=20):
@@ -682,6 +746,182 @@ def tasnet_timing(dev, card, tasnets):
     return k4, k5, k6
 
 
+def sepformer_model(seed: int, dev):
+    """sepformer_base at full width and depth with seeded weights: the
+    seeded init, with the norm affines redrawn."""
+    from audio_only_speech_separation_tpu_torch.models import Sepformer
+
+    m = Sepformer(**SEPFORMER, sample_rate=SR, generator=torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, p in m.named_parameters():
+            if "norm" in name and p.ndim == 1:
+                p.add_(torch.from_numpy((0.2 * rng.standard_normal(p.shape)).astype(np.float32)))
+    return m.to(dev).eval()
+
+
+def sepformer_checks(dev, model) -> float:
+    """Phase 17: the Sepformer end to end at B=2 x 2 s and B=1 x 8 s (kernel
+    path through ``serve``'s dispatch, plain bf16 path, f32 module) under
+    the 1.5x rule, with exactly SEPFORMER_K4 K4 launches a call; then K4
+    against its plain version at the two shapes of B=2 x 2 s.  Returns
+    K4's worst max abs error there."""
+    from audio_only_speech_separation_tpu_torch.ops.kernels.attention import (
+        attention_bdt_reference,
+        fused_attention_bdt,
+    )
+
+    print("phase 17: Sepformer (sepformer_base, 16 kHz, full width and depth), kernel path vs plain bf16 vs f32")
+    kernel, plain, f32 = dualpath_paths(model)
+    for batch, secs in ((2, 2.0), (1, 8.0)):
+        x = torch.from_numpy(np.random.default_rng(28).standard_normal(
+            (batch, int(secs * SR))).astype(np.float32)).to(dev)
+        fused_attention_bdt.launches = 0
+        got = kernel(x)
+        torch.cuda.synchronize()
+        launches = fused_attention_bdt.launches
+        ref, pl = f32(x), plain(x)
+        torch.cuda.synchronize()
+        for out in (got, pl):
+            if out.shape != ref.shape or not torch.isfinite(out.float()).all():
+                raise AssertionError(f"Sepformer: bad output {tuple(out.shape)}")
+        print(f"  Sepformer B={batch} x {secs:g} s (output scale {float(ref.abs().max()):.4g}): "
+              f"K4 launches {launches} (want {SEPFORMER_K4})")
+        if launches != SEPFORMER_K4:
+            raise AssertionError(f"Sepformer launched K4 {launches} times, not {SEPFORMER_K4}")
+        check_rule(f"Sepformer B={batch} x {secs:g} s", max_err(got, ref), max_err(pl, ref))
+    rand = rand_maker(29, dev)
+    print("  K4 vs plain at Sepformer's shapes, unit-normal bf16 q, k, v")
+    return max(kernel_vs_plain(f"{side} [BH, dh, T] = {list(shape)}", fused_attention_bdt,
+                               attention_bdt_reference, [rand(shape) for _ in range(3)], 2e-2)
+               for side, shape in SEPFORMER_SHAPES.items())
+
+
+def eval_cli_checks(dev, root: str, lrs3_exp: str, tasnet, sepformer) -> dict:
+    """Phase 18: ``audio_test.main(config, device="cuda")`` with --bf16 on
+    (a) the ConvTasNet-LRS3 experiment phase 8 trained, (b) a DPTNet
+    (dptnet_wsj0's model, 8 kHz), (c) phase 17's Sepformer (16 kHz), each
+    on EVAL_SECONDS utterances.  Each CSV has a row per utterance plus avg
+    and std, every value finite, and equals within 1e-3 dB what
+    ``MetricsTracker`` gives on ``serve()``'s estimates of the same model
+    with the same dispatch; the kernels of each path must launch.  Returns
+    {experiment: {kernel: launches during its CLI run}}."""
+    from audio_only_speech_separation_tpu_torch import audio_test
+    from audio_only_speech_separation_tpu_torch import data as datas
+    from audio_only_speech_separation_tpu_torch.metrics import MetricsTracker
+    from audio_only_speech_separation_tpu_torch.models import from_pretrain, save_serialized, serialize
+    from audio_only_speech_separation_tpu_torch.ops.kernels.convtasnet_block import fused_convtasnet_separator
+    from audio_only_speech_separation_tpu_torch.serve import serve
+
+    print(f"phase 18: the eval CLI on the card (--bf16, batch 1, 1 s buckets), {len(EVAL_SECONDS)} "
+          f"utterances of {EVAL_SECONDS[0]}-{EVAL_SECONDS[-1]} s each")
+    counters = {"K1": fused_convtasnet_separator, **{g: c for g, c, _ in tasnet_counters()}}
+    with open(os.path.join(lrs3_exp, "conf.yml")) as f:  # JSON, written by audio_train.main
+        lrs3_conf = json.load(f)
+    experiments = {
+        "(a) ConvTasNet-LRS3": (lrs3_exp, lrs3_conf["audionet"], "LRS3DataModule", 3, SR, ("K1",)),
+        "(b) DPTNet wsj0": (None, {"audionet_name": "TasNet", "audionet_config": dict(
+                                       {k: v for k, v in WSJ0_TASNET.items() if k != "sample_rate"},
+                                       module="DPTNet")},
+                            "LRS2DataModule", 2, TSR, ("K4", "K5", "K6")),
+        "(c) Sepformer": (None, {"audionet_name": "Sepformer", "audionet_config": dict(SEPFORMER)},
+                          "LRS2DataModule", 2, SR, ("K4",)),
+    }
+    launched = {}
+    for i, (label, (exp_dir, audionet, data_name, n_src, sr, wanted)) in enumerate(experiments.items()):
+        if exp_dir is None:
+            exp_dir = os.path.join(root, f"exp{i}")
+            os.makedirs(exp_dir)
+            save_serialized(serialize(tasnet if "DPTNet" in label else sepformer),
+                            os.path.join(exp_dir, "best_model.pth"))
+        data_dir = os.path.join(root, f"data{i}")
+        write_manifests(data_dir, {"tt": [int(s * sr) for s in EVAL_SECONDS]}, 40 + i,
+                        mix="mix_noise" if n_src == 3 else "mix", n_src=n_src, sr=sr)
+        tt = os.path.join(data_dir, "tt")
+        config = {"audionet": audionet,
+                  "datamodule": {"data_name": data_name, "data_config": {
+                      "train_dir": tt, "valid_dir": tt, "test_dir": tt, "n_src": n_src, "sample_rate": sr,
+                      "segment": 2.0}},
+                  "main_args": {"exp_dir": exp_dir, "bf16": True}}
+        for c in counters.values():
+            c.launches = 0
+        csv_path = audio_test.main(config, device="cuda")
+        torch.cuda.synchronize()
+        launched[label] = {g: c.launches for g, c in counters.items()}
+        with open(csv_path) as f:
+            rows = [line.split(",") for line in f.read().splitlines()]
+        # the tracker on serve()'s estimates of the same model, in the CLI's order
+        model = from_pretrain(os.path.join(exp_dir, "best_model.pth"), dev, sample_rate=sr,
+                              **audionet["audionet_config"])
+        test_set = datas.get(data_name)(**dict(config["datamodule"]["data_config"], segment=None))
+        test_set.setup()
+        test_set = test_set.make_sets[2]
+        order = sorted(range(len(test_set)), key=lambda j: test_set.mix[j][1])
+        items = [test_set[j] for j in order]
+        ests = serve(model, [mix for mix, _, _ in items], use_bf16=True, device=dev)
+        ref_csv = os.path.join(root, f"ref{i}.csv")
+        tracker = MetricsTracker(save_file=ref_csv, sample_rate=sr)
+        for (mix, sources, key), est in zip(items, ests):
+            tracker(mix, sources, est, key)
+        tracker.final()
+        with open(ref_csv) as f:
+            want = [line.split(",") for line in f.read().splitlines()]
+        values = np.array([r[1:] for r in rows[1:]], float)
+        diff = float(np.abs(values - np.array([r[1:] for r in want[1:]], float)).max())
+        print(f"  {label}: {len(rows) - 3} rows + avg + std, mean si-snr_i {float(values[-2, 3]):.4f} dB; "
+              f"max |CLI - tracker on serve()| {diff:.3g} dB; launches "
+              + ", ".join(f"{g} {n}" for g, n in launched[label].items() if n))
+        if (len(rows) != len(EVAL_SECONDS) + 3 or [r[0] for r in rows[-2:]] != ["avg", "std"]
+                or not np.isfinite(values).all()):
+            raise AssertionError(f"{label}: malformed metrics.csv {rows}")
+        if [r[0] for r in rows] != [r[0] for r in want] or not diff <= 1e-3:
+            raise AssertionError(f"{label}: CLI rows differ from the tracker on serve() by {diff} dB")
+        if not all(launched[label][g] > 0 for g in wanted):
+            raise AssertionError(f"{label}: the eval CLI did not launch {wanted}: {launched[label]}")
+    return launched
+
+
+def sepformer_timing(dev, card, model) -> dict:
+    """Phase 19: the Sepformer at B=2 x 2 s x 16 kHz (the JAX package's
+    Sepformer row): kernel path, plain bf16 path, f32 module, the kernel
+    path profiled; then K4 alone at the intra and inter shapes beside its
+    plain version, SDPA on [B, h, T, dh] and its bound.  Returns K4's
+    entries by side."""
+    from audio_only_speech_separation_tpu_torch.ops.kernels.attention import (
+        attention_bdt_reference,
+        fused_attention_bdt,
+    )
+
+    print(f"phase 19: timing, Sepformer at B=2 x 2 s x 16 kHz, on {card}")
+    ms = time_calls(dev, card, {"Sepformer": model}, 2, 2.0, SR, 10, tasnet_counters()[:1])
+    prof = ms["Sepformer profile"]
+    print(f"  Sepformer kernel path, device work a call: K4 {prof['K4']:.4f} ms "
+          f"({prof['K4'] / prof['busy']:.4f} of it), library matmuls {prof['matmuls']:.4f} ms "
+          f"({prof['matmuls'] / prof['busy']:.4f}), the rest {prof['busy'] - prof['K4'] - prof['matmuls']:.4f} ms; "
+          f"all {prof['busy']:.4f} ms; {card}")
+    rand = rand_maker(30, dev)
+    out = {}
+    for side, (BH, dh, T) in SEPFORMER_SHAPES.items():
+        q, k, v = (rand((BH, dh, T)) for _ in range(3))
+        qt, kt, vt = (a.transpose(1, 2).reshape(BH // 8, 8, T, dh).contiguous() for a in (q, k, v))
+        with torch.no_grad():
+            d = {"ms": back_to_back_ms(lambda: fused_attention_bdt(q, k, v)),
+                 "device_ms": launch_ms(lambda: fused_attention_bdt(q, k, v), "attention_kernel", 100),
+                 "call_ms": cuda_time(lambda: fused_attention_bdt(q, k, v), reps=20, warmup=3),
+                 "plain_ms": back_to_back_ms(lambda: attention_bdt_reference(q, k, v), 10),
+                 "library_ms": back_to_back_ms(
+                     lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))}
+        d["bound_ms"], d["bound_by"] = least_time(4 * q.numel() * 2, 4 * BH * T * T * dh)
+        traced = "not traced" if d["device_ms"] is None else f"{d['device_ms']:.4f} ms"
+        print(f"  K4 {side} [{BH}, {dh}, {T}]: kernel {d['ms']:.4f} ms a launch (CUDA events over 50 back to "
+              f"back), {traced} a launch on the device (torch.profiler, 100 calls), a call "
+              f"{d['call_ms']:.4f} ms, plain {d['plain_ms']:.4f} ms, SDPA on [{BH // 8}, 8, {T}, {dh}] "
+              f"{d['library_ms']:.4f} ms (both back to back), bound {d['bound_ms']:.5f} ms "
+              f"({d['bound_by']}); {card}")
+        out[side] = d
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels need one")
@@ -714,6 +954,7 @@ def main() -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = card_identity()
     kind = torch.cuda.get_device_name(0)
@@ -968,10 +1209,12 @@ def main() -> None:
     del model, params, g_k, g_p, g_f, flat
 
     # ---- phase 8: the training CLI, then serve what it wrote
+    scratch = tempfile.TemporaryDirectory(prefix="chip_smoke_")  # phases 8 and 18
     print(f"phase 8: audio_train.main on synthetic LRS3 manifests (3 spk, 2 s, batch {TRAIN_B})")
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
-        write_lrs3_manifests(os.path.join(tmp, "data"), {"tr": 3 * TRAIN_B, "cv": TRAIN_B, "tt": TRAIN_B}, 10)
+        write_manifests(os.path.join(tmp, "data"),
+                        {"tr": [2 * SR] * 3 * TRAIN_B, "cv": [2 * SR] * TRAIN_B, "tt": [2 * SR] * TRAIN_B}, 10)
         fused_tcn_separator.launches = fused_tcn_backward.launches = 0
         os.chdir(tmp)
         try:
@@ -999,6 +1242,7 @@ def main() -> None:
         print("  serving best_model.pth through K1:")
         serve_and_check(model)
         del model
+        lrs3_exp = shutil.copytree(exp_dir, os.path.join(scratch.name, "lrs3_exp"))  # phase 18 evaluates it
 
     # ---- phase 9: train-step timing, and K2/K3 alone
     def train_timings(batch: int):
@@ -1062,6 +1306,18 @@ def main() -> None:
     tasnets = {"DPTNet": tasnet_model("DPTNet", 21, dev), "DPRNN": tasnet_model("DPRNN", 22, dev)}
     k4_launches, k5_launches, k6_launches = tasnet_serving(dev, tasnets)
     k4, k5, k6 = tasnet_timing(dev, card, tasnets)
+
+    print(f"  {time.perf_counter() - t_start:.1f} s since the start")
+    sepformer = sepformer_model(31, dev)
+    k4_err = max(k4_err, sepformer_checks(dev, sepformer))
+    print(f"  {time.perf_counter() - t_start:.1f} s since the start")
+    launched = eval_cli_checks(dev, scratch.name, lrs3_exp, tasnets["DPTNet"], sepformer)
+    scratch.cleanup()
+    # K4 on the main paths: DPTNet served (phase 15) and the Sepformer through the eval CLI (phase 18)
+    k4_launches += launched["(c) Sepformer"]["K4"]
+    print(f"  {time.perf_counter() - t_start:.1f} s since the start")
+    sepformer_timing(dev, card, sepformer)
+    print(f"  {time.perf_counter() - t_start:.1f} s since the start")
 
     k1_b, k1_by = least_time(*separator_work(8, frames_bench))
     k2_b, k2_by = least_time(*chain_work(batch, T_train))

@@ -288,10 +288,12 @@ def _bf16(dev, a):
 # the JAX validator's shapes (scripts/validate_pallas.py:183), DPTNet's rows
 # and columns, and edge cases: dh not a multiple of 16, T = 1, a ragged tile;
 # T on either side of a 16-query tile, the batch-1 12 s rows (T 242: two
-# query blocks, two key chunks), several key chunks at dh 16, dh 8 and 256
+# query blocks, two key chunks), several key chunks at dh 16, dh 8 and 256;
+# Sepformer's intra and inter passes at B=2 x 2 s x 16 kHz
 ATTN_CASES = [(512, 32, 250), (16, 64, 129), (1344, 16, 100), (3200, 16, 42),
               (3, 8, 1), (5, 24, 77), (2, 256, 300), (3, 16, 15), (3, 16, 16), (3, 16, 17),
-              (400, 16, 242), (4, 16, 300), (6, 8, 50), (3, 256, 40)]
+              (400, 16, 242), (4, 16, 300), (6, 8, 50), (3, 256, 40),
+              (544, 32, 250), (4000, 32, 34)]
 
 
 @pytest.mark.parametrize("BH,dh,T", ATTN_CASES)
@@ -446,3 +448,85 @@ def test_tasnet_kernel_path_meets_the_validator_rule(cuda, module, batch):
     assert (n5 > 0, n6 > 0) == ((True, False) if batch == 1 else (False, True))
     err, plain_err = float((got.float() - ref).abs().max()), float((plain.float() - ref).abs().max())
     assert err <= 1.5 * plain_err + 1e-3, (err, plain_err)
+
+
+# ---------------------------------------------------------------------------
+# Sepformer through K4, and the eval CLI on the card
+# ---------------------------------------------------------------------------
+
+from audio_only_speech_separation_tpu_torch.models import Sepformer  # noqa: E402
+
+# N 64, 2 heads of dh 32, chunks of 50 frames, 2 intra and 2 inter layers
+SMALL_SEPFORMER = dict(encoder_out_nchannels=64, masknet_chunksize=50, masknet_numlayers=2,
+                       intra_numlayers=2, inter_numlayers=2, intra_nhead=2, inter_nhead=2,
+                       intra_dffn=128, inter_dffn=128, sample_rate=8000)
+
+
+def test_sepformer_kernel_path_meets_the_validator_rule(cuda):
+    """A small Sepformer cast to bf16 on the card, in eval mode, runs every
+    attention through K4 (2 dual blocks x (2 + 2) a call) and stays within
+    1.5 * (plain bf16 error) + 1e-3 of the f32 module."""
+    import copy
+
+    from audio_only_speech_separation_tpu_torch.ops.kernels import plain_versions
+
+    m = Sepformer(**SMALL_SEPFORMER, generator=torch.Generator().manual_seed(4)).to(cuda).eval()
+    mk = copy.deepcopy(m).to(torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal((2, 12000)).astype(np.float32)).to(cuda)
+    before = fused_attention_bdt.launches
+    with torch.no_grad():
+        ref = m(x)
+        got = mk(x.to(torch.bfloat16))
+        with plain_versions():
+            plain = mk(x.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    assert fused_attention_bdt.launches - before == 2 * (2 + 2)
+    assert got.shape == ref.shape and bool(torch.isfinite(got.float()).all())
+    err, plain_err = float((got.float() - ref).abs().max()), float((plain.float() - ref).abs().max())
+    assert err <= 1.5 * plain_err + 1e-3, (err, plain_err)
+
+
+def test_eval_cli_on_the_card(cuda, tmp_path):
+    """``audio_test.main`` with ``device="cuda"`` and ``--bf16`` on a tiny
+    Sepformer experiment: the "kernels" dispatch (K4 launches), one CSV row
+    per utterance plus avg and std, every value finite."""
+    import csv
+    import json
+
+    from audio_only_speech_separation_tpu_torch import audio_test
+    from audio_only_speech_separation_tpu_torch.data.audio_io import write_wav
+    from audio_only_speech_separation_tpu_torch.models import save_serialized, serialize
+
+    rng = np.random.default_rng(9)
+    lengths = (9000, 4000, 6500)
+    for split in ("tr", "cv", "tt"):
+        infos = {c: [] for c in ("mix", "s1", "s2")}
+        for c in infos:
+            (tmp_path / split / c).mkdir(parents=True)
+        for i, n in enumerate(lengths):
+            s = (0.1 * rng.standard_normal((2, n))).astype(np.float32)
+            for c, wav in zip(infos, (s.sum(0), s[0], s[1])):
+                path = str(tmp_path / split / c / f"u{i}.wav")
+                write_wav(path, wav, 8000)
+                infos[c].append([path, n])
+        for c, lst in infos.items():
+            (tmp_path / split / f"{c}.json").write_text(json.dumps(lst))
+    exp = tmp_path / "exp"
+    exp.mkdir()
+    save_serialized(serialize(Sepformer(**SMALL_SEPFORMER)), str(exp / "best_model.pth"))
+    config = {
+        "audionet": {"audionet_name": "Sepformer", "audionet_config": {}},
+        "datamodule": {"data_name": "LRS2DataModule", "data_config": dict(
+            train_dir=str(tmp_path / "tr"), valid_dir=str(tmp_path / "cv"), test_dir=str(tmp_path / "tt"),
+            n_src=2, sample_rate=8000, segment=0.5)},
+        "main_args": {"exp_dir": str(exp), "bf16": True},
+    }
+    before = fused_attention_bdt.launches
+    path = audio_test.main(config, device="cuda")
+    assert fused_attention_bdt.launches - before == len(lengths) * 2 * (2 + 2)
+    with open(path) as f:
+        rows = list(csv.reader(f))
+    assert rows[0] == ["snt_id", "sdr", "sdr_i", "si-snr", "si-snr_i"]
+    assert sorted(r[0] for r in rows[1:-2]) == [f"u{i}.wav" for i in range(len(lengths))]
+    assert [r[0] for r in rows[-2:]] == ["avg", "std"]
+    assert all(np.isfinite(float(v)) for r in rows[1:] for v in r[1:])

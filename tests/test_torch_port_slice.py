@@ -12,6 +12,7 @@ import numpy as np
 import torch
 from torch_port_helpers import make_pair
 
+from audio_only_speech_separation_tpu.models import Sepformer as JSepformer
 from audio_only_speech_separation_tpu.models import TasNet as JTasNet
 from audio_only_speech_separation_tpu.models import save_serialized as jax_save
 from audio_only_speech_separation_tpu.models import serialize as jax_serialize
@@ -78,6 +79,7 @@ _GUARD = textwrap.dedent(
             return None
 
     sys.meta_path.insert(0, Block())
+    import numpy as np
     import torch
     import audio_only_speech_separation_tpu_torch as pkg
     for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
@@ -91,6 +93,12 @@ _GUARD = textwrap.dedent(
     tasnet = from_pretrain(sys.argv[2], device="cpu").eval()  # a JAX-written TasNet (DPTNet) checkpoint
     with torch.no_grad():
         assert tasnet(torch.zeros(1, 900)).shape == (1, 2, 900)
+    sepformer = from_pretrain(sys.argv[3], device="cpu")  # a JAX-written Sepformer checkpoint
+    from audio_only_speech_separation_tpu_torch.serve import serve
+    assert serve(sepformer, [np.ones(900, np.float32)], use_bf16=True, device="cpu")[0].shape == (2, 900)
+    # the eval CLI and the metrics, walked above
+    for name in ("audio_test", "metrics", "metrics.sdr", "metrics.pesq", "metrics.wrapper"):
+        assert pkg.__name__ + "." + name in sys.modules, name
     from audio_only_speech_separation_tpu_torch.models.convtasnet import (
         fused_inference_forward, make_kernel_train_apply)
     model = ConvTasNet(N=128, H=128, X=2, R=1).eval()
@@ -121,11 +129,12 @@ _GUARD = textwrap.dedent(
 
 
 def test_port_imports_no_jax(tmp_path):
-    """Every module of the port, and chip_smoke.py, imports, loads
-    checkpoints the JAX package wrote (a ConvTasNet and a TasNet), runs tiny
-    forwards and one bf16 train step, with jax, jaxlib, flax, optax, yaml and
-    every module of the JAX package blocked (its data layer too: the port
-    has its own)."""
+    """Every module of the port (the eval CLI and the metrics included), and
+    chip_smoke.py, imports, loads checkpoints the JAX package wrote (a
+    ConvTasNet, a TasNet and a Sepformer), runs tiny forwards (the Sepformer
+    through ``serve``) and one bf16 train step, with jax, jaxlib, flax,
+    optax, yaml and every module of the JAX package blocked (its data layer
+    too: the port has its own)."""
     jm, params, _ = make_pair(seed=13)
     ckpt = str(tmp_path / "best_model.pth")
     jax_save(jax_serialize(jm, params), ckpt)
@@ -134,7 +143,13 @@ def test_port_imports_no_jax(tmp_path):
     tasnet_ckpt = str(tmp_path / "tasnet.pth")
     jax_save(jax_serialize(jt, jt.init(jax.random.PRNGKey(0), np.zeros((1, 200), np.float32))),
              tasnet_ckpt)
+    js = JSepformer(encoder_out_nchannels=16, masknet_chunksize=10, masknet_numlayers=1,
+                    intra_numlayers=1, inter_numlayers=1, intra_nhead=2, inter_nhead=2, intra_dffn=32,
+                    inter_dffn=32, sample_rate=8000)
+    sepformer_ckpt = str(tmp_path / "sepformer.pth")
+    jax_save(jax_serialize(js, js.init(jax.random.PRNGKey(1), np.zeros((1, 200), np.float32))),
+             sepformer_ckpt)
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    res = subprocess.run([sys.executable, "-c", _GUARD, ckpt, tasnet_ckpt], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=300)
+    res = subprocess.run([sys.executable, "-c", _GUARD, ckpt, tasnet_ckpt, sepformer_ckpt], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-3000:]
