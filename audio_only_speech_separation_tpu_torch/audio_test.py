@@ -6,9 +6,11 @@ reference audio_test.py:30-101).
 Reloads ``best_model.pth`` through the registry onto one device (the CUDA
 card unless ``main`` is given ``device="cpu"``), separates the raw test set
 through ``serve.Server`` (so ``serve.choose_dispatch`` picks the forward:
-"fused" for a ConvTasNet inside K1's envelope, "kernels" for a TasNet or
-Sepformer, with ``--bf16`` on the card; the module in its own dtype
-otherwise, so on the CPU ``--bf16`` runs float32) and streams SI-SNR(i) /
+with ``--bf16`` on the card "fused" for a ConvTasNet inside K1's
+envelope, "fast_tdanet" for a weight-shared TDANet, "kernels" (the module
+in bf16) for every other model; the module in its own dtype otherwise,
+save the TDANet fast path, so on the CPU ``--bf16`` runs float32) and
+streams SI-SNR(i) /
 SDR(i), and with ``--pesq`` the ``pesq_est`` column, to
 ``<exp_dir>/results/metrics.csv``.
 
@@ -90,8 +92,8 @@ if __name__ == "__main__":
     parser.add_argument("--batch-size", type=int, default=1)
     parser.add_argument(
         "--bf16", action="store_true",
-        help="bf16 inference on the card through the kernels (K1 for ConvTasNet, K4-K6 for "
-        "TasNet and Sepformer); the CPU runs float32",
+        help="bf16 inference on the card, through the kernels where a model has them (K1 for "
+        "ConvTasNet, K4-K6 for TasNet, Sepformer and BSRNN); the CPU runs float32",
     )
     args = parser.parse_args()
     with open(args.conf_dir) as f:

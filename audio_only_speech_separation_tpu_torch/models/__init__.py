@@ -1,6 +1,7 @@
 """Model registry (counterpart of ``audio_only_speech_separation_tpu/models``).
 
-The port has ConvTasNet, TasNet (DPRNN and DPTNet cores) and Sepformer so far."""
+The port has ConvTasNet, TasNet (DPRNN and DPTNet cores), Sepformer, BSRNN,
+TDANet and AFRCNN: every model of ``configs/``."""
 
 from ..utils.registry import Registry
 from .base import BaseModel, from_pretrain, save_serialized, serialize
@@ -24,12 +25,18 @@ def available_models():
 from .convtasnet import ConvTasNet  # noqa: E402  (self-registers)
 from .tasnet import TasNet  # noqa: E402  (self-registers)
 from .sepformer import Sepformer  # noqa: E402  (self-registers)
+from .bsrnn import BSRNN  # noqa: E402  (self-registers)
+from .tdanet import TDANet  # noqa: E402  (self-registers)
+from .afrcnn import AFRCNN  # noqa: E402  (self-registers)
 
 __all__ = [
     "BaseModel",
     "ConvTasNet",
     "TasNet",
     "Sepformer",
+    "BSRNN",
+    "TDANet",
+    "AFRCNN",
     "register_model",
     "get",
     "available_models",

@@ -19,6 +19,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.activations import PReLU
+from ..ops.norms import GlobalLayerNorm
+from ..ops.rnn import _LSTMParams
+
 
 def normalize_input(wav: torch.Tensor) -> Tuple[torch.Tensor, bool]:
     """[T] | [B, T] | [B, 1, T] -> ([B, T], was_one_d)."""
@@ -61,6 +65,30 @@ class BaseModel(nn.Module):
 
     def model_args(self) -> Dict[str, Any]:
         return {k: getattr(self, k) for k in _arg_names(type(self))}
+
+
+def seeded_init_(model: nn.Module, generator: torch.Generator | None = None) -> None:
+    """Seeded init of every parameter: norms at weight 1 and bias 0, PReLU
+    slopes at 0.25, LSTMs U(-1/sqrt(H), 1/sqrt(H)) (torch's default), every
+    other module's parameters U(-1/sqrt(fan_in), 1/sqrt(fan_in)) with the
+    fan-in of its first parameter.  ``generator`` none: seed 0."""
+    g = generator if generator is not None else torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for m in model.modules():
+            params = list(m.parameters(recurse=False))
+            if not params:
+                continue
+            if isinstance(m, (GlobalLayerNorm, nn.LayerNorm)):
+                m.weight.fill_(1.0)
+                m.bias.fill_(0.0)
+            elif isinstance(m, PReLU):
+                m.weight.fill_(0.25)
+            else:
+                w = params[0]
+                fan_in = m.hidden_size if isinstance(m, _LSTMParams) else (
+                    w.shape[1] * int(np.prod(w.shape[2:])) if w.ndim > 1 else w.shape[0])
+                for p in params:
+                    p.copy_((torch.rand(p.shape, generator=g) * 2 - 1) / np.sqrt(fan_in))
 
 
 def serialize(model: BaseModel, state_dict=None) -> Dict[str, Any]:

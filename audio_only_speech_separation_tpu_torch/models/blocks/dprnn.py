@@ -27,12 +27,13 @@ from ...ops.rnn import ProjRNN
 
 
 class _ChannelScale(nn.Module):
-    """The depthwise 1x1 Conv2d of ``concat_block``: weight [C, 1, 1, 1],
-    bias [C], applied on the last axis."""
+    """The depthwise 1x1 conv of ``concat_block``: weight [C, 1, 1, 1] (a
+    Conv2d; [C, 1, 1] for a Conv1d, ``conv_dims=1``), bias [C], applied on
+    the last axis."""
 
-    def __init__(self, channels: int, device=None):
+    def __init__(self, channels: int, conv_dims: int = 2, device=None):
         super().__init__()
-        self.weight = nn.Parameter(torch.ones(channels, 1, 1, 1, device=device))
+        self.weight = nn.Parameter(torch.ones((channels, 1) + (1,) * conv_dims, device=device))
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -41,10 +42,12 @@ class _ChannelScale(nn.Module):
 
 class DepthwiseGate(nn.Sequential):
     """Depthwise 1x1 conv + PReLU on channels-last [..., C] (the unfold
-    ``concat_block``: keys ``0.weight``, ``0.bias``, ``1.weight``)."""
+    ``concat_block``: keys ``0.weight``, ``0.bias``, ``1.weight``); a
+    Conv2d's weight layout, or with ``conv_dims=1`` a Conv1d's (TDANet,
+    AFRCNN)."""
 
-    def __init__(self, channels: int, device=None):
-        super().__init__(_ChannelScale(channels, device=device), PReLU(device=device))
+    def __init__(self, channels: int, conv_dims: int = 2, device=None):
+        super().__init__(_ChannelScale(channels, conv_dims, device=device), PReLU(device=device))
 
 
 def _layers(make, n: int, shared: bool) -> nn.ModuleList:

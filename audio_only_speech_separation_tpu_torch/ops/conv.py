@@ -84,3 +84,21 @@ class ConvDecoder(nn.Module):
         w = self._filters[:, 0, :].to(x.dtype)  # [N, win]
         frames = torch.matmul(x.transpose(1, 2), w)  # [B, n, win]
         return overlap_add(frames, self.stride)
+
+
+def conv1d_channels_last(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
+    """``conv`` (its weights, stride, padding, dilation and groups) on a
+    channels-last [B, T, C] input, in x's dtype -> [B, T', out].  A dense
+    1x1 is one product over the channels, a depthwise 1x1 a per-channel
+    scale; any other conv runs as ``F.conv1d`` on the transposed input."""
+    w = conv.weight.to(x.dtype)
+    b = None if conv.bias is None else conv.bias.to(x.dtype)
+    pointwise = conv.kernel_size == (1,) and conv.stride == (1,) and conv.padding == (0,)
+    if pointwise and conv.groups == 1:
+        y = torch.matmul(x, w[:, :, 0].t())
+    elif pointwise and conv.groups == conv.in_channels == conv.out_channels:
+        y = x * w[:, 0, 0]
+    else:
+        y = F.conv1d(x.transpose(1, 2), w, b, conv.stride, conv.padding, conv.dilation, conv.groups)
+        return y.transpose(1, 2)
+    return y if b is None else y + b

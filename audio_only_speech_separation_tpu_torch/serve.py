@@ -19,9 +19,10 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from .models import ConvTasNet, Sepformer, TasNet
+from .models import ConvTasNet
 from .models.base import eval_mode
 from .models.convtasnet import fused_forward_eligible, fused_inference_forward
+from .models.tdanet import fast_forward_eligible, fast_inference_forward
 from .ops.kernels.convtasnet_block import pack_convtasnet_full_params
 
 
@@ -30,14 +31,21 @@ def choose_dispatch(model, use_bf16: bool, device) -> str:
 
     - "fused": bf16 ConvTasNet through the whole-separator CUDA kernel
       (``fused_forward_eligible``: a CUDA device and the kernel's envelope);
-    - "kernels": bf16 TasNet or Sepformer on a CUDA device: the module cast
-      to bf16, whose attention and LSTM layers call the dual-path kernels
-      (K4, K5, K6) from inside ``ops/``;
-    - "eager": the module itself, in its own dtype.
+    - "fast_tdanet": a TDANet that ``fast_forward_eligible`` admits, on any
+      device, through the analytic-moment eval forward: the module cast to
+      bf16 with bf16 on a CUDA device, else in its own dtype;
+    - "kernels": with bf16 on a CUDA device, every other model: the module
+      cast to bf16, whose attention and LSTM layers call the dual-path
+      kernels (K4, K5, K6) from inside ``ops/`` where it has them (a
+      ConvTasNet outside K1's envelope has none);
+    - "eager": the module itself, in its own dtype (without bf16, or off
+      the card, where the JAX package's CLI also keeps float32).
     """
     if use_bf16 and isinstance(model, ConvTasNet) and fused_forward_eligible(model, device):
         return "fused"
-    if use_bf16 and isinstance(model, (TasNet, Sepformer)) and torch.device(device).type == "cuda":
+    if fast_forward_eligible(model):
+        return "fast_tdanet"
+    if use_bf16 and torch.device(device).type == "cuda":
         return "kernels"
     return "eager"
 
@@ -45,26 +53,32 @@ def choose_dispatch(model, use_bf16: bool, device) -> str:
 class Server:
     """The forward of ``serve`` for one model, set up once: the dispatch,
     the packed weights ("fused") or the bf16 copy of the module
-    ("kernels"), and the bucket.  Each call separates one batch."""
+    ("kernels", or "fast_tdanet" with bf16 on the card), and the bucket.
+    Each call separates one batch."""
 
     def __init__(self, model, use_bf16: bool, device, bucket_seconds: float = 1.0):
         self.device = torch.device(device)
         self.bucket = max(1, int(bucket_seconds * model.sample_rate))
         self.dispatch = choose_dispatch(model, use_bf16, self.device)
         self.model, self.packed = model, None
+        bf16 = self.dispatch in ("fused", "kernels") or (
+            self.dispatch == "fast_tdanet" and use_bf16 and self.device.type == "cuda")
+        self.dtype = torch.bfloat16 if bf16 else None  # None: the model's own
         if self.dispatch == "fused":
             self.packed = pack_convtasnet_full_params(
                 model.state_dict(), model.R, model.X, model.num_spks, device=self.device
             )
-        elif self.dispatch == "kernels":
+        elif bf16:
             self.model = copy.deepcopy(model).to(device=self.device, dtype=torch.bfloat16)
 
     def forward(self, mix: torch.Tensor) -> torch.Tensor:
         with torch.no_grad(), eval_mode(self.model):
+            if self.dtype is not None:
+                mix = mix.to(self.dtype)
             if self.dispatch == "fused":
-                return fused_inference_forward(self.model, mix.to(torch.bfloat16), packed=self.packed)
-            if self.dispatch == "kernels":
-                return self.model(mix.to(torch.bfloat16))
+                return fused_inference_forward(self.model, mix, packed=self.packed)
+            if self.dispatch == "fast_tdanet":
+                return fast_inference_forward(self.model, mix)
             return self.model(mix)
 
     def __call__(self, wavs: Sequence[np.ndarray]) -> List[np.ndarray]:

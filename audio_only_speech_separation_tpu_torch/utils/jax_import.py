@@ -97,8 +97,8 @@ def _mha(sd, prefix: str, p) -> None:
     _dense(sd, f"{prefix}.out_proj", p["out_proj"])
 
 
-def _gate(sd, prefix: str, p) -> None:
-    sd[f"{prefix}.0.weight"] = _f32(p["weight"]).reshape(-1, 1, 1, 1)
+def _gate(sd, prefix: str, p, conv_dims: int = 2) -> None:
+    sd[f"{prefix}.0.weight"] = _f32(p["weight"]).reshape((-1, 1) + (1,) * conv_dims)
     sd[f"{prefix}.0.bias"] = _f32(p["bias"])
     sd[f"{prefix}.1.weight"] = _f32(p["act"]["alpha"]).reshape(1)
 
@@ -173,6 +173,120 @@ def sepformer_from_jax(params_np, masknet_numlayers: int, intra_numlayers: int,
     return sd
 
 
+def bsrnn_from_jax(params_np, nband: int, num_repeat: int, num_layer: int,
+                   bi_comm: bool) -> Dict[str, np.ndarray]:
+    """JAX BSRNN params -> port BSRNN ``state_dict`` (numpy): the inverse of
+    the JAX package's ``utils/torch_import.py::convert_bsrnn``."""
+    p = params_np["params"] if "params" in params_np else params_np
+    sd: Dict[str, np.ndarray] = {}
+    for i in range(nband):
+        _norm(sd, f"BN.{i}.0", p[f"bn_norm_{i}"])
+        _pointwise(sd, f"BN.{i}.1", p[f"bn_conv_{i}"])
+    for r in range(num_repeat):
+        sep = p[f"separator_{r}"]
+        for name in [f"band_rnn.{j}" for j in range(num_layer)] + ["band_comm"]:
+            res, pre = sep[name.replace(".", "_")], f"separator.{r}.{name}"
+            _norm(sd, f"{pre}.norm", res["norm"])
+            _lstm(sd, f"{pre}.rnn", res["rnn"])
+            _dense(sd, f"{pre}.proj", res["proj"])
+    for i in range(nband):
+        _norm(sd, f"mask.{i}.0", p[f"mask_norm_{i}"])
+        for c, j in ((1, 1), (2, 3), (3, 5), (4, 7)):
+            _pointwise(sd, f"mask.{i}.{j}", p[f"mask_c{c}_{i}"])
+        sd[f"mask.{i}.6.weight"] = _f32(p[f"mask_act_{i}"]["alpha"]).reshape(1)
+    return sd
+
+
+def _conv1d(sd, prefix: str, p) -> None:
+    """flax Conv {Conv_0: {kernel [k, in/groups, out], bias}} -> Conv1d weight
+    [out, in/groups, k] (and bias)."""
+    sd[f"{prefix}.weight"] = _f32(np.transpose(np.asarray(p["Conv_0"]["kernel"]), (2, 1, 0)))
+    if "bias" in p["Conv_0"]:
+        sd[f"{prefix}.bias"] = _f32(p["Conv_0"]["bias"])
+
+
+def _conv_norm(sd, prefix: str, p) -> None:
+    """ConvNorm / DilatedConvNorm / ConvNormAct: {conv, norm[, act]}."""
+    _conv1d(sd, f"{prefix}.conv", p["conv"])
+    _norm(sd, f"{prefix}.norm", p["norm"])
+    if "act" in p:
+        sd[f"{prefix}.act.weight"] = _f32(p["act"]["alpha"]).reshape(1)
+
+
+def _filterbank_shell(sd, p, sm_gates) -> None:
+    """The encoder, gLN, bottleneck, mask head, decoder and the separator's
+    re-injection gates ``sm_gates`` [(port prefix, JAX name)] of TDANet and
+    AFRCNN."""
+    _conv1d(sd, "encoder", p["encoder"])
+    _norm(sd, "ln", p["ln"])
+    _pointwise(sd, "bottleneck", p["bottleneck"])
+    sd["mask_net.0.weight"] = _f32(p["mask_act"]["alpha"]).reshape(1)
+    _pointwise(sd, "mask_net.1", p["mask_conv"])
+    sd["decoder.weight"] = _f32(p["decoder"]["kernel"])
+    C = sd["bottleneck.bias"].shape[0]
+    for prefix, name in sm_gates:
+        # a one-iteration model never applies its gate, so the JAX package
+        # never builds it: the identity scale and torch's slope stand in
+        gate = p["sm"].get(name) or {"weight": np.ones(C), "bias": np.zeros(C),
+                                     "act": {"alpha": np.full(1, 0.25)}}
+        _gate(sd, prefix, gate, conv_dims=1)
+
+
+def tdanet_from_jax(params_np, upsampling_depth: int, num_blocks: int,
+                    unfold: bool = True) -> Dict[str, np.ndarray]:
+    """JAX TDANet params -> port TDANet ``state_dict`` (numpy): the inverse
+    of the JAX package's ``utils/torch_import.py::convert_tdanet`` (which
+    covers ``unfold``); without ``unfold`` the JAX ``unet_{i}`` and
+    ``concat_block_{i}`` become ``sm.unet.{i}`` and ``sm.concat_block.{i}``."""
+    p = params_np["params"] if "params" in params_np else params_np
+    D = upsampling_depth
+    sd: Dict[str, np.ndarray] = {}
+    if unfold:
+        units, gates = [("sm.unet", "unet")], [("sm.concat_block", "concat_block")]
+    else:
+        units = [(f"sm.unet.{i}", f"unet_{i}") for i in range(num_blocks)]
+        gates = [(f"sm.concat_block.{i}", f"concat_block_{i}") for i in range(num_blocks - 1)]
+    _filterbank_shell(sd, p, gates)
+    for pre, name in units:
+        u = p["sm"][name]
+        _conv_norm(sd, f"{pre}.proj_1x1", u["proj_1x1"])
+        for k in range(D):
+            _conv_norm(sd, f"{pre}.spp_dw.{k}", u[f"spp_{k}"])
+        for i in range(D):
+            for branch in ("local_embedding", "global_embedding", "global_act"):
+                _conv_norm(sd, f"{pre}.loc_glo_fus.{i}.{branch}", u[f"fus_{i}"][branch])
+                if i < D - 1:
+                    _conv_norm(sd, f"{pre}.last_layer.{i}.{branch}", u[f"last_{i}"][branch])
+        att, mlp = u["globalatt"]["attn"], u["globalatt"]["mlp"]
+        _layer_norm(sd, f"{pre}.globalatt.attn.attn_in_norm", att["attn_in_norm"])
+        _mha(sd, f"{pre}.globalatt.attn.attn", att["attn"])
+        _layer_norm(sd, f"{pre}.globalatt.attn.norm", att["norm"])
+        _conv_norm(sd, f"{pre}.globalatt.mlp.fc1", mlp["fc1"])
+        _conv1d(sd, f"{pre}.globalatt.mlp.dwconv", mlp["dwconv"])
+        _conv_norm(sd, f"{pre}.globalatt.mlp.fc2", mlp["fc2"])
+        _pointwise(sd, f"{pre}.res_conv", u["res_conv"])
+    return sd
+
+
+def afrcnn_from_jax(params_np, upsampling_depth: int) -> Dict[str, np.ndarray]:
+    """JAX AFRCNN params -> port AFRCNN ``state_dict`` (numpy): the inverse
+    of the JAX package's ``utils/torch_import.py::convert_afrcnn``."""
+    p = params_np["params"] if "params" in params_np else params_np
+    D = upsampling_depth
+    sd: Dict[str, np.ndarray] = {}
+    _filterbank_shell(sd, p, [("sm.concat_block", "concat_block")])
+    b, pre = p["sm"]["blocks"], "sm.blocks"
+    _conv_norm(sd, f"{pre}.proj_1x1", b["proj_1x1"])
+    for i in range(D):
+        _conv_norm(sd, f"{pre}.spp_dw.{i}", b[f"spp_{i}"])
+        _conv_norm(sd, f"{pre}.concat_layer.{i}", b[f"concat_{i}"])
+        if i > 0:
+            _conv_norm(sd, f"{pre}.fuse_layers.{i}.0", b[f"down_{i}"])
+    _conv_norm(sd, f"{pre}.last_layer.0", b["last_layer"])
+    _pointwise(sd, f"{pre}.res_conv", b["res_conv"])
+    return sd
+
+
 def from_jax(model, params_np) -> Dict[str, np.ndarray]:
     """Convert a JAX tree for ``model`` (a port model instance)."""
     name = type(model).__name__
@@ -183,4 +297,10 @@ def from_jax(model, params_np) -> Dict[str, np.ndarray]:
     if name == "Sepformer":
         return sepformer_from_jax(params_np, model.masknet_numlayers, model.intra_numlayers,
                                   model.inter_numlayers)
+    if name == "BSRNN":
+        return bsrnn_from_jax(params_np, model.nband, model.num_repeat, model.num_layer, model.bi_comm)
+    if name == "TDANet":
+        return tdanet_from_jax(params_np, model.upsampling_depth, model.num_blocks, model.unfold)
+    if name == "AFRCNN":
+        return afrcnn_from_jax(params_np, model.upsampling_depth)
     raise NotImplementedError(f"no JAX converter for {name}")

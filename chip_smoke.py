@@ -11,7 +11,10 @@ whole-separator CUDA kernel (K1), training through the TCN chain's forward
 path (DPTNet and DPRNN on the wsj0 configs, 8 kHz) through the attention
 (K4) and LSTM (K5, K6) CUDA kernels, Sepformer (sepformer_base, 16 kHz)
 through K4, and the eval CLI (``audio_test.main``) over all three
-families.  In phases:
+families; then BSRNN (bsrnn_wsj0, 8 kHz) through K5 and K6, TDANet
+(tdanet_lrs2, 16 kHz) on its module path through K4 and on its
+analytic fast path, AFRCNN (afrcnn_lrs2), and the eval CLI over those
+three.  In phases:
 
 0. the card's name and power limit (fails without a CUDA device);
 1. build the kernels from ``csrc/`` with nvcc;
@@ -66,7 +69,27 @@ families.  In phases:
 19. time the Sepformer at B=2 x 2 s (kernel path, plain bf16 path, f32
     module; the kernel path profiled: K4, the library matmuls, the rest,
     the idle share), and K4 alone at its two shapes beside its plain
-    version, SDPA on [B, h, T, dh] and its bound.
+    version, SDPA on [B, h, T, dh] and its bound;
+20. BSRNN at full width and depth, seeded weights, at B=1 and 4 x 4 s: the
+    kernel path (``serve``'s "kernels"), the plain bf16 path and the f32
+    module under the 1.5x rule, exactly 8 K5 (the band RNNs, (501, 2, 8B,
+    256)) and 8 K6 (the band-comm RNNs, (8, 501B, 128, 256)) launches a
+    call; K5 and K6 against their plain versions at those shapes;
+21. TDANet at full width and depth at B=1 and 2 x 2 s: the module path in
+    bf16 (16 K4 launches a call, at [1008, 64, B]) under the 1.5x rule; the
+    fast path ("fast_tdanet") in bf16 with no K4 launch and an SNR against
+    the f32 module above 20 dB, and in f32 within 1e-4 of the f32 module's
+    scale; K4 against its plain version at TDANet's two shapes;
+22. AFRCNN at full width and depth at B=1 x 2 s: the bf16 module against
+    the f32 module, no kernel launched;
+23. the eval CLI as in phase 18 on BSRNN (8 kHz; "kernels", K5 and K6, no
+    K4), TDANet ("fast_tdanet", no kernel) and AFRCNN ("kernels", no
+    kernel);
+24. time BSRNN at B=1 and 4 x 4 s (kernel path, plain bf16 path, f32
+    module; the kernel path profiled), K5 and K6 alone at BSRNN's B=1
+    shapes beside their plain versions, bf16 ``nn.LSTM`` on the same shape
+    and their bounds (K5 also a step), a TDANet call on the fast path and
+    on the module path (both profiled), and an AFRCNN call.
 
 TF32 is off for matmuls and cuDNN, so the f32 references are full f32.
 
@@ -111,6 +134,26 @@ SEPFORMER = dict(encoder_kernel_size=16, encoder_in_nchannels=1, encoder_out_nch
 SEPFORMER_K4 = 2 * (8 + 8)  # K4 launches a call: 2 dual blocks x (8 intra + 8 inter) attentions
 # K4's [BH, dh, T] at B=2 x 2 s x 16 kHz: L = 3999 frames, S = 34 chunks of K = 250, h = 8, dh = 32
 SEPFORMER_SHAPES = {"intra": (2 * 34 * 8, 32, 250), "inter": (2 * 250 * 8, 32, 34)}
+# configs/bsrnn_wsj0.yml audionet_config, written out; 8 kHz (8 bands)
+BSRNN_WSJ0 = dict(win=256, stride=64, feature_dim=128, num_spks=2, num_layer=1, num_repeat=8, context=0,
+                  dropout=0.0, bi_comm=True)
+BSRNN_LAUNCHES = 8  # K5 and K6 each a BSRNN call: one band RNN and one band-comm RNN a repeat
+
+
+def bsrnn_shapes(batch: int):
+    """K5's (T, D, B, H) and K6's (T, B, Din, H, D) in a BSRNN call at
+    B=batch x 4 s x 8 kHz: T' = 501 frames, 8 bands, BiLSTMs of H 256."""
+    return (501, 2, 8 * batch, 256), (8, 501 * batch, 128, 256, 2)
+
+
+# configs/tdanet_lrs2.yml and configs/afrcnn_lrs2.yml audionet_config, written out; 16 kHz
+TDANET_LRS2 = dict(out_channels=128, in_channels=512, num_blocks=16, upsampling_depth=5, enc_kernel_size=4,
+                   num_sources=2)
+AFRCNN_LRS2 = dict(out_channels=512, in_channels=512, num_blocks=16, upsampling_depth=5, enc_kernel_size=1,
+                   num_sources=2)
+TDANET_K4 = 16  # K4 launches a module-path TDANet call: one global attention a block
+# K4's [T_deep * 8 heads, dh 64, B] in TDANet at B x 2 s x 16 kHz: T' 2010 -> 1005 -> 503 -> 252 -> 126
+TDANET_K4_SHAPE = (126 * 8, 64)
 # utterances of the eval CLI phase, seconds
 EVAL_SECONDS = (1.3, 2.0, 4.0, 6.5, 8.0)
 PEAK_FLOPS = 989e12  # H100 SXM bf16 dense tensor-core peak, FLOP/s
@@ -491,9 +534,9 @@ def dualpath_kernel_checks(dev):
 
 
 def dualpath_paths(model):
-    """(kernel path, plain bf16 path, f32 module) of a TasNet or Sepformer:
-    the first two are ``serve``'s "kernels" dispatch (a bf16 copy of the
-    module in eval mode), the second inside ``plain_versions()``."""
+    """(kernel path, plain bf16 path, f32 module) of a model that ``serve``
+    serves as "kernels" (a bf16 copy of the module in eval mode): the
+    second is the same inside ``plain_versions()``."""
     from audio_only_speech_separation_tpu_torch.ops.kernels import plain_versions
     from audio_only_speech_separation_tpu_torch.serve import Server
 
@@ -578,26 +621,9 @@ def tasnet_serving(dev, tasnets):
 LIBRARY_GEMMS = ("gemm", "xmma", "nvjet", "cutlass")  # kernel names of cuBLAS/CUTLASS matmuls
 
 
-def time_calls(dev, card, models, batch: int, secs: float, sr: int, reps: int, counters) -> dict:
-    """Each model at B=batch x secs s x sr: the kernel path, the plain bf16
-    path and the f32 module timed in turns (CUDA events, median of
-    ``reps``), then the kernel path under torch.profiler: each of
-    ``counters`` (label, wrapper, kernel name) by device time and launches a
-    call, the library matmuls, the rest (the plain ops), all device work
-    and the idle share, and the largest kernels by name.  Returns {label:
-    ms} with, per model, "<name> profile": {"K…", "matmuls", "busy",
-    "wall"} in ms a call."""
-    from torch.profiler import ProfilerActivity, profile
-
-    shape = f"B={batch} x {secs:g} s x {sr // 1000} kHz"
-    x = torch.from_numpy(np.random.default_rng(25).standard_normal(
-        (batch, int(secs * sr))).astype(np.float32)).to(dev)
-    runs = {}
-    for name, model in models.items():
-        kernel, plain, f32 = dualpath_paths(model)
-        runs[f"{name} kernel path"] = lambda f=kernel: f(x)
-        runs[f"{name} plain bf16 path"] = lambda f=plain: f(x)
-        runs[f"{name} f32 module"] = lambda f=f32: f(x)
+def in_turns(runs: dict, reps: int) -> dict:
+    """Median ms of each of ``runs`` (name -> function), CUDA events around
+    each call, the functions timed in turns after two warm-up calls each."""
     for fn in runs.values():
         for _ in range(2):
             fn()
@@ -611,47 +637,78 @@ def time_calls(dev, card, models, batch: int, secs: float, sr: int, reps: int, c
             end.record()
             end.synchronize()
             times[name].append(start.elapsed_time(end))
-    ms = {k: statistics.median(v) for k, v in times.items()}
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def device_profile(label: str, fn, call_ms: float, counters, card: str, calls: int = 5) -> dict:
+    """``fn`` under torch.profiler: each of ``counters`` (label, wrapper,
+    kernel name) by device time and launches a call, the library matmuls,
+    the rest (the plain ops), all device work and its device operations a
+    call (kernels, copies, memsets), the idle share (against
+    ``call_ms``, the unprofiled time), and the largest kernels by name.
+    Returns {"K…", "matmuls", "busy", "wall"} in ms a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _, c, _ in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    dev_us = {g: 0.0 for g, _, _ in counters}
+    busy_us = gemm_us = 0.0
+    ops = 0
+    by_name = {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        busy_us += evt.self_device_time_total
+        ops += evt.count
+        by_name[evt.key.split("(")[0][:60]] = evt.self_device_time_total / 1e3 / calls
+        if any(g in evt.key.lower() for g in LIBRARY_GEMMS):
+            gemm_us += evt.self_device_time_total
+        for g, _, key in counters:
+            if key in evt.key:
+                dev_us[g] += evt.self_device_time_total
+    busy_ms, gemm_ms = busy_us / 1e3 / calls, gemm_us / 1e3 / calls
+    prof_ms = {g: dev_us[g] / 1e3 / calls for g in dev_us}
+    print(f"  {label} under torch.profiler, per call: " + "".join(
+        f"{g} {prof_ms[g]:.4f} ms device, {c.launches / calls:g} launches; " for g, c, _ in counters)
+        + f"library matmuls {gemm_ms:.4f} ms; the rest {busy_ms - gemm_ms - sum(prof_ms.values()):.4f} ms"
+        f"; all device work {busy_ms:.4f} ms in {ops / calls:g} device operations (kernels, copies, "
+        f"memsets); wall {wall_ms:.4f} ms with the profiler; idle share "
+        f"{1 - busy_ms / wall_ms:.4f} (profiler on), {1 - busy_ms / call_ms:.4f} "
+        f"(against the unprofiled time); {card}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"  {label} largest kernels (ms a call): " + ", ".join(f"{k} {v:.4f}" for k, v in top))
+    return dict(prof_ms, matmuls=gemm_ms, busy=busy_ms, wall=wall_ms)
+
+
+def time_calls(dev, card, models, batch: int, secs: float, sr: int, reps: int, counters) -> dict:
+    """Each model at B=batch x secs s x sr: the kernel path, the plain bf16
+    path and the f32 module timed in turns (CUDA events, median of
+    ``reps``), then the kernel path under torch.profiler
+    (``device_profile``).  Returns {label: ms} with, per model, "<name>
+    profile": {"K…", "matmuls", "busy", "wall"} in ms a call."""
+    shape = f"B={batch} x {secs:g} s x {sr // 1000} kHz"
+    x = torch.from_numpy(np.random.default_rng(25).standard_normal(
+        (batch, int(secs * sr))).astype(np.float32)).to(dev)
+    runs = {}
+    for name, model in models.items():
+        kernel, plain, f32 = dualpath_paths(model)
+        runs[f"{name} kernel path"] = lambda f=kernel: f(x)
+        runs[f"{name} plain bf16 path"] = lambda f=plain: f(x)
+        runs[f"{name} f32 module"] = lambda f=f32: f(x)
+    ms = in_turns(runs, reps)
     for name, v in ms.items():
         print(f"  {shape}, {name}: {v:.4f} ms/call, {batch * secs / (v / 1000):.2f} audio-sec/s "
               f"(median of {reps}, {card})")
-
     for name in models:
-        fn, calls = runs[f"{name} kernel path"], 5
-        for _, c, _ in counters:
-            c.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
-        dev_us = {g: 0.0 for g, _, _ in counters}
-        busy_us = gemm_us = 0.0
-        by_name = {}
-        for evt in prof.key_averages():
-            if evt.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            busy_us += evt.self_device_time_total
-            by_name[evt.key.split("(")[0][:60]] = evt.self_device_time_total / 1e3 / calls
-            if any(g in evt.key.lower() for g in LIBRARY_GEMMS):
-                gemm_us += evt.self_device_time_total
-            for g, _, key in counters:
-                if key in evt.key:
-                    dev_us[g] += evt.self_device_time_total
-        busy_ms, gemm_ms = busy_us / 1e3 / calls, gemm_us / 1e3 / calls
-        prof_ms = {g: dev_us[g] / 1e3 / calls for g in dev_us}
-        print(f"  {shape}, {name} kernel path under torch.profiler, per call: " + ", ".join(
-            f"{g} {prof_ms[g]:.4f} ms device, {c.launches / calls:g} launches" for g, c, _ in counters)
-            + f"; library matmuls {gemm_ms:.4f} ms; the rest {busy_ms - gemm_ms - sum(prof_ms.values()):.4f} ms"
-            f"; all device work {busy_ms:.4f} ms; wall {wall_ms:.4f} ms with the profiler; idle share "
-            f"{1 - busy_ms / wall_ms:.4f} (profiler on), {1 - busy_ms / ms[f'{name} kernel path']:.4f} "
-            f"(against the unprofiled time); {card}")
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        print(f"  {shape}, {name} largest kernels (ms a call): "
-              + ", ".join(f"{k} {v:.4f}" for k, v in top))
-        ms[f"{name} profile"] = dict(prof_ms, matmuls=gemm_ms, busy=busy_ms, wall=wall_ms)
+        ms[f"{name} profile"] = device_profile(f"{shape}, {name} kernel path", runs[f"{name} kernel path"],
+                                               ms[f"{name} kernel path"], counters, card)
     return ms
 
 
@@ -797,45 +854,35 @@ def sepformer_checks(dev, model) -> float:
                for side, shape in SEPFORMER_SHAPES.items())
 
 
-def eval_cli_checks(dev, root: str, lrs3_exp: str, tasnet, sepformer) -> dict:
-    """Phase 18: ``audio_test.main(config, device="cuda")`` with --bf16 on
-    (a) the ConvTasNet-LRS3 experiment phase 8 trained, (b) a DPTNet
-    (dptnet_wsj0's model, 8 kHz), (c) phase 17's Sepformer (16 kHz), each
+def eval_cli_checks(dev, root: str, title: str, experiments: dict) -> dict:
+    """``audio_test.main(config, device="cuda")`` with --bf16 on each of
+    ``experiments`` (label -> (exp_dir or None to write ``model``'s
+    checkpoint, model, audionet config, data module, n_src, sample rate,
+    kernels that must launch, kernels that must not, the dispatch)), each
     on EVAL_SECONDS utterances.  Each CSV has a row per utterance plus avg
     and std, every value finite, and equals within 1e-3 dB what
     ``MetricsTracker`` gives on ``serve()``'s estimates of the same model
-    with the same dispatch; the kernels of each path must launch.  Returns
-    {experiment: {kernel: launches during its CLI run}}."""
+    with the same dispatch.  Returns {experiment: {kernel: launches during
+    its CLI run}}."""
     from audio_only_speech_separation_tpu_torch import audio_test
     from audio_only_speech_separation_tpu_torch import data as datas
     from audio_only_speech_separation_tpu_torch.metrics import MetricsTracker
     from audio_only_speech_separation_tpu_torch.models import from_pretrain, save_serialized, serialize
     from audio_only_speech_separation_tpu_torch.ops.kernels.convtasnet_block import fused_convtasnet_separator
-    from audio_only_speech_separation_tpu_torch.serve import serve
+    from audio_only_speech_separation_tpu_torch.serve import Server, serve
 
-    print(f"phase 18: the eval CLI on the card (--bf16, batch 1, 1 s buckets), {len(EVAL_SECONDS)} "
-          f"utterances of {EVAL_SECONDS[0]}-{EVAL_SECONDS[-1]} s each")
+    print(f"{title} (--bf16, batch 1, 1 s buckets), {len(EVAL_SECONDS)} utterances of "
+          f"{EVAL_SECONDS[0]}-{EVAL_SECONDS[-1]} s each")
     counters = {"K1": fused_convtasnet_separator, **{g: c for g, c, _ in tasnet_counters()}}
-    with open(os.path.join(lrs3_exp, "conf.yml")) as f:  # JSON, written by audio_train.main
-        lrs3_conf = json.load(f)
-    experiments = {
-        "(a) ConvTasNet-LRS3": (lrs3_exp, lrs3_conf["audionet"], "LRS3DataModule", 3, SR, ("K1",)),
-        "(b) DPTNet wsj0": (None, {"audionet_name": "TasNet", "audionet_config": dict(
-                                       {k: v for k, v in WSJ0_TASNET.items() if k != "sample_rate"},
-                                       module="DPTNet")},
-                            "LRS2DataModule", 2, TSR, ("K4", "K5", "K6")),
-        "(c) Sepformer": (None, {"audionet_name": "Sepformer", "audionet_config": dict(SEPFORMER)},
-                          "LRS2DataModule", 2, SR, ("K4",)),
-    }
     launched = {}
-    for i, (label, (exp_dir, audionet, data_name, n_src, sr, wanted)) in enumerate(experiments.items()):
+    for label, (exp_dir, model, audionet, data_name, n_src, sr, wanted, absent, dispatch) in experiments.items():
+        work = tempfile.mkdtemp(prefix="eval_", dir=root)
         if exp_dir is None:
-            exp_dir = os.path.join(root, f"exp{i}")
+            exp_dir = os.path.join(work, "exp")
             os.makedirs(exp_dir)
-            save_serialized(serialize(tasnet if "DPTNet" in label else sepformer),
-                            os.path.join(exp_dir, "best_model.pth"))
-        data_dir = os.path.join(root, f"data{i}")
-        write_manifests(data_dir, {"tt": [int(s * sr) for s in EVAL_SECONDS]}, 40 + i,
+            save_serialized(serialize(model), os.path.join(exp_dir, "best_model.pth"))
+        data_dir = os.path.join(work, "data")
+        write_manifests(data_dir, {"tt": [int(s * sr) for s in EVAL_SECONDS]}, 40 + len(launched),
                         mix="mix_noise" if n_src == 3 else "mix", n_src=n_src, sr=sr)
         tt = os.path.join(data_dir, "tt")
         config = {"audionet": audionet,
@@ -853,13 +900,14 @@ def eval_cli_checks(dev, root: str, lrs3_exp: str, tasnet, sepformer) -> dict:
         # the tracker on serve()'s estimates of the same model, in the CLI's order
         model = from_pretrain(os.path.join(exp_dir, "best_model.pth"), dev, sample_rate=sr,
                               **audionet["audionet_config"])
+        served_by = Server(model, True, dev).dispatch
         test_set = datas.get(data_name)(**dict(config["datamodule"]["data_config"], segment=None))
         test_set.setup()
         test_set = test_set.make_sets[2]
         order = sorted(range(len(test_set)), key=lambda j: test_set.mix[j][1])
         items = [test_set[j] for j in order]
         ests = serve(model, [mix for mix, _, _ in items], use_bf16=True, device=dev)
-        ref_csv = os.path.join(root, f"ref{i}.csv")
+        ref_csv = os.path.join(work, "ref.csv")
         tracker = MetricsTracker(save_file=ref_csv, sample_rate=sr)
         for (mix, sources, key), est in zip(items, ests):
             tracker(mix, sources, est, key)
@@ -868,16 +916,19 @@ def eval_cli_checks(dev, root: str, lrs3_exp: str, tasnet, sepformer) -> dict:
             want = [line.split(",") for line in f.read().splitlines()]
         values = np.array([r[1:] for r in rows[1:]], float)
         diff = float(np.abs(values - np.array([r[1:] for r in want[1:]], float)).max())
-        print(f"  {label}: {len(rows) - 3} rows + avg + std, mean si-snr_i {float(values[-2, 3]):.4f} dB; "
-              f"max |CLI - tracker on serve()| {diff:.3g} dB; launches "
-              + ", ".join(f"{g} {n}" for g, n in launched[label].items() if n))
+        print(f"  {label}: dispatch {served_by}; {len(rows) - 3} rows + avg + std, mean si-snr_i "
+              f"{float(values[-2, 3]):.4f} dB; max |CLI - tracker on serve()| {diff:.3g} dB; launches "
+              + (", ".join(f"{g} {n}" for g, n in launched[label].items() if n) or "none"))
+        if served_by != dispatch:
+            raise AssertionError(f"{label}: dispatch {served_by!r}, not {dispatch!r}")
         if (len(rows) != len(EVAL_SECONDS) + 3 or [r[0] for r in rows[-2:]] != ["avg", "std"]
                 or not np.isfinite(values).all()):
             raise AssertionError(f"{label}: malformed metrics.csv {rows}")
         if [r[0] for r in rows] != [r[0] for r in want] or not diff <= 1e-3:
             raise AssertionError(f"{label}: CLI rows differ from the tracker on serve() by {diff} dB")
-        if not all(launched[label][g] > 0 for g in wanted):
-            raise AssertionError(f"{label}: the eval CLI did not launch {wanted}: {launched[label]}")
+        if not all(launched[label][g] > 0 for g in wanted) or any(launched[label][g] for g in absent):
+            raise AssertionError(f"{label}: the eval CLI launched {launched[label]}, wanted {wanted} "
+                                 f"and none of {absent}")
     return launched
 
 
@@ -920,6 +971,255 @@ def sepformer_timing(dev, card, model) -> dict:
               f"({d['bound_by']}); {card}")
         out[side] = d
     return out
+
+
+def seeded_model(cls, cfg: dict, sr: int, seed: int, dev):
+    """``cls(**cfg)`` at full width and depth with seeded weights: the
+    seeded init, with every gLN and LayerNorm affine redrawn."""
+    from audio_only_speech_separation_tpu_torch.ops.norms import GlobalLayerNorm
+
+    m = cls(**cfg, sample_rate=sr, generator=torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for mod in m.modules():
+            if isinstance(mod, (GlobalLayerNorm, torch.nn.LayerNorm)):
+                for p in (mod.weight, mod.bias):
+                    p.add_(torch.from_numpy((0.2 * rng.standard_normal(p.shape)).astype(np.float32)))
+    return m.to(dev).eval()
+
+
+def lstm_kernel_inputs(rand, k5_shape=None, k6_shape=None):
+    """The JAX validator's inputs at K5's (T, D, B, H): xw * 0.3, w_hh *
+    0.05; or at K6's (T, B, Din, H, D): x * 0.5, w_ih * 0.08, w_hh * 0.05,
+    an f32 bias * 0.05."""
+    if k5_shape is not None:
+        T, D, B, H = k5_shape
+        return [rand((T, D, B, 4 * H), 0.3), rand((D, H, 4 * H), 0.05)]
+    T, B, Din, H, D = k6_shape
+    return [rand((B, T, Din), 0.5), rand((D, Din, 4 * H), 0.08), rand((D, H, 4 * H), 0.05),
+            rand((D, 4 * H), 0.05, torch.float32)]
+
+
+def bsrnn_checks(dev, model):
+    """Phase 20: BSRNN end to end at B=1 and 4 x 4 s (kernel path through
+    ``serve``'s dispatch, plain bf16 path, f32 module) under the 1.5x rule,
+    exactly BSRNN_LAUNCHES K5 and K6 launches a call; then K5 and K6
+    against their plain versions at BSRNN's shapes.  Returns their worst
+    max abs errors and the launches of both calls."""
+    from audio_only_speech_separation_tpu_torch.ops.kernels.lstm import (
+        bilstm_reference,
+        fused_bilstm,
+        resident_bilstm,
+        resident_bilstm_reference,
+    )
+
+    print("phase 20: BSRNN (bsrnn_wsj0, 8 kHz, full width and depth), kernel path vs plain bf16 vs f32")
+    kernel, plain, f32 = dualpath_paths(model)
+    launches = [0, 0]
+    for batch in (1, 4):
+        x = torch.from_numpy(np.random.default_rng(32).standard_normal(
+            (batch, 4 * TSR)).astype(np.float32)).to(dev)
+        fused_bilstm.launches = resident_bilstm.launches = 0
+        got = kernel(x)
+        torch.cuda.synchronize()
+        n5, n6 = fused_bilstm.launches, resident_bilstm.launches
+        launches = [launches[0] + n5, launches[1] + n6]
+        ref, pl = f32(x), plain(x)
+        torch.cuda.synchronize()
+        for out in (got, pl):
+            if out.shape != ref.shape or not torch.isfinite(out.float()).all():
+                raise AssertionError(f"BSRNN: bad output {tuple(out.shape)}")
+        print(f"  BSRNN B={batch} x 4 s (output scale {float(ref.abs().max()):.4g}): launches K5 {n5}, "
+              f"K6 {n6} (want {BSRNN_LAUNCHES} each)")
+        if (n5, n6) != (BSRNN_LAUNCHES, BSRNN_LAUNCHES):
+            raise AssertionError(f"BSRNN launched K5 {n5} and K6 {n6} times, not {BSRNN_LAUNCHES} each")
+        check_rule(f"BSRNN B={batch} x 4 s", max_err(got, ref), max_err(pl, ref))
+    rand = rand_maker(33, dev)
+    print("  K5 and K6 vs plain at BSRNN's shapes (B = 1 and 4 x 4 s), the validator's inputs")
+    k5_err = max(kernel_vs_plain(f"K5 (T, D, B, H) = {bsrnn_shapes(b)[0]}", fused_bilstm, bilstm_reference,
+                                 lstm_kernel_inputs(rand, k5_shape=bsrnn_shapes(b)[0]), 1e-2) for b in (1, 4))
+    k6_err = max(kernel_vs_plain(f"K6 (T, B, Din, H, D) = {bsrnn_shapes(b)[1]}", resident_bilstm,
+                                 resident_bilstm_reference, lstm_kernel_inputs(rand, k6_shape=bsrnn_shapes(b)[1]),
+                                 1e-2) for b in (1, 4))
+    return k5_err, k6_err, launches
+
+
+def snr_db(ref: torch.Tensor, got: torch.Tensor) -> float:
+    ref, err = ref.double(), got.double() - ref.double()
+    return float(10 * torch.log10(ref.square().sum() / err.square().sum().clamp_min(1e-30)))
+
+
+def tdanet_checks(dev, model):
+    """Phase 21: TDANet at B=1 and 2 x 2 s: the module path in bf16 (K4,
+    TDANET_K4 launches a call) under the 1.5x rule against the plain bf16
+    module and the f32 module; the fast path in bf16 (``serve``'s
+    "fast_tdanet", no K4 launch, SNR against the f32 module above 20 dB,
+    the bound of the JAX package's tests/test_tdanet_fast.py) and in f32
+    (within 1e-4 of the f32 module's scale, the CPU tests' bound); then K4
+    against its plain version at TDANet's two shapes.  Returns K4's worst
+    max abs error and the module path's launches."""
+    import copy
+
+    from audio_only_speech_separation_tpu_torch.models.tdanet import fast_inference_forward
+    from audio_only_speech_separation_tpu_torch.ops.kernels import plain_versions
+    from audio_only_speech_separation_tpu_torch.ops.kernels.attention import (
+        attention_bdt_reference,
+        fused_attention_bdt,
+    )
+    from audio_only_speech_separation_tpu_torch.serve import Server
+
+    print("phase 21: TDANet (tdanet_lrs2, 16 kHz, full width and depth): module path vs fast path")
+    server = Server(model, True, dev)
+    if server.dispatch != "fast_tdanet":
+        raise AssertionError(f"TDANet: dispatch {server.dispatch!r}, not 'fast_tdanet'")
+    module = copy.deepcopy(model).to(torch.bfloat16)  # the module path, as "kernels" would serve it
+    launches = 0
+    for batch in (1, 2):
+        x = torch.from_numpy(np.random.default_rng(34).standard_normal(
+            (batch, 2 * SR)).astype(np.float32)).to(dev)
+        with torch.no_grad():
+            fused_attention_bdt.launches = 0
+            got = module(x.to(torch.bfloat16))
+            torch.cuda.synchronize()
+            n_module = fused_attention_bdt.launches
+            fused_attention_bdt.launches = 0
+            fast = server.forward(x)
+            torch.cuda.synchronize()
+            n_fast = fused_attention_bdt.launches
+            with plain_versions():
+                pl = module(x.to(torch.bfloat16))
+            ref, fast32 = model(x), fast_inference_forward(model, x)
+        torch.cuda.synchronize()
+        launches += n_module
+        for out in (got, fast, pl, fast32):
+            if out.shape != ref.shape or not torch.isfinite(out.float()).all():
+                raise AssertionError(f"TDANet: bad output {tuple(out.shape)}")
+        scale = float(ref.abs().max())
+        rel32 = max_err(fast32, ref) / scale
+        print(f"  TDANet B={batch} x 2 s (output scale {scale:.4g}): K4 launches, module path {n_module} "
+              f"(want {TDANET_K4}), fast path {n_fast} (want 0); fast path vs f32 module: f32 "
+              f"{rel32:.3g} of the scale (bound 1e-4), bf16 max abs {max_err(fast, ref):.6g}, SNR "
+              f"{snr_db(ref, fast):.2f} dB (bound 20), plain bf16 module SNR {snr_db(ref, pl):.2f} dB")
+        if (n_module, n_fast) != (TDANET_K4, 0):
+            raise AssertionError(f"TDANet launched K4 {n_module} (module) and {n_fast} (fast) times")
+        if not (rel32 <= 1e-4 and snr_db(ref, fast) > 20.0):
+            raise AssertionError(f"TDANet fast path: f32 {rel32} of the scale, bf16 {snr_db(ref, fast)} dB")
+        check_rule(f"TDANet module path B={batch} x 2 s", max_err(got, ref), max_err(pl, ref))
+    rand = rand_maker(35, dev)
+    print("  K4 vs plain at TDANet's shapes, unit-normal bf16 q, k, v")
+    k4_err = max(kernel_vs_plain(f"[BH, dh, T] = {[*TDANET_K4_SHAPE, b]}", fused_attention_bdt,
+                                 attention_bdt_reference, [rand((*TDANET_K4_SHAPE, b)) for _ in range(3)], 2e-2)
+                 for b in (1, 2))
+    return k4_err, launches
+
+
+def afrcnn_checks(dev, model) -> None:
+    """Phase 22: AFRCNN at B=1 x 2 s: the bf16 module (``serve``'s
+    "kernels") against the f32 module under the 1.5x rule (its plain bf16
+    path is the same module: it has no kernel), no kernel launched."""
+    print("phase 22: AFRCNN (afrcnn_lrs2, 16 kHz, full width and depth), bf16 module vs f32")
+    kernel, plain, f32 = dualpath_paths(model)
+    x = torch.from_numpy(np.random.default_rng(36).standard_normal((1, 2 * SR)).astype(np.float32)).to(dev)
+    counters = [c for _, c, _ in tasnet_counters()]
+    for c in counters:
+        c.launches = 0
+    got = kernel(x)
+    torch.cuda.synchronize()
+    launched = [c.launches for c in counters]
+    ref, pl = f32(x), plain(x)
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"AFRCNN: bad output {tuple(got.shape)}")
+    print(f"  AFRCNN B=1 x 2 s (output scale {float(ref.abs().max()):.4g}): launches K4, K5, K6 {launched} "
+          f"(want none); bf16 SNR {snr_db(ref, got):.2f} dB")
+    if any(launched):
+        raise AssertionError(f"AFRCNN launched kernels: {launched}")
+    check_rule("AFRCNN B=1 x 2 s", max_err(got, ref), max_err(pl, ref))
+
+
+def new_models_timing(dev, card, bsrnn, tdanet, afrcnn) -> dict:
+    """Phase 24: BSRNN at B=1 and 4 x 4 s (kernel path, plain bf16 path, f32
+    module; the kernel path profiled), K5 and K6 alone at BSRNN's B=1 shapes
+    beside their plain versions, bf16 ``nn.LSTM`` on the same shape and
+    their bounds, K5 also a step; a TDANet call on the fast path and on the
+    module path, and an AFRCNN call.  Returns K5's and K6's entries."""
+    import copy
+
+    from audio_only_speech_separation_tpu_torch.models.tdanet import fast_inference_forward
+    from audio_only_speech_separation_tpu_torch.ops.kernels.lstm import (
+        bilstm_reference,
+        fused_bilstm,
+        recurrence_cluster,
+        resident_bilstm,
+        resident_bilstm_reference,
+        resident_cluster,
+    )
+
+    print(f"phase 24: timing, BSRNN at B=1 and 4 x 4 s x 8 kHz, TDANet and AFRCNN at B=1 x 2 s x 16 kHz, "
+          f"on {card}")
+    for batch in (1, 4):
+        time_calls(dev, card, {"BSRNN": bsrnn}, batch, 4.0, TSR, 5, tasnet_counters()[1:])
+    rand = rand_maker(37, dev)
+    (T5, D5, B5, H5), (T6, B6, Din6, H6, D6) = bsrnn_shapes(1)
+    xw, whh = lstm_kernel_inputs(rand, k5_shape=bsrnn_shapes(1)[0])
+    x6, wih6, whh6, b6 = lstm_kernel_inputs(rand, k6_shape=bsrnn_shapes(1)[1])
+
+    def lstm_yardstick(x, Din, H):
+        """bf16 nn.LSTM(Din, H, bidirectional) on x [B, T, Din], or None where
+        the installed PyTorch has no bf16 LSTM on this card."""
+        lstm = torch.nn.LSTM(Din, H, batch_first=True, bidirectional=True).to(dev, torch.bfloat16)
+        lstm.flatten_parameters()
+        try:
+            with torch.no_grad():
+                return back_to_back_ms(lambda: lstm(x), 10)
+        except RuntimeError as e:
+            print(f"  nn.LSTM in bf16 not timed: {e}")
+            return None
+
+    with torch.no_grad():
+        k5 = {"ms": back_to_back_ms(lambda: fused_bilstm(xw, whh), 10),
+              "plain_ms": back_to_back_ms(lambda: bilstm_reference(xw, whh), 2),
+              "library_ms": lstm_yardstick(rand((B5, T5, 128), 0.5), 128, H5),
+              "device_ms": launch_ms(lambda: fused_bilstm(xw, whh), "lstm_recurrence_kernel")}
+        k6 = {"ms": back_to_back_ms(lambda: resident_bilstm(x6, wih6, whh6, b6)),
+              "plain_ms": back_to_back_ms(lambda: resident_bilstm_reference(x6, wih6, whh6, b6), 5),
+              "library_ms": lstm_yardstick(x6, Din6, H6),
+              "device_ms": launch_ms(lambda: resident_bilstm(x6, wih6, whh6, b6), "lstm_resident_kernel", 20)}
+    k5["bound_ms"], k5["bound_by"] = least_time((xw.numel() + xw.numel() // 4 + whh.numel()) * 2,
+                                                2 * T5 * D5 * B5 * H5 * 4 * H5)
+    k6["bound_ms"], k6["bound_by"] = least_time(
+        (x6.numel() + wih6.numel() + whh6.numel() + T6 * D6 * B6 * H6) * 2 + b6.numel() * 4,
+        2 * T6 * D6 * B6 * (Din6 + H6) * 4 * H6)
+    for label, d, T, cluster in (
+            (f"K5 (T, D, B, H) = {bsrnn_shapes(1)[0]}, bf16 nn.LSTM(128, 256) on [{B5}, {T5}, 128] beside it", k5,
+             T5, recurrence_cluster(B5, D5, H5)),
+            (f"K6 (T, B, Din, H, D) = {bsrnn_shapes(1)[1]}, bf16 nn.LSTM(128, 256) on [{B6}, {T6}, 128] beside it",
+             k6, T6, resident_cluster(B6, D6, Din6, H6))):
+        traced = "not traced" if d["device_ms"] is None else f"{d['device_ms']:.4f} ms"
+        print(f"  {label}: kernel {d['ms']:.4f} ms a launch (CUDA events, back to back), {traced} on the device "
+              f"(torch.profiler)" + ("" if d["device_ms"] is None else f", {d['device_ms'] / T * 1e3:.3f} us a step")
+              + f", cluster of {cluster}; plain {d['plain_ms']:.4f} ms; nn.LSTM "
+              + ("not timed" if d["library_ms"] is None else f"{d['library_ms']:.4f} ms")
+              + f"; bound {d['bound_ms']:.5f} ms ({d['bound_by']}); {card}")
+
+    module = copy.deepcopy(tdanet).to(torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(38).standard_normal((1, 2 * SR)).astype(np.float32)).to(dev)
+    xb = x.to(torch.bfloat16)
+    with torch.no_grad():
+        runs = {"TDANet fast path (bf16)": lambda: fast_inference_forward(module, xb),
+                "TDANet module path (bf16, K4)": lambda: module(xb),
+                "TDANet f32 module": lambda: tdanet(x)}
+        ms = in_turns(runs, 5)
+        for name, v in ms.items():
+            print(f"  B=1 x 2 s x 16 kHz, {name}: {v:.4f} ms/call, {2.0 / (v / 1000):.2f} audio-sec/s "
+                  f"(median of 5, {card})")
+        device_profile("B=1 x 2 s x 16 kHz, TDANet fast path", runs["TDANet fast path (bf16)"],
+                       ms["TDANet fast path (bf16)"], (), card)
+        device_profile("B=1 x 2 s x 16 kHz, TDANet module path", runs["TDANet module path (bf16, K4)"],
+                       ms["TDANet module path (bf16, K4)"], tasnet_counters()[:1], card)
+    time_calls(dev, card, {"AFRCNN": afrcnn}, 1, 2.0, SR, 3, ())
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return k5, k6
 
 
 def main() -> None:
@@ -1311,12 +1611,53 @@ def main() -> None:
     sepformer = sepformer_model(31, dev)
     k4_err = max(k4_err, sepformer_checks(dev, sepformer))
     print(f"  {time.perf_counter() - t_start:.1f} s since the start")
-    launched = eval_cli_checks(dev, scratch.name, lrs3_exp, tasnets["DPTNet"], sepformer)
+    with open(os.path.join(lrs3_exp, "conf.yml")) as f:  # JSON, written by audio_train.main
+        lrs3_conf = json.load(f)
+    launched = eval_cli_checks(dev, scratch.name, "phase 18: the eval CLI on the card", {
+        "(a) ConvTasNet-LRS3": (lrs3_exp, None, lrs3_conf["audionet"], "LRS3DataModule", 3, SR, ("K1",), (),
+                                "fused"),
+        "(b) DPTNet wsj0": (None, tasnets["DPTNet"], {"audionet_name": "TasNet", "audionet_config": dict(
+            {k: v for k, v in WSJ0_TASNET.items() if k != "sample_rate"}, module="DPTNet")},
+            "LRS2DataModule", 2, TSR, ("K4", "K5", "K6"), (), "kernels"),
+        "(c) Sepformer": (None, sepformer, {"audionet_name": "Sepformer", "audionet_config": dict(SEPFORMER)},
+                          "LRS2DataModule", 2, SR, ("K4",), (), "kernels"),
+    })
     scratch.cleanup()
     # K4 on the main paths: DPTNet served (phase 15) and the Sepformer through the eval CLI (phase 18)
     k4_launches += launched["(c) Sepformer"]["K4"]
     print(f"  {time.perf_counter() - t_start:.1f} s since the start")
     sepformer_timing(dev, card, sepformer)
+    print(f"  {time.perf_counter() - t_start:.1f} s since the start")
+
+    from audio_only_speech_separation_tpu_torch.models import AFRCNN, BSRNN, TDANet
+
+    bsrnn = seeded_model(BSRNN, BSRNN_WSJ0, TSR, 41, dev)
+    k5_bsrnn_err, k6_bsrnn_err, _ = bsrnn_checks(dev, bsrnn)
+    k5_err, k6_err = max(k5_err, k5_bsrnn_err), max(k6_err, k6_bsrnn_err)
+    print(f"  {time.perf_counter() - t_start:.1f} s since the start")
+    tdanet = seeded_model(TDANet, TDANET_LRS2, SR, 42, dev)
+    k4_tdanet_err, k4_tdanet_launches = tdanet_checks(dev, tdanet)
+    k4_err = max(k4_err, k4_tdanet_err)
+    print(f"  {time.perf_counter() - t_start:.1f} s since the start")
+    afrcnn = seeded_model(AFRCNN, AFRCNN_LRS2, SR, 43, dev)
+    afrcnn_checks(dev, afrcnn)
+    print(f"  {time.perf_counter() - t_start:.1f} s since the start")
+    scratch = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    launched = eval_cli_checks(dev, scratch.name, "phase 23: the eval CLI on the card for the three new models", {
+        "(d) BSRNN wsj0": (None, bsrnn, {"audionet_name": "BSRNN", "audionet_config": dict(BSRNN_WSJ0)},
+                           "LRS2DataModule", 2, TSR, ("K5", "K6"), ("K4",), "kernels"),
+        "(e) TDANet LRS2": (None, tdanet, {"audionet_name": "TDANet", "audionet_config": dict(TDANET_LRS2)},
+                            "LRS2DataModule", 2, SR, (), ("K4", "K5", "K6"), "fast_tdanet"),
+        "(f) AFRCNN LRS2": (None, afrcnn, {"audionet_name": "AFRCNN", "audionet_config": dict(AFRCNN_LRS2)},
+                            "LRS2DataModule", 2, SR, (), ("K4", "K5", "K6"), "kernels"),
+    })
+    scratch.cleanup()
+    # K4 on TDANet's module path (phase 21); K5 and K6 through the eval CLI's BSRNN (phase 23)
+    k4_launches += k4_tdanet_launches
+    k5_launches += launched["(d) BSRNN wsj0"]["K5"]
+    k6_launches += launched["(d) BSRNN wsj0"]["K6"]
+    print(f"  {time.perf_counter() - t_start:.1f} s since the start")
+    new_models_timing(dev, card, bsrnn, tdanet, afrcnn)
     print(f"  {time.perf_counter() - t_start:.1f} s since the start")
 
     k1_b, k1_by = least_time(*separator_work(8, frames_bench))

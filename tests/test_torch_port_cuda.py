@@ -315,11 +315,12 @@ def test_attention_matches_plain_version(cuda, BH, dh, T):
 # (T, D, B, H): the validator's (scripts/validate_pallas.py:283), the batch-1
 # inter-chunk pass, and a small odd batch; T = 1, a partial 16-row tile
 # (B 17), 100 sequences at H 128 with a short T, H 48 (a cluster of 2) and
-# H 256 at B 2; and batches too large for a cluster (one block a tile),
-# where the xw ring is 4H wide and W_hh (H 256) is read from L2
+# H 256 at B 2; batches too large for a cluster (one block a tile), where
+# the xw ring is 4H wide and W_hh (H 256) is read from L2; BSRNN's band RNNs
+# at B=1 and 4 x 4 s x 8 kHz (8 bands of 501 frames, H 256)
 BILSTM_CASES = [(251, 2, 64, 256), (250, 2, 96, 128), (128, 1, 32, 128), (242, 2, 100, 128),
                 (9, 2, 3, 16), (1, 2, 4, 32), (6, 2, 17, 16), (5, 2, 100, 128), (40, 2, 3, 48),
-                (4, 1, 2, 256), (3, 2, 1100, 128), (3, 2, 1100, 256)]
+                (4, 1, 2, 256), (3, 2, 1100, 128), (3, 2, 1100, 256), (501, 2, 8, 256), (501, 2, 32, 256)]
 
 
 @pytest.mark.parametrize("T,D,B,H", BILSTM_CASES)
@@ -353,12 +354,15 @@ def test_recurrence_cases_cover_each_cluster_plan(cuda):
 # at this model's chunk counts, an odd batch, no bias; a batch within one
 # 16-row tile, T = 1, H 16 (two warps a block), H 256 / Din 128; and
 # batches too large for a cluster (one block a tile), where W_hh (H 256) or
-# W_ih (Din 128, H 128) does not fit in shared memory and is read from L2
+# W_ih (Din 128, H 128) does not fit in shared memory and is read from L2;
+# BSRNN's band-comm RNNs at B=1 and 4 x 4 s x 8 kHz (501 B sequences of 8
+# bands, Din 128, H 256)
 RESIDENT_CASES = [(100, 336, 64, 128, 2, True), (42, 800, 64, 128, 2, True), (42, 800, 64, 128, 1, True),
                   (100, 241, 64, 128, 2, True), (250, 256, 128, 128, 2, True),
                   (7, 19, 32, 32, 2, False), (30, 16, 64, 128, 2, True), (1, 40, 64, 128, 2, True),
                   (12, 5, 16, 16, 1, True), (20, 50, 128, 256, 2, True), (9, 33, 64, 256, 1, False),
-                  (3, 1100, 64, 256, 2, True), (3, 2200, 128, 128, 1, True)]
+                  (3, 1100, 64, 256, 2, True), (3, 2200, 128, 128, 1, True),
+                  (8, 501, 128, 256, 2, True), (8, 2004, 128, 256, 2, True)]
 
 
 @pytest.mark.parametrize("T,B,Din,H,D,with_bias", RESIDENT_CASES)
@@ -530,3 +534,69 @@ def test_eval_cli_on_the_card(cuda, tmp_path):
     assert sorted(r[0] for r in rows[1:-2]) == [f"u{i}.wav" for i in range(len(lengths))]
     assert [r[0] for r in rows[-2:]] == ["avg", "std"]
     assert all(np.isfinite(float(v)) for r in rows[1:] for v in r[1:])
+
+
+# ---------------------------------------------------------------------------
+# BSRNN through K5 and K6, TDANet's module path through K4, AFRCNN
+# ---------------------------------------------------------------------------
+
+
+def _validator_rule(m, x, counters):
+    """``m`` cast to bf16 on the card against the f32 module: within 1.5 *
+    (plain bf16 error) + 1e-3; returns the launches of ``counters``."""
+    import copy
+
+    from audio_only_speech_separation_tpu_torch.ops.kernels import plain_versions
+
+    mk = copy.deepcopy(m).to(torch.bfloat16)
+    before = [c.launches for c in counters]
+    with torch.no_grad():
+        ref = m(x)
+        got = mk(x.to(torch.bfloat16))
+        launched = [c.launches - b for c, b in zip(counters, before)]
+        with plain_versions():
+            plain = mk(x.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and bool(torch.isfinite(got.float()).all())
+    err, plain_err = float((got.float() - ref).abs().max()), float((plain.float() - ref).abs().max())
+    assert err <= 1.5 * plain_err + 1e-3, (err, plain_err)
+    return launched
+
+
+def _waves(cuda, seed, B, T):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal((B, T)).astype(np.float32)).to(cuda)
+
+
+def test_bsrnn_kernel_path_meets_the_validator_rule(cuda):
+    """A BSRNN (feature 64, H 128, 2 repeats, 8 kHz) at B=2 x 1 s: each band
+    RNN (16 sequences) takes K5 and each band-comm RNN (252 sequences) K6,
+    once a repeat, within the 1.5x rule of the f32 module."""
+    from audio_only_speech_separation_tpu_torch.models import BSRNN
+
+    m = BSRNN(feature_dim=64, num_repeat=2, sample_rate=8000,
+              generator=torch.Generator().manual_seed(11)).to(cuda).eval()
+    launched = _validator_rule(m, _waves(cuda, 12, 2, 8000), (fused_attention_bdt, fused_bilstm, resident_bilstm))
+    assert launched == [0, 2, 2]
+
+
+def test_tdanet_module_path_meets_the_validator_rule(cuda):
+    """A TDANet (out 32, in 128: 8 heads of dh 16; 3 blocks, depth 3) at
+    B=2 x 0.5 s x 16 kHz: the module path runs each block's attention
+    through K4, within the 1.5x rule of the f32 module."""
+    from audio_only_speech_separation_tpu_torch.models import TDANet
+
+    m = TDANet(out_channels=32, in_channels=128, num_blocks=3, upsampling_depth=3, enc_kernel_size=4,
+               generator=torch.Generator().manual_seed(13)).to(cuda).eval()
+    launched = _validator_rule(m, _waves(cuda, 14, 2, 8000), (fused_attention_bdt, fused_bilstm, resident_bilstm))
+    assert launched == [3, 0, 0]
+
+
+def test_afrcnn_bf16_module_meets_the_validator_rule(cuda):
+    """An AFRCNN (out 64, in 128, 3 blocks, depth 4) at B=1 x 0.5 s x 16
+    kHz cast to bf16: no kernel, within the 1.5x rule of the f32 module."""
+    from audio_only_speech_separation_tpu_torch.models import AFRCNN
+
+    m = AFRCNN(out_channels=64, in_channels=128, num_blocks=3, upsampling_depth=4,
+               generator=torch.Generator().manual_seed(15)).to(cuda).eval()
+    launched = _validator_rule(m, _waves(cuda, 16, 1, 8000), (fused_attention_bdt, fused_bilstm, resident_bilstm))
+    assert launched == [0, 0, 0]

@@ -59,12 +59,15 @@ def _convtasnet(H):
 
 
 def test_choose_dispatch_serves_a_convtasnet_outside_the_envelope_eagerly():
-    """N = H = 768 is past K1's H <= 640: served by the module ("eager")
-    on the card, where N = H = 640 takes the fused kernel; the trainer's
-    kernel path raises before K2 runs."""
+    """N = H = 768 is past K1's H <= 640: served by the module cast to
+    bf16 ("kernels", which has no kernel for it) on the card, and by the
+    module in its own dtype ("eager") without bf16, where N = H = 640
+    takes the fused kernel; the trainer's kernel path raises before K2
+    runs."""
     wide, edge = _convtasnet(768), _convtasnet(640)
     assert not fused_forward_eligible(wide, "cuda") and fused_forward_eligible(edge, "cuda")
-    assert choose_dispatch(wide, True, "cuda") == "eager"
+    assert choose_dispatch(wide, True, "cuda") == "kernels"
+    assert choose_dispatch(wide, False, "cuda") == "eager"
     assert choose_dispatch(edge, True, "cuda") == "fused"
     with pytest.raises(ValueError, match="H <= 640"):
         make_kernel_train_apply(wide)

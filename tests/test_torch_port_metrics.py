@@ -16,6 +16,9 @@ import torch
 
 from audio_only_speech_separation_tpu import metrics as jax_metrics
 from audio_only_speech_separation_tpu.data.audio_io import write_wav
+from audio_only_speech_separation_tpu.models import AFRCNN as JAFRCNN
+from audio_only_speech_separation_tpu.models import BSRNN as JBSRNN
+from audio_only_speech_separation_tpu.models import TDANet as JTDANet
 from audio_only_speech_separation_tpu.models import ConvTasNet as JConvTasNet
 from audio_only_speech_separation_tpu.models import Sepformer as JSepformer
 from audio_only_speech_separation_tpu.models import TasNet as JTasNet
@@ -104,8 +107,13 @@ def _jax_audio_test():
     return module
 
 
-# tiny models of the three families the eval CLI serves
+# tiny models of the families the eval CLI serves
 MODELS = {
+    "BSRNN": (JBSRNN, dict(feature_dim=8, num_repeat=1)),
+    "TDANet": (JTDANet, dict(out_channels=8, in_channels=16, num_blocks=2, upsampling_depth=3,
+                             enc_kernel_size=4)),
+    "AFRCNN": (JAFRCNN, dict(out_channels=8, in_channels=16, num_blocks=2, upsampling_depth=3,
+                             enc_kernel_size=2)),
     "ConvTasNet": (JConvTasNet, dict(N=16, L=8, B=8, H=8, P=3, X=1, R=1, num_spks=2)),
     "TasNet": (JTasNet, dict(enc_dim=16, bn_dim=16, hidden_dim=16, layer=1, module="DPTNet",
                              block_size=10)),
@@ -151,6 +159,25 @@ def _config(name, data_root, exp_dir, bf16):
     }
 
 
+def _tie_decoder(p):
+    """The decoder tied to the encoder, so that the estimates correlate with
+    the sources (SI-SNR about -10 to 0 dB): a random decoder leaves them
+    near -35 dB, where float32 rounding alone moves a row by 1e-3 dB.
+    BSRNN masks the mixture's own spectrum and has neither."""
+    if "decoder" not in p:
+        return
+    if "Conv_0" not in p["encoder"]:
+        p["decoder"]["kernel"] = p["encoder"]["kernel"].T.copy()
+        return
+    # TDANet, AFRCNN: speaker s's decoder rows [s * basis, (s + 1) * basis)
+    # to its own output channel
+    enc = p["encoder"]["Conv_0"]["kernel"][:, 0, :].T  # [basis, k]
+    dec = np.zeros_like(p["decoder"]["kernel"])  # [spk * basis, spk, k]
+    for s in range(dec.shape[1]):
+        dec[s * enc.shape[0]: (s + 1) * enc.shape[0], s] = enc
+    p["decoder"]["kernel"] = dec
+
+
 @pytest.mark.parametrize("batch_size", [1, 2])
 @pytest.mark.parametrize("name", sorted(MODELS))
 def test_eval_cli_matches_jax(tmp_path, test_manifests, name, batch_size):
@@ -161,11 +188,8 @@ def test_eval_cli_matches_jax(tmp_path, test_manifests, name, batch_size):
     both packages."""
     cls, cfg = MODELS[name]
     jm = cls(**cfg, sample_rate=SR)
-    params = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(31), np.zeros((1, 800), np.float32)))
-    # the decoder tied to the encoder, so that the estimates correlate with
-    # the sources (SI-SNR about -10 to 0 dB): a random decoder leaves them
-    # near -35 dB, where float32 rounding alone moves a row by 1e-3 dB
-    params["params"]["decoder"]["kernel"] = params["params"]["encoder"]["kernel"].T.copy()
+    params = jax.tree_util.tree_map(np.asarray, jax.jit(jm.init)(jax.random.PRNGKey(31), np.zeros((1, 800), np.float32)))
+    _tie_decoder(params["params"])
     dirs = [tmp_path / "jax", tmp_path / "port"]
     dirs[0].mkdir()
     jax_save(jax_serialize(jm, params), str(dirs[0] / "best_model.pth"))
@@ -188,7 +212,7 @@ def test_eval_cli_needs_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
     missing = tmp_path / "missing"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         audio_test.main(_config("ConvTasNet", missing, tmp_path, False))
-    tdanet = dict(_config("ConvTasNet", missing, tmp_path, False),
-                  audionet={"audionet_name": "TDANet", "audionet_config": {}})
-    with pytest.raises(KeyError, match="TDANet"):
-        audio_test.main(tdanet, device="cpu")
+    sandglasset = dict(_config("ConvTasNet", missing, tmp_path, False),
+                       audionet={"audionet_name": "Sandglasset", "audionet_config": {}})
+    with pytest.raises(KeyError, match="Sandglasset"):
+        audio_test.main(sandglasset, device="cpu")

@@ -76,11 +76,12 @@ def test_full_packer_matches_jax():
 )
 def test_envelope_raises_and_dispatch_goes_eager(overrides):
     """Outside the kernel's envelope the fused forward raises (no quiet
-    fallback), and the serving dispatch picks the module."""
+    fallback), and the serving dispatch picks the module: cast to bf16 on
+    the card ("kernels"), in its own dtype on the CPU."""
     tm = ConvTasNet(**dict(SMALL, **overrides))
     with pytest.raises(ValueError, match="envelope"):
         fused_inference_forward(tm, torch.zeros(1, 800))
-    assert choose_dispatch(tm, use_bf16=True, device="cuda") == "eager"
+    assert choose_dispatch(tm, use_bf16=True, device="cuda") == "kernels"
     assert choose_dispatch(tm, use_bf16=True, device="cpu") == "eager"
 
 

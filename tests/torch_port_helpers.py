@@ -51,3 +51,30 @@ def make_pair(seed=0, **overrides):
 
 def waves(seed, B, T):
     return np.random.default_rng(seed).standard_normal((B, T)).astype(np.float32)
+
+
+def perturbed(model, seed, scale=0.1):
+    """``model`` with every parameter moved by ``scale``-sized seeded normal
+    noise (norm affines, biases and PReLU slopes included), in eval mode."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.from_numpy((scale * rng.standard_normal(p.shape)).astype(np.float32)))
+    return model.eval()
+
+
+def state_numpy(model):
+    return {k: v.detach().numpy() for k, v in model.state_dict().items()}
+
+
+def assert_close(got, want, rel=1e-4):
+    """float32 in both packages: max error <= ``rel`` of the output's scale."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= rel * np.abs(want).max()
+
+
+def assert_same_tree(a, b):
+    flat_a, tree_a = jax.tree_util.tree_flatten(a)
+    flat_b, tree_b = jax.tree_util.tree_flatten(b)
+    assert tree_a == tree_b and all(np.array_equal(x, y) for x, y in zip(flat_a, flat_b))
