@@ -2,10 +2,14 @@
 reference audio_train.py:33-163).
 
     python -m audio_only_speech_separation_tpu_torch.audio_train --conf-dir=configs/convtasnet_lrs3.yml
+    python -m audio_only_speech_separation_tpu_torch.audio_train --conf-dir=configs/bsrnn_wsj0.yml \
+        --training.precision bfloat16
 
 Config -> registries -> AudioSystem -> Trainer on one device: the CUDA
 card unless ``main`` is given ``device="cpu"``.  Every YAML leaf is a CLI
-flag (``utils/parser_utils``).  Artifacts land in
+flag (``utils/parser_utils``), and ``--<group>.<leaf> value`` sets any
+key (``training.precision``, ``training.seed``: the dropout masks' seed,
+42 by default, as in the JAX package).  Artifacts land in
 ``Experiments/checkpoint/<exp_name>/`` under the working directory
 (conf.yml, top-5 and last checkpoints, best_k_models.json,
 best_model.pth), logs in ``Experiments/tensorboard_logs/<exp_name>``.
@@ -86,6 +90,7 @@ def main(config: dict, device="cuda") -> str:
                                 config["exp"]["exp_name"]),
         checkpoint={"monitor": "val_loss/dataloader_idx_0", "mode": "min", "save_top_k": 5},
         precision=config["training"].get("precision", "float32"),
+        seed=config["training"].get("seed", 42),
         fused_forward=bool(config["training"].get("fused_forward", False)),
         device=device,
     )
@@ -94,21 +99,34 @@ def main(config: dict, device="cuda") -> str:
     return exp_dir
 
 
-if __name__ == "__main__":
+def config_from_cli(argv) -> dict:
+    """The config of ``--conf-dir`` (a YAML file) with the command line's
+    overrides: ``--<leaf> value`` for a leaf of the file, and
+    ``--<group>.<leaf> value`` for any key (``--training.precision
+    bfloat16``)."""
     import yaml
 
-    from .utils.parser_utils import parse_args_as_dict, prepare_parser_from_dict
+    from .utils.parser_utils import parse_args_as_dict, prepare_parser_from_dict, split_dotted_overrides
 
+    dotted, argv = split_dotted_overrides(list(argv))
     parser = argparse.ArgumentParser()
     parser.add_argument("--conf-dir", default="configs/convtasnet_lrs3.yml",
                         help="YAML config of the experiment")
-    args, _ = parser.parse_known_args()
+    args, _ = parser.parse_known_args(argv)
     with open(args.conf_dir) as f:
         def_conf = yaml.safe_load(f)
     parser = prepare_parser_from_dict(def_conf, parser=parser)
-    arg_dic = parse_args_as_dict(parser)
+    arg_dic = parse_args_as_dict(parser, args=argv)
     # the nested config with the CLI overrides applied
     config = {group: leaves for group, leaves in arg_dic.items()}
     for group in def_conf:
         config.setdefault(group, def_conf[group])
-    main(config)
+    for (group, leaf), value in dotted.items():
+        config.setdefault(group, {})[leaf] = value
+    return config
+
+
+if __name__ == "__main__":
+    import sys
+
+    main(config_from_cli(sys.argv[1:]))

@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.activations import PReLU
+from ..ops.dropout import Dropout
 from ..ops.norms import GlobalLayerNorm
 from ..ops.rnn import BiLSTM, LSTM
 from ..ops.stft import hann_window, istft, stft
@@ -89,7 +90,7 @@ class ResRNN(nn.Module):
         super().__init__()
         self.bidirectional = bidirectional
         self.norm = GlobalLayerNorm(input_size, eps=_F32_EPS, device=device)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         self.rnn = (BiLSTM if bidirectional else LSTM)(input_size, hidden_size, device=device)
         self.proj = nn.Linear(hidden_size * (2 if bidirectional else 1), input_size, device=device)
 

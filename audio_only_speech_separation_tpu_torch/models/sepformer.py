@@ -42,6 +42,7 @@ from ..ops.activations import PReLU
 from ..ops.attention import MultiheadAttention, PositionalEncoding
 from ..ops.chunk import merge_feature, split_feature
 from ..ops.conv import frame_signal, overlap_add
+from ..ops.dropout import Dropout
 from ..ops.norms import GlobalLayerNorm
 from . import register_model
 from .base import BaseModel, _arg_names, normalize_input, restore_output
@@ -70,7 +71,7 @@ class _FeedForward(nn.Module):
     def __init__(self, d_model: int, d_ffn: int, dropout: float, device=None):
         super().__init__()
         self.ffn = nn.Sequential(nn.Linear(d_model, d_ffn, device=device), nn.ReLU(),
-                                 nn.Dropout(dropout), nn.Linear(d_ffn, d_model, device=device))
+                                 Dropout(dropout), nn.Linear(d_ffn, d_model, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.ffn(x)
@@ -88,7 +89,7 @@ class SBTransformerLayer(nn.Module):
         self.pos_ffn = _FeedForward(d_model, d_ffn, dropout, device)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-6, device=device)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-6, device=device)
-        self.dropout1, self.dropout2 = nn.Dropout(dropout), nn.Dropout(dropout)
+        self.dropout1, self.dropout2 = Dropout(dropout), Dropout(dropout)
 
     def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
         if self.norm_before:

@@ -45,7 +45,7 @@ from torch import nn
 from ..ops.activations import PReLU
 from ..ops.attention import MultiheadAttention, PositionalEncoding, mha_plain_form
 from ..ops.conv import conv1d_channels_last, frame_signal, overlap_add
-from ..ops.dropout import DropPath
+from ..ops.dropout import DropPath, Dropout
 from ..ops.norms import GlobalLayerNorm
 from ..ops.resample import adaptive_avg_pool1d, interpolate_nearest
 from . import register_model
@@ -64,7 +64,7 @@ class Mlp(nn.Module):
         self.dwconv = nn.Conv1d(hidden_size, hidden_size, 5, padding=2, groups=hidden_size,
                                 device=device)
         self.fc2 = ConvNorm(hidden_size, in_features, 1, bias=False, device=device)
-        self.drop = nn.Dropout(drop)
+        self.drop = Dropout(drop)
 
     def hidden(self, x: torch.Tensor) -> torch.Tensor:
         return torch.relu(conv1d_channels_last(self.dwconv, self.fc1(x)))
@@ -83,7 +83,7 @@ class TDAAttention(nn.Module):
         self.attn_in_norm = nn.LayerNorm(channels, eps=1e-5, device=device)
         self.attn = MultiheadAttention(channels, n_head, dropout=dropout, device=device)
         self.norm = nn.LayerNorm(channels, eps=1e-5, device=device)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.pos_enc(self.attn_in_norm(x))

@@ -35,10 +35,10 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from . import kernels
+from .dropout import Dropout
 from .kernels.attention import attention_bdt_reference, attention_kernel_ok, fused_attention_bdt
 
 
@@ -61,10 +61,11 @@ def mha_kernel_form(x, w_in, b_in, w_out, b_out, num_heads: int, attention=fused
 
 
 def mha_plain_form(query, key, value, w_in, b_in, w_out, b_out, num_heads: int,
-                   mask=None, dropout: float = 0.0, training: bool = False):
+                   mask=None, drop=None):
     """The JAX module's einsum path: [B, Tq, E] queries against [B, Tk, E]
-    keys and values; f32 logits and softmax, the weights cast to v's dtype;
-    ``mask`` broadcastable to [B, h, Tq, Tk] (True keeps)."""
+    keys and values; f32 logits and softmax, the weights cast to v's dtype,
+    then ``drop`` (a dropout module, or None) on them; ``mask``
+    broadcastable to [B, h, Tq, Tk] (True keeps)."""
     E = query.shape[-1]
     dh = E // num_heads
     bs = (None, None, None) if b_in is None else b_in.split(E)
@@ -79,8 +80,8 @@ def mha_plain_form(query, key, value, w_in, b_in, w_out, b_out, num_heads: int,
     if mask is not None:
         logits = torch.where(mask, logits, torch.finfo(logits.dtype).min)
     attn = torch.softmax(logits, dim=-1).to(v.dtype)
-    if dropout > 0.0:
-        attn = F.dropout(attn, dropout, training=training)
+    if drop is not None:
+        attn = drop(attn)
     out = torch.einsum("bhqk,bkhd->bqhd", attn.float(), v.float()).to(v.dtype)
     out = torch.matmul(out.reshape(*query.shape[:2], E), w_out.to(out.dtype).t())
     return out + b_out.to(out.dtype) if b_out is not None else out
@@ -89,14 +90,16 @@ def mha_plain_form(query, key, value, w_in, b_in, w_out, b_out, num_heads: int,
 class MultiheadAttention(nn.Module):
     """Self- or cross-attention on [B, T, E] (see the module docstring for
     the dispatch).  ``dropout`` acts on the attention weights while
-    training, as in ``nn.MultiheadAttention``."""
+    training, as in ``nn.MultiheadAttention``, with the masks from its own
+    generator (``ops/dropout.py``)."""
 
     def __init__(self, embed_dim: int, num_heads: int, bias: bool = True, dropout: float = 0.0,
                  device=None):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of num_heads {num_heads}")
-        self.embed_dim, self.num_heads, self.dropout = embed_dim, num_heads, dropout
+        self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.attn_drop = Dropout(dropout)
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim, device=device))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim, device=device)) if bias else None
         self.out_proj = nn.Linear(embed_dim, embed_dim, bias=bias, device=device)
@@ -109,7 +112,7 @@ class MultiheadAttention(nn.Module):
                                       "to port (ROADMAP Queue 1)")
         self_attention = (key is None or key is query) and (value is None or value is query)
         w = (self.in_proj_weight, self.in_proj_bias, self.out_proj.weight, self.out_proj.bias)
-        dropping = self.training and self.dropout > 0.0
+        dropping = self.training and self.attn_drop.rate > 0.0
         if (self_attention and mask is None and not dropping and kernels.kernel_input(query)
                 and attention_kernel_ok(self.embed_dim // self.num_heads)):
             attention = kernels.pick(fused_attention_bdt, attention_bdt_reference)
@@ -117,7 +120,7 @@ class MultiheadAttention(nn.Module):
         key = query if key is None else key
         value = key if value is None else value
         return mha_plain_form(query, key, value, *w, self.num_heads, mask,
-                              self.dropout, self.training)
+                              self.attn_drop if dropping else None)
 
 
 def sinusoidal_positions(max_len: int, d_model: int, dtype=torch.float32, device=None) -> torch.Tensor:

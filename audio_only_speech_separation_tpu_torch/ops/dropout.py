@@ -1,5 +1,17 @@
-"""Stochastic depth (counterpart of ``audio_only_speech_separation_tpu/ops/dropout.py``;
-reference look2hear/models/tdanet.py:15-35)."""
+"""Dropout and stochastic depth with their own generators (counterpart of
+``audio_only_speech_separation_tpu/ops/dropout.py`` and of flax's
+``nn.Dropout``; reference look2hear/models/tdanet.py:15-35).
+
+The JAX package draws every mask from the ``dropout`` stream of a key that
+its Trainer folds from ``seed`` and the step.  Here each module draws from
+a ``torch.Generator`` of its own on the input's device, so no mask comes
+from torch's process-wide generator and a training run repeats:
+``seed_generators(model, seed)`` seeds every such module of a model from
+one seed (``train.Trainer.fit`` calls it once, before the first step).  The
+masks are not the JAX package's: the two frameworks have different
+generators.  Neither module holds parameters or buffers, so state dicts
+keep their keys.
+"""
 
 from __future__ import annotations
 
@@ -7,22 +19,64 @@ import torch
 from torch import nn
 
 
-class DropPath(nn.Module):
-    """Per-sample gating of a residual branch while training: with
-    probability ``rate`` the branch is zeroed for a batch element, otherwise
-    scaled by 1/(1 - rate).  The identity in eval mode or at rate 0.  The
-    draws come from ``generator`` (a CPU ``torch.Generator``; none: one
-    seeded 0), so a training run repeats."""
+class _Draws(nn.Module):
+    """A module that draws masks while training from a generator of its own,
+    made on the input's device at the first draw from ``seed``."""
 
     def __init__(self, rate: float = 0.0, generator: torch.Generator | None = None):
         super().__init__()
         self.rate = rate
-        self.generator = generator if generator is not None else torch.Generator().manual_seed(0)
+        self.seed = 0
+        self.generator = generator
+
+    def reseed(self, seed: int) -> None:
+        """Start the draws again from ``seed``."""
+        self.seed, self.generator = seed, None
+
+    def uniform(self, shape, device: torch.device) -> torch.Tensor:
+        """f32 U[0, 1) of ``shape`` on ``device`` from this module's generator."""
+        if self.generator is None or self.generator.device != device:
+            self.generator = torch.Generator(device=device).manual_seed(self.seed)
+        return torch.rand(shape, generator=self.generator, device=device)
+
+    def __getstate__(self):
+        # a copy (``copy.deepcopy``, pickling) starts again from ``seed``
+        return dict(super().__getstate__(), generator=None)
+
+
+class Dropout(_Draws):
+    """Elementwise dropout while training: each element is zeroed with
+    probability ``rate``, the others scaled by 1/(1 - rate).  The identity
+    in eval mode or at rate 0."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        mask = self.uniform(x.shape, x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class DropPath(_Draws):
+    """Per-sample gating of a residual branch while training: with
+    probability ``rate`` the branch is zeroed for a batch element, otherwise
+    scaled by 1/(1 - rate).  The identity in eval mode or at rate 0."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.rate == 0.0 or not self.training:
             return x
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = (torch.rand(shape, generator=self.generator) < keep).to(x.device)
+        mask = self.uniform(shape, x.device) < keep
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def seed_generators(model: nn.Module, seed: int) -> int:
+    """Reseed every ``Dropout`` and ``DropPath`` of ``model`` from ``seed``:
+    each its own seed, drawn in module order from one generator seeded
+    with ``seed``.  Returns how many it reseeded."""
+    draws = [m for m in model.modules() if isinstance(m, _Draws)]
+    seeds = torch.randint(2**62, (len(draws),), generator=torch.Generator().manual_seed(seed))
+    for m, s in zip(draws, seeds.tolist()):
+        m.reseed(s)
+    return len(draws)

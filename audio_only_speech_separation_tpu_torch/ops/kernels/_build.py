@@ -115,6 +115,12 @@ def load_library() -> ctypes.CDLL:
     lib.lstm_resident_launches.restype = i
     lib.lstm_resident_cluster.argtypes = [i] * 4
     lib.lstm_resident_cluster.restype = i
+    lib.micro_vpu.argtypes = [p] * 4 + [i] * 3 + [ctypes.c_float] * 2 + [p]
+    lib.micro_vpu.restype = i
+    lib.micro_vpu_partials.argtypes = [i, i]
+    lib.micro_vpu_partials.restype = i
+    lib.micro_vpu_launches.argtypes = [i]
+    lib.micro_vpu_launches.restype = i
     return lib
 
 

@@ -3,11 +3,19 @@
 for the reference, written out.
 
 - f32 master weights.  ``precision="float32"`` runs the module;
-  ``"bfloat16"`` runs it under ``torch.autocast``, or, with
-  ``fused_forward=True`` and a ConvTasNet, runs
-  ``models.convtasnet.make_kernel_train_apply`` on bf16 casts of the
-  parameters and the mix (the TCN chain through its forward and backward
-  kernels).  The estimate is cast to f32 before the loss.
+  ``"bfloat16"`` is the JAX Trainer's mixed precision (its
+  ``trainer.py:163-178``): the module runs through
+  ``torch.func.functional_call`` on bf16 casts of its f32 parameters and
+  of the mix, forward and backward in bf16, the gradients reach the f32
+  parameters through the casts, and the estimate is cast to f32 before
+  the loss.  That forward is the one ``serve`` runs on the module's bf16
+  copy, so on the card the attention and LSTM layers take the kernels K4,
+  K5 and K6 (their backwards recompute through the plain versions).  With
+  ``fused_forward=True`` a ConvTasNet instead runs
+  ``models.convtasnet.make_kernel_train_apply`` on the same casts (the TCN
+  chain through its forward and backward kernels).
+- Dropout and DropPath draw from their own generators, seeded from
+  ``seed`` once before the first step (``ops.dropout.seed_generators``).
 - Global-norm gradient clipping happens in the optimizer's ``step``.
 - ReduceLROnPlateau (per epoch, on the val loss) or Noam (per step), and
   EarlyStopping on the val loss.
@@ -32,6 +40,7 @@ import numpy as np
 import torch
 
 from ..models import save_serialized, serialize
+from ..ops.dropout import seed_generators
 from .checkpoints import CheckpointManager
 from .loggers import BaseLogger, make_default_logger
 from .optimizers import get_learning_rate, set_learning_rate
@@ -71,13 +80,14 @@ class EarlyStopping:
 class Trainer:
     def __init__(self, exp_dir: str, epochs: int = 500, early_stop: Optional[dict] = None,
                  logger_dir: Optional[str] = None, checkpoint: Optional[dict] = None,
-                 precision: str = "float32",
+                 precision: str = "float32", seed: int = 42,
                  logger: Optional[BaseLogger] = None, fused_forward: bool = False, device="cuda"):
         if precision not in ("float32", "bfloat16"):
             raise ValueError(f"precision must be float32 or bfloat16, got {precision!r}")
         self.exp_dir = exp_dir
         self.epochs = epochs
         self.precision = precision
+        self.seed = seed  # the dropout masks' seed (the JAX Trainer's default)
         # opt-in: bf16 training through the TCN chain's kernels
         self.fused_forward = fused_forward
         self.device = torch.device(device)
@@ -98,23 +108,21 @@ class Trainer:
         if self.precision == "float32":
             return model
         bf = torch.bfloat16
+        params = dict(model.named_parameters())
+        apply_fn = None
         if self.fused_forward:
             from ..models.convtasnet import ConvTasNet, make_kernel_train_apply
 
             if isinstance(model, ConvTasNet):
                 apply_fn = make_kernel_train_apply(model)
-                params = dict(model.named_parameters())
 
-                def fused(mix):
-                    return apply_fn({k: p.to(bf) for k, p in params.items()}, mix.to(bf)).float()
+        def forward(mix):
+            cast = {k: p.to(bf) if p.dtype == torch.float32 else p for k, p in params.items()}
+            if apply_fn is not None:
+                return apply_fn(cast, mix.to(bf)).float()
+            return torch.func.functional_call(model, cast, (mix.to(bf),)).float()
 
-                return fused
-
-        def autocast(mix):
-            with torch.autocast(self.device.type, dtype=bf):
-                return model(mix).float()
-
-        return autocast
+        return forward
 
     def _batch(self, np_batch):
         mix, sources, _keys = np_batch
@@ -151,6 +159,7 @@ class Trainer:
             if resume.get("early_stop"):
                 self.early_stop.load_state_dict(resume["early_stop"])
         forward = self._make_forward(model)
+        seed_generators(model, self.seed)
         self.logger.log_hyperparams(getattr(system, "hparams", None) or {})
 
         current_lr = getattr(scheduler, "lr", None)

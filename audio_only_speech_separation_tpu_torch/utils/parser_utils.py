@@ -138,3 +138,30 @@ def parse_args_as_dict(parser: argparse.ArgumentParser, args=None) -> Dict[str, 
     out.setdefault("main_args", {})
     out.pop("positional arguments", None)
     return out
+
+
+def split_dotted_overrides(argv):
+    """Pull ``--group.leaf value`` and ``--group.leaf=value`` out of
+    ``argv``: returns ({(group, leaf): value}, the other arguments).  They
+    set ``config[group][leaf]`` whether or not the YAML file has that leaf
+    (``--training.precision bfloat16``); values are typed as bools, ints,
+    floats or strings."""
+    overrides, rest, i = {}, [], 0
+    while i < len(argv):
+        arg = argv[i]
+        name = arg[2:].split("=", 1)[0] if arg.startswith("--") else ""
+        if "." not in name:
+            rest.append(arg)
+            i += 1
+            continue
+        if "=" in arg:
+            value = arg.split("=", 1)[1]
+            i += 1
+        else:
+            if i + 1 >= len(argv):
+                raise ValueError(f"{arg} needs a value")
+            value, i = argv[i + 1], i + 2
+        group, leaf = name.split(".", 1)
+        typed = str2bool(value)
+        overrides[(group, leaf)] = typed if isinstance(typed, bool) else str_int_float(typed)
+    return overrides, rest

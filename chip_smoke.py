@@ -14,7 +14,10 @@ through K4, and the eval CLI (``audio_test.main``) over all three
 families; then BSRNN (bsrnn_wsj0, 8 kHz) through K5 and K6, TDANet
 (tdanet_lrs2, 16 kHz) on its module path through K4 and on its
 analytic fast path, AFRCNN (afrcnn_lrs2), and the eval CLI over those
-three.  In phases:
+three; the elementwise probe K7 (``scripts/micro_vpu.py``'s function);
+and training on the card for every served family through ``Trainer``'s
+bf16 cast policy (K4-K6 in the forward, their backwards through the plain
+versions).  In phases:
 
 0. the card's name and power limit (fails without a CUDA device);
 1. build the kernels from ``csrc/`` with nvcc;
@@ -89,7 +92,23 @@ three.  In phases:
     module; the kernel path profiled), K5 and K6 alone at BSRNN's B=1
     shapes beside their plain versions, bf16 ``nn.LSTM`` on the same shape
     and their bounds (K5 also a step), a TDANet call on the fast path and
-    on the module path (both profiled), and an AFRCNN call.
+    on the module path (both profiled), and an AFRCNN call;
+25. the elementwise probe K7 (``ops/kernels/micro_vpu.py``) against its
+    plain version at the script's [2048, 512] in f32 and bf16, with and
+    without stats, then its four timed cases beside their bounds (the
+    CUDA cores' rate at the max SM clock) and the bf16x2 / f32 rate ratio;
+26. one bf16 train step of DPRNN, DPTNet and BSRNN (their wsj0 configs'
+    full width, batch and segment) through the kernels, inside
+    ``plain_versions()`` and in f32: the gradient rule of PERF.md section 2,
+    exact forward launches of K4, K5 and K6, none in the backward;
+27. ``audio_train.main`` with bf16 for each served family (DPRNN, DPTNet,
+    BSRNN, Sepformer, TDANet, AFRCNN) at its config's full width, batch and
+    segment, one epoch of two steps: finite losses, exact K4-K6 launches
+    (none in a Sepformer or TDANet train step: dropout), and the
+    best_model.pth served on the card;
+28. each family's train step timed (kernel path, plain bf16 path, f32; the
+    kernel path split into forward, backward and optimizer and profiled),
+    and for BSRNN the backward of K5 and K6 through their plain versions.
 
 TF32 is off for matmuls and cuDNN, so the f32 references are full f32.
 
@@ -640,12 +659,14 @@ def in_turns(runs: dict, reps: int) -> dict:
     return {k: statistics.median(v) for k, v in times.items()}
 
 
-def device_profile(label: str, fn, call_ms: float, counters, card: str, calls: int = 5) -> dict:
+def device_profile(label: str, fn, call_ms: float, counters, card: str, calls: int = 5,
+                   cpu: bool = True) -> dict:
     """``fn`` under torch.profiler: each of ``counters`` (label, wrapper,
     kernel name) by device time and launches a call, the library matmuls,
     the rest (the plain ops), all device work and its device operations a
     call (kernels, copies, memsets), the idle share (against
     ``call_ms``, the unprofiled time), and the largest kernels by name.
+    ``cpu`` False traces the device alone, for calls of many operations.
     Returns {"K…", "matmuls", "busy", "wall"} in ms a call."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -653,7 +674,7 @@ def device_profile(label: str, fn, call_ms: float, counters, card: str, calls: i
         c.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -1222,6 +1243,361 @@ def new_models_timing(dev, card, bsrnn, tdanet, afrcnn) -> dict:
     return k5, k6
 
 
+# The training settings of the served families (configs/*.yml, written out):
+# audionet name and config, sample rate, train batch, segment (s), and
+# threshold_byloss of the train loss
+TRAIN_FAMILIES = {
+    "DPRNN": ("TasNet", dict({k: v for k, v in WSJ0_TASNET.items() if k != "sample_rate"}, module="DPRNN"),
+              TSR, 2, 4.0, False),
+    "DPTNet": ("TasNet", dict({k: v for k, v in WSJ0_TASNET.items() if k != "sample_rate"}, module="DPTNet"),
+               TSR, 2, 4.0, False),
+    "BSRNN": ("BSRNN", BSRNN_WSJ0, TSR, 4, 4.0, False),
+    "Sepformer": ("Sepformer", SEPFORMER, SR, 1, 2.0, True),
+    "TDANet": ("TDANet", TDANET_LRS2, SR, 2, 2.0, True),
+    "AFRCNN": ("AFRCNN", AFRCNN_LRS2, SR, 6, 2.0, True),
+}
+# K4, K5, K6 launches of one bf16 forward at the train shape, in a train step
+# (dropout on) and in eval: DPRNN's rows (164 chunks of 100 frames) and
+# columns (200 sequences of 82 chunks) both past 128 sequences take K6, 6
+# layers; DPTNet's MHA has no dropout (12 K4); BSRNN's band RNNs (32
+# sequences) K5 and band-comm RNNs (2004) K6, 8 repeats; Sepformer's and
+# TDANet's attention has dropout 0.1, so K4 only in eval (32 and 16)
+TRAIN_LAUNCHES = {"DPRNN": ((0, 0, 12), (0, 0, 12)), "DPTNet": ((12, 0, 12), (12, 0, 12)),
+                  "BSRNN": ((0, 8, 8), (0, 8, 8)), "Sepformer": ((0, 0, 0), (SEPFORMER_K4, 0, 0)),
+                  "TDANet": ((0, 0, 0), (TDANET_K4, 0, 0)), "AFRCNN": ((0, 0, 0), (0, 0, 0))}
+TRAIN_STEPS = 2  # optimizer steps of a training run (one epoch)
+
+
+def micro_vpu_checks(card: str) -> dict:
+    """Phase 25: K7 against its plain version at the script's [2048, 512]
+    in its four cases (f32 within 1e-5 of the output's magnitude, bf16
+    exactly, the sum of squares within 1e-5), then its main path, the
+    script's four timed cases (``ops/kernels/micro_vpu.py::bench``), with
+    the launches counted from 0; each case beside its bound: the bytes over
+    HBM bandwidth or the script's operation count over the CUDA cores' rate
+    (132 SMs x 128 f32 lanes x 2 x the max SM clock, twice that for packed
+    bf16x2), whichever is larger.  Returns K7's entry of the kernels line
+    (the bf16 case with stats, K1's epilogue case)."""
+    from audio_only_speech_separation_tpu_torch.ops.kernels import micro_vpu as k7
+
+    print("phase 25: K7 (micro_vpu) vs its plain version at [2048, 512], then its four timed cases")
+    clock_mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                                     capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    f32_rate = 132 * 128 * 2 * clock_mhz * 1e6  # f32 operations a second on the CUDA cores
+    cases = [(dt, ws) for dt in (torch.float32, torch.bfloat16) for ws in (False, True)]
+    errs, plain_ms = {}, {}
+    for dt, ws in cases:
+        x = k7.bench_input(dt)
+        with torch.no_grad():
+            got, total = k7.micro_vpu(x, ws, return_stats=True)
+            again = k7.micro_vpu(x, ws)
+            want, want_total = k7.micro_vpu_reference(x, ws, return_stats=True)
+        torch.cuda.synchronize()
+        err, scale = max_err(got, want), float(want.float().abs().max())
+        limit = 1e-5 * scale if dt == torch.float32 else 0.0
+        stats_rel = abs(float(total) - float(want_total)) / float(want_total) if ws else 0.0
+        print(f"  {dt} stats={ws}: max abs {err:.6g} (bound {limit:.3g}, scale {scale:.4g})"
+              + (f", sum of squares {float(total):.6g} vs {float(want_total):.6g} (rel {stats_rel:.3g}, "
+                 "bound 1e-5)" if ws else ""))
+        if not torch.equal(got, again) or not err <= limit or not stats_rel <= 1e-5:
+            raise AssertionError(f"K7 {dt} stats={ws}: differs from its plain version or from run to run")
+        errs[dt, ws] = err
+        plain_ms[dt, ws] = cuda_time(lambda: k7.micro_vpu_reference(x, ws), reps=5)
+    k7.micro_vpu.launches = 0
+    rates = {case: k7.bench(*case) for case in cases}
+    torch.cuda.synchronize()
+    launches = k7.micro_vpu.launches
+    want = sum(201 * (2 if ws else 1) for _, ws in cases)  # 200 timed calls and a warm-up each
+    print(f"  launches {launches} (want {want})")
+    if launches != want:
+        raise AssertionError(f"K7: {launches} launches, want {want}")
+    bounds = {}
+    for dt, ws in cases:
+        itemsize = 2 if dt == torch.bfloat16 else 4
+        t_bytes = 2 * k7.N * k7.C * itemsize / PEAK_BYTES * 1e3
+        t_ops = k7.N * k7.C * k7.ops_per_element(ws) / (f32_rate * (2 if itemsize == 2 else 1)) * 1e3
+        bounds[dt, ws] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        r = rates[dt, ws]
+        print(f"  {dt} stats={ws}: {r['us']:.4f} us a call, {r['gops']:.1f} Gop/s (the script's count), "
+              f"plain {plain_ms[dt, ws]:.4f} ms, bound {bounds[dt, ws][0] * 1e3:.4f} us "
+              f"({bounds[dt, ws][1]}), {bounds[dt, ws][0] * 1e3 / r['us']:.3f} of it; {card}")
+    f32_r, bf_r = rates[torch.float32, False]["gops"], rates[torch.bfloat16, False]["gops"]
+    print(f"  bf16x2 / f32 rate: {bf_r / f32_r:.3f} without stats, "
+          f"{rates[torch.bfloat16, True]['gops'] / rates[torch.float32, True]['gops']:.3f} with stats "
+          f"(max SM clock {clock_mhz:g} MHz)")
+    case = (torch.bfloat16, True)
+    return {"name": "micro_vpu", "route": "cuda", "source": CSRC + "micro_vpu.cu",
+            "replaces": "scripts/micro_vpu.py:22", "launches": launches, "max_abs_err": max(errs.values()),
+            "ms": rates[case]["us"] / 1e3, "plain_ms": plain_ms[case], "bound_ms": bounds[case][0],
+            "bound_by": bounds[case][1], "library_ms": None}
+
+
+def train_model(family: str, seed: int, dev):
+    """``family`` at its config's full width and depth, seeded weights."""
+    from audio_only_speech_separation_tpu_torch import models
+
+    name, cfg, sr = TRAIN_FAMILIES[family][:3]
+    if name == "TasNet":
+        return tasnet_model(cfg["module"], seed, dev)
+    return seeded_model(models.get(name), cfg, sr, seed, dev)
+
+
+def train_batch(family: str, seed: int, dev):
+    """A seeded (mix, sources) batch at the config's batch and segment."""
+    sr, batch, secs = TRAIN_FAMILIES[family][2:5]
+    rng = np.random.default_rng(seed)
+    srcs = (0.3 * rng.standard_normal((batch, 2, int(secs * sr)))).astype(np.float32)
+    return torch.from_numpy(srcs.sum(1)).to(dev), torch.from_numpy(srcs).to(dev)
+
+
+def train_paths(model, exp_dir: str, dev):
+    """{"kernel path", "plain bf16 path", "f32 module"}: ``Trainer``'s bf16
+    forward (the module on bf16 casts of its f32 parameters), the same
+    inside ``plain_versions()`` (forward and backward), and its f32
+    forward, each as (a context to run the step in, the forward)."""
+    import contextlib
+
+    from audio_only_speech_separation_tpu_torch.ops.kernels import plain_versions
+    from audio_only_speech_separation_tpu_torch.train import CSVLogger, Trainer
+
+    def forward(precision):
+        return Trainer(exp_dir, precision=precision, device=dev,
+                       logger=CSVLogger(os.path.join(exp_dir, "logs")))._make_forward(model)
+
+    bf16 = forward("bfloat16")
+    return {"kernel path": (contextlib.nullcontext, bf16), "plain bf16 path": (plain_versions, bf16),
+            "f32 module": (contextlib.nullcontext, forward("float32"))}
+
+
+def train_step_checks(dev, root: str) -> None:
+    """Phase 26: one bf16 train step of DPRNN, DPTNet and BSRNN at their
+    configs' full width, batch and segment, three ways: through the
+    kernels, inside ``plain_versions()``, and the f32 module.  All
+    gradients as one vector under the rule of PERF.md section 2,
+    |g_kernel - g_f32| <= 1.5 |g_plain - g_f32| + 1e-3 |g_f32|; the forward
+    launches exactly TRAIN_LAUNCHES' K4, K5 and K6, the backward none."""
+    from audio_only_speech_separation_tpu_torch.losses import PITLossWrapper, pairwise_neg_snr
+
+    counters = tasnet_counters()
+    for family in ("DPRNN", "DPTNet", "BSRNN"):
+        model = train_model(family, 51, dev).train()
+        mix, srcs = train_batch(family, 52, dev)
+        loss_fn = PITLossWrapper(pairwise_neg_snr, pit_from="pw_mtx", threshold_byloss=TRAIN_FAMILIES[family][5])
+        params = list(model.parameters())
+        grads, losses_, counts = {}, {}, {}
+        for path, (context, forward) in train_paths(model, os.path.join(root, family), dev).items():
+            for _, c, _ in counters:
+                c.launches = 0
+            with context():
+                loss = loss_fn(forward(mix), srcs)
+                torch.cuda.synchronize()
+                fwd = tuple(c.launches for _, c, _ in counters)
+                grads[path] = torch.cat([g.flatten().float() for g in torch.autograd.grad(loss, params)])
+                torch.cuda.synchronize()
+            counts[path] = (fwd, tuple(c.launches for _, c, _ in counters))
+            losses_[path] = float(loss.detach())
+        want = TRAIN_LAUNCHES[family][0]
+        e_k = float((grads["kernel path"] - grads["f32 module"]).norm())
+        e_p = float((grads["plain bf16 path"] - grads["f32 module"]).norm())
+        n_f = float(grads["f32 module"].norm())
+        bound = 1.5 * e_p + 1e-3 * n_f
+        print(f"  {family} (B={mix.shape[0]} x {mix.shape[1] / TRAIN_FAMILIES[family][2]:g} s): loss "
+              + ", ".join(f"{k} {v:.6g}" for k, v in losses_.items())
+              + f"; gradients |kernel - f32| {e_k:.6g}, |plain - f32| {e_p:.6g}, |f32| {n_f:.6g}, bound {bound:.6g}"
+              f"; K4, K5, K6 launches in the forward {counts['kernel path'][0]} (want {want}), after the "
+              f"backward {counts['kernel path'][1]}; plain path {counts['plain bf16 path'][1]}")
+        if counts["kernel path"] != (want, want) or any(counts["plain bf16 path"][1]) or any(
+                counts["f32 module"][1]):
+            raise AssertionError(f"{family}: launches {counts}, want {want} in the forward and none after")
+        if not (torch.isfinite(grads["kernel path"]).all() and e_k <= bound):
+            raise AssertionError(f"{family}: train-step gradients {e_k} > 1.5 * {e_p} + 1e-3 * {n_f}")
+        del model, grads
+
+
+def train_config(family: str, data_root: str, exp_name: str) -> dict:
+    """The config of ``family`` (configs/*.yml, written out) with the data
+    under data_root, one epoch and bf16 training."""
+    name, audionet, sr, batch, secs, by_loss = TRAIN_FAMILIES[family]
+
+    def pit(sdr_type, threshold_byloss):
+        return {"loss_func": "PITLossWrapper", "sdr_type": sdr_type,
+                "config": {"pit_from": "pw_mtx", "threshold_byloss": threshold_byloss}}
+
+    return {
+        "audionet": {"audionet_name": name, "audionet_config": dict(audionet)},
+        "loss": {"train": pit("pairwise_neg_snr", by_loss), "val": pit("pairwise_neg_sisdr", False)},
+        "training": {"epochs": 1, "precision": "bfloat16",
+                     "early_stop": {"monitor": "val_loss/dataloader_idx_0", "mode": "min", "patience": 30}},
+        "optimizer": {"optim_name": "adam", "lr": 0.001, "weight_decay": 0},
+        "scheduler": {"sche_name": "ReduceLROnPlateau", "sche_config": {"patience": 15, "factor": 0.5}},
+        "datamodule": {"data_name": "LRS2DataModule", "data_config": {
+            "train_dir": os.path.join(data_root, "tr"), "valid_dir": os.path.join(data_root, "cv"),
+            "test_dir": os.path.join(data_root, "tt"), "n_src": 2, "sample_rate": sr, "fps": 25,
+            "segment": secs, "normalize_audio": False, "batch_size": batch, "num_workers": 8,
+            "pin_memory": True, "persistent_workers": False, "audio_only": True}},
+        "exp": {"exp_name": exp_name},
+    }
+
+
+def train_cli_checks(dev, root: str) -> dict:
+    """Phase 27: ``audio_train.main`` with ``precision: bfloat16`` for each
+    family at its config's full width, batch and segment, on synthetic
+    manifests: one epoch of TRAIN_STEPS steps, one validation and one test
+    batch.  Finite train, val and test losses; the K4-K6 launches exactly
+    TRAIN_LAUNCHES' a forward (a train step's and an eval batch's); the
+    best_model.pth it wrote loads with ``from_pretrain`` and serves five
+    requests on the card.  Returns {K4, K5, K6: launches in all runs}."""
+    from audio_only_speech_separation_tpu_torch import audio_train
+    from audio_only_speech_separation_tpu_torch.models import from_pretrain
+    from audio_only_speech_separation_tpu_torch.serve import Server, serve
+
+    print(f"phase 27: audio_train.main, bf16, every family at full width ({TRAIN_STEPS} steps, 1 epoch)")
+    counters = tasnet_counters()
+    total = {g: 0 for g, _, _ in counters}
+    cwd = os.getcwd()
+    for i, family in enumerate(TRAIN_FAMILIES):
+        sr, batch, secs = TRAIN_FAMILIES[family][2:5]
+        work = tempfile.mkdtemp(prefix=f"train_{family}_", dir=root)
+        n = int(secs * sr)
+        write_manifests(os.path.join(work, "data"), {"tr": [n] * (TRAIN_STEPS * batch), "cv": [n] * batch,
+                                                     "tt": [n] * batch}, 60 + i, mix="mix", n_src=2, sr=sr)
+        for _, c, _ in counters:
+            c.launches = 0
+        os.chdir(work)
+        try:
+            t0 = time.perf_counter()
+            exp_dir = audio_train.main(train_config(family, os.path.join(work, "data"), family))
+            torch.cuda.synchronize()
+            secs_run = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        launched = tuple(c.launches for _, c, _ in counters)
+        train_fwd, eval_fwd = TRAIN_LAUNCHES[family]
+        want = tuple(TRAIN_STEPS * t + 2 * e for t, e in zip(train_fwd, eval_fwd))
+        with open(os.path.join(work, "Experiments", "tensorboard_logs", family, "scalars.csv")) as f:
+            scalars = {row.split(",")[1]: float(row.split(",")[2]) for row in f.read().splitlines()[1:]}
+        model = from_pretrain(os.path.join(exp_dir, "best_model.pth"), device=dev)
+        rng = np.random.default_rng(70 + i)
+        wavs = [rng.standard_normal(int(s * sr)).astype(np.float32) for s in EVAL_SECONDS]
+        est = serve(model, wavs, use_bf16=True, device=dev)
+        torch.cuda.synchronize()
+        print(f"  {family}: {secs_run:.1f} s; train_loss {scalars.get('train_loss')}, val_loss "
+              f"{scalars.get('val_loss')}, test_loss {scalars.get('test_loss')}; K4, K5, K6 launches {launched} "
+              f"(want {want}); best_model.pth served five requests ({Server(model, True, dev).dispatch})")
+        for g, n_launched in zip(total, launched):
+            total[g] += n_launched
+        if launched != want:
+            raise AssertionError(f"{family}: the training run launched {launched}, want {want}")
+        if not all(np.isfinite(scalars.get(k, float("nan"))) for k in ("train_loss", "val_loss", "test_loss")):
+            raise AssertionError(f"{family}: non-finite losses {scalars}")
+        if any(e.shape != (2, len(w)) or not np.isfinite(e).all() for e, w in zip(est, wavs)):
+            raise AssertionError(f"{family}: best_model.pth served bad estimates")
+        shutil.rmtree(work, ignore_errors=True)
+        del model
+    return total
+
+
+def plain_backward_seconds(step) -> dict:
+    """Host seconds that one call of ``step`` spends in the K5 and K6
+    wrappers' backwards (autograd through their plain versions,
+    ``ops/kernels/__init__.py::grad_through_plain``), each call bracketed
+    by synchronizations: {plain version's name: seconds}."""
+    from audio_only_speech_separation_tpu_torch.ops.kernels import lstm as klstm
+
+    spent, inner = {}, klstm.grad_through_plain
+
+    def timed(plain, saved, needs, g):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(plain, saved, needs, g)
+        torch.cuda.synchronize()
+        spent[plain.__name__] = spent.get(plain.__name__, 0.0) + time.perf_counter() - t0
+        return out
+
+    klstm.grad_through_plain = timed
+    try:
+        step()
+        torch.cuda.synchronize()
+    finally:
+        klstm.grad_through_plain = inner
+    return spent
+
+
+def train_timing(dev, card: str, root: str) -> None:
+    """Phase 28: a train step of each family at its config's batch and
+    segment (forward, PIT loss, backward, clipping and Adam, as
+    ``Trainer.fit`` takes it) on the kernel path, the plain bf16 path and
+    the f32 module, timed in turns (CUDA events, median of 5 after a
+    warm-up), the kernel path's steps split into forward, backward and the
+    optimizer; one kernel-path step under torch.profiler (device work by
+    kernel, idle share); and for the LSTM families the host time of one
+    kernel-path step spent in the backwards of K5 and K6, which recompute
+    through their plain versions."""
+    from audio_only_speech_separation_tpu_torch.losses import PITLossWrapper, pairwise_neg_snr
+    from audio_only_speech_separation_tpu_torch.train import make_optimizer
+
+    print(f"phase 28: train-step timing, every family at its config's batch and segment, on {card}")
+    t_phase = time.perf_counter()
+    for family in TRAIN_FAMILIES:
+        model = train_model(family, 81, dev).train()
+        mix, srcs = train_batch(family, 82, dev)
+        loss_fn = PITLossWrapper(pairwise_neg_snr, pit_from="pw_mtx", threshold_byloss=TRAIN_FAMILIES[family][5])
+        opt = make_optimizer(model.parameters(), optim_name="adam", lr=1e-3, grad_clip=5.0)
+        parts = {"forward": [], "backward": [], "optimizer": []}
+
+        def step(context, forward, split=False):
+            def run():
+                events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                with context():
+                    opt.zero_grad()
+                    events[0].record()
+                    loss = loss_fn(forward(mix), srcs)
+                    events[1].record()
+                    loss.backward()
+                    events[2].record()
+                    opt.step()
+                    events[3].record()
+                if split:
+                    events[3].synchronize()
+                    for j, k in enumerate(parts):
+                        parts[k].append(events[j].elapsed_time(events[j + 1]))
+            return run
+
+        runs = {path: step(*cf, split=path == "kernel path")
+                for path, cf in train_paths(model, os.path.join(root, f"t_{family}"), dev).items()}
+        reps = 5
+        for fn in runs.values():  # one warm-up each
+            fn()
+        torch.cuda.synchronize()
+        for v in parts.values():
+            v.clear()
+        times = {k: [] for k in runs}
+        for _ in range(reps):
+            for name, fn in runs.items():
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                end.synchronize()
+                times[name].append(start.elapsed_time(end))
+        ms = {k: statistics.median(v) for k, v in times.items()}
+        split = {k: statistics.median(v) for k, v in parts.items()}
+        shape = f"B={mix.shape[0]} x {TRAIN_FAMILIES[family][4]:g} s x {TRAIN_FAMILIES[family][2] // 1000} kHz"
+        print(f"  {family} {shape}: train step " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+              + f" (median of {reps}); kernel path forward {split['forward']:.4f}, backward "
+              f"{split['backward']:.4f}, optimizer {split['optimizer']:.4f} ms (medians); {card}")
+        if family in ("DPRNN", "DPTNet", "BSRNN"):
+            spent = plain_backward_seconds(runs["kernel path"])
+            print(f"  {family} {shape}: one kernel-path step spends " + ", ".join(
+                f"{1e3 * t:.1f} ms in {'K5' if k == 'bilstm_reference' else 'K6'}'s backward"
+                for k, t in sorted(spent.items())) + " (through the plain versions, host clock, synchronized)")
+        device_profile(f"{family} {shape}, kernel-path train step", runs["kernel path"], ms["kernel path"],
+                       tasnet_counters(), card, calls=1, cpu=False)
+        print(f"  {time.perf_counter() - t_phase:.1f} s into phase 28")
+        del model, opt, runs
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels need one")
@@ -1659,6 +2035,22 @@ def main() -> None:
     print(f"  {time.perf_counter() - t_start:.1f} s since the start")
     new_models_timing(dev, card, bsrnn, tdanet, afrcnn)
     print(f"  {time.perf_counter() - t_start:.1f} s since the start")
+    del bsrnn, tdanet, afrcnn, tasnets, sepformer
+    torch.cuda.empty_cache()
+
+    k7 = micro_vpu_checks(card)
+    print(f"  {time.perf_counter() - t_start:.1f} s since the start")
+    scratch = tempfile.TemporaryDirectory(prefix="chip_smoke_")  # phases 26-28
+    print("phase 26: one bf16 train step of DPRNN, DPTNet and BSRNN three ways (kernels, plain versions, f32)")
+    train_step_checks(dev, scratch.name)
+    print(f"  {time.perf_counter() - t_start:.1f} s since the start")
+    trained = train_cli_checks(dev, scratch.name)
+    k4_launches, k5_launches, k6_launches = (k4_launches + trained["K4"], k5_launches + trained["K5"],
+                                             k6_launches + trained["K6"])
+    print(f"  {time.perf_counter() - t_start:.1f} s since the start")
+    train_timing(dev, card, scratch.name)
+    scratch.cleanup()
+    print(f"  {time.perf_counter() - t_start:.1f} s since the start")
 
     k1_b, k1_by = least_time(*separator_work(8, frames_bench))
     k2_b, k2_by = least_time(*chain_work(batch, T_train))
@@ -1686,6 +2078,7 @@ def main() -> None:
         {"name": "lstm_resident", "route": "cuda", "source": CSRC + "lstm.cu",
          "replaces": PALLAS + "lstm.py:211", "launches": k6_launches, "max_abs_err": k6_err,
          **{key: k6[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+        k7,
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

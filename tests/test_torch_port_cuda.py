@@ -1,6 +1,7 @@
 """The CUDA kernels (the whole separator K1, the TCN chain's forward K2 and
-backward K3, attention K4, the LSTM recurrences K5 and K6) against their
-plain versions, on the card.
+backward K3, attention K4, the LSTM recurrences K5 and K6, the elementwise
+probe K7) against their plain versions, on the card, and K5/K6 inside a
+layer trained on bf16 casts of its f32 parameters.
 
 These tests need an NVIDIA GPU with nvcc (marker ``cuda``) and skip
 without one.  This file imports no JAX, so it also runs where JAX is not
@@ -8,6 +9,8 @@ installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -600,3 +603,86 @@ def test_afrcnn_bf16_module_meets_the_validator_rule(cuda):
                generator=torch.Generator().manual_seed(15)).to(cuda).eval()
     launched = _validator_rule(m, _waves(cuda, 16, 1, 8000), (fused_attention_bdt, fused_bilstm, resident_bilstm))
     assert launched == [0, 0, 0]
+
+
+from audio_only_speech_separation_tpu_torch.ops.kernels.micro_vpu import (  # noqa: E402
+    micro_vpu,
+    micro_vpu_reference,
+)
+
+
+@pytest.mark.parametrize("with_stats", [False, True], ids=["plain", "stats"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2048, 512), (3, 40)], ids=["script", "odd"])
+def test_micro_vpu_matches_plain_version(cuda, shape, dtype, with_stats):
+    """K7 against its plain version on the script's input: f32 within 1e-5
+    of the output's magnitude (the kernel fuses each multiply-add), bf16
+    exactly (a is 1 in bf16, so both round x + b once a step); with stats
+    the sum of squares within 1e-5 relative (another summation order);
+    bit-identical runs (no atomics); one launch a call, two with stats."""
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=shape).astype(np.float32)).to(cuda, dtype)
+    before = micro_vpu.launches
+    got, total = micro_vpu(x, with_stats, return_stats=True)
+    again = micro_vpu(x, with_stats)
+    want, want_total = micro_vpu_reference(x, with_stats, return_stats=True)
+    torch.cuda.synchronize()
+    assert micro_vpu.launches - before == 2 * (2 if with_stats else 1)
+    assert got.dtype == dtype and torch.equal(got, again)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= (1e-5 * float(want.float().abs().max()) if dtype == torch.float32 else 0.0)
+    if with_stats:
+        assert abs(float(total) - float(want_total)) <= 1e-5 * float(want_total)
+
+
+# K5 and K6 inside a (bi)LSTM layer trained on bf16 casts of its f32
+# parameters (the Trainer's cast policy), at the training shapes: BSRNN's
+# band RNN (K5: 501 frames, B 32 = 4 utterances x 8 bands, in 128, H 256) and
+# band-comm RNN (K6: 8 bands, B 2004, H 256) at B=4 x 4 s x 8 kHz; DPRNN's
+# rows (K6: 100 frames, B 164) and columns (K6: 82 chunks, B 200) at B=2 x
+# 4 s x 8 kHz (in 64, H 128)
+CAST_POLICY_CASES = [(501, 32, 128, 256, "K5"), (8, 2004, 128, 256, "K6"), (100, 164, 64, 128, "K6"),
+                     (82, 200, 64, 128, "K6")]
+
+
+@pytest.mark.parametrize("T,B,Din,H,kernel", CAST_POLICY_CASES)
+def test_lstm_kernel_gradients_under_the_cast_policy(cuda, T, B, Din, H, kernel):
+    """A BiLSTM with its output projection on bf16 casts of f32 parameters
+    and input: the kernel form (one launch of ``kernel``, none in the
+    backward) against the same form inside ``plain_versions()``.  The
+    backward of both runs autograd through the plain version on the same
+    saved inputs, and the cotangent reaching the LSTM does not depend on
+    its output, so for one cotangent the gradients of the input and of the
+    LSTM's f32 parameters agree to f32 rounding (rel-l2 < 1e-4); the
+    projection's weight gradient, a product with the LSTM's output, and
+    the outputs agree to bf16 rounding (rel-l2 < 2e-2, max abs < 2e-2)."""
+    from audio_only_speech_separation_tpu_torch.ops.kernels import plain_versions
+    from audio_only_speech_separation_tpu_torch.ops.rnn import ProjRNN
+
+    layer = ProjRNN(Din, H, bidirectional=True).to(cuda)
+    rng = np.random.default_rng(T + B)
+    x32 = torch.from_numpy(rng.standard_normal((B, T, Din)).astype(np.float32)).to(cuda)
+    g = _bf16(cuda, rng.standard_normal((B, T, Din)))
+    counter = fused_bilstm if kernel == "K5" else resident_bilstm
+
+    def run(plain):
+        params = dict(layer.named_parameters())
+        for p in params.values():
+            p.grad = None
+        x = x32.clone().requires_grad_()
+        cast = {k: p.to(torch.bfloat16) for k, p in params.items()}
+        with plain_versions() if plain else contextlib.nullcontext():
+            before = counter.launches
+            out = torch.func.functional_call(layer, cast, (x.to(torch.bfloat16),))
+            forward = counter.launches - before
+            out.backward(g)
+            torch.cuda.synchronize()
+            backward = counter.launches - before - forward
+        return out.detach(), forward, backward, {"x": x.grad, **{k: p.grad for k, p in params.items()}}
+
+    out_k, fwd_k, bwd_k, grads_k = run(False)
+    out_p, fwd_p, _, grads_p = run(True)
+    assert (fwd_k, bwd_k, fwd_p) == (1, 0, 0)
+    assert float((out_k.float() - out_p.float()).abs().max()) < 2e-2
+    for name, a in grads_p.items():
+        limit = 2e-2 if name == "proj.weight" else 1e-4
+        assert a.dtype == torch.float32 and _rel(a, grads_k[name]) < limit, (name, _rel(a, grads_k[name]))

@@ -194,8 +194,8 @@ def test_audio_train_main_trains_resumes_and_serves(manifests, tmp_path, monkeyp
 
 @pytest.mark.parametrize("precision,fused", [("float32", False), ("bfloat16", False)])
 def test_trainer_fit_other_precisions_and_resume_restores_weights(manifests, tmp_path, precision, fused):
-    """The f32 module and the bf16 module under autocast each train an
-    epoch; a new Trainer on the same directory restores the weights of
+    """The f32 module and the module on bf16 casts of its parameters each
+    train an epoch; a new Trainer on the same directory restores the weights of
     last.ckpt into a freshly built model."""
     from audio_only_speech_separation_tpu_torch import data as datas
     from audio_only_speech_separation_tpu_torch import losses
