@@ -1,7 +1,8 @@
 """Model registry (counterpart of ``audio_only_speech_separation_tpu/models``).
 
-The port has ConvTasNet, TasNet (DPRNN and DPTNet cores), Sepformer, BSRNN,
-TDANet and AFRCNN: every model of ``configs/``."""
+The port has every model the JAX package registers: ConvTasNet, TasNet
+(every separator module, with group communication), Sepformer, BSRNN,
+TDANet, AFRCNN, DPRNNTasNet and Sandglasset."""
 
 from ..utils.registry import Registry
 from .base import BaseModel, from_pretrain, save_serialized, serialize
@@ -28,6 +29,8 @@ from .sepformer import Sepformer  # noqa: E402  (self-registers)
 from .bsrnn import BSRNN  # noqa: E402  (self-registers)
 from .tdanet import TDANet  # noqa: E402  (self-registers)
 from .afrcnn import AFRCNN  # noqa: E402  (self-registers)
+from .dprnn_old import DPRNNTasNet  # noqa: E402  (self-registers)
+from .sandglasset import Sandglasset  # noqa: E402  (self-registers)
 
 __all__ = [
     "BaseModel",
@@ -37,6 +40,8 @@ __all__ = [
     "BSRNN",
     "TDANet",
     "AFRCNN",
+    "DPRNNTasNet",
+    "Sandglasset",
     "register_model",
     "get",
     "available_models",

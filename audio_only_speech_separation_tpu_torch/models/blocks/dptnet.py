@@ -7,7 +7,9 @@ BiLSTM(d -> 2d) with relu and Linear(4d -> d) as the feed-forward
 (dptnet.py:49-50,79), post-norm; LayerNorm eps 1e-5.  The layer sits at
 ``{row,col}_xfmr.{i}.transformer`` in look2hear's ``state_dict``, with
 ``self_attn.*``, ``norm1.*``, ``linear1.*`` (the BiLSTM), ``linear2.*`` and
-``norm2.*``; ``unfold`` shares layer 0 and adds ``concat_block``.
+``norm2.*``; ``unfold`` shares layer 0 and adds ``concat_block``.  With
+``num_group`` G > 1 the layers are N/G wide on B*G rows and a TAC
+(``TAC.{i}``) runs before each layer's row pass, as in ``DPRNNCore``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from torch import nn
 
 from ...ops.attention import MultiheadAttention
 from ...ops.rnn import BiLSTM
-from .dprnn import DepthwiseGate, _layers, core_output
+from .dprnn import TAC, DepthwiseGate, _layers, core_output, group_exchange
 
 
 class TransformerEncoderLayerDPT(nn.Module):
@@ -51,25 +53,32 @@ class _SingleTransformer(nn.Module):
 
 class DPTNetCore(nn.Module):
     """The dual-path loop of ``DPRNNCore`` with transformer rows and
-    columns: [B, N, K, S] -> [B, num_spk, output_size // num_spk, K, S]."""
+    columns: [B, N, K, S] -> [B, num_spk, output_size // num_spk, K, S],
+    N split into ``num_group`` groups."""
 
-    def __init__(self, input_size: int, hidden_size: int, output_size: int, num_layers: int = 1,
-                 unfold: bool = False, device=None):
+    def __init__(self, input_size: int, hidden_size: int, output_size: int, num_group: int = 1,
+                 num_layers: int = 1, unfold: bool = False, device=None):
         super().__init__()
-        n = input_size
-        self.num_layers, self.unfold = num_layers, unfold
+        G = num_group
+        n = input_size // G
+        self.num_layers, self.unfold, self.num_group = num_layers, unfold, G
         self.num_spk = output_size // input_size
+        if G > 1:
+            self.TAC = nn.ModuleList([TAC(n, hidden_size * 3 // G, device=device) for _ in range(num_layers)])
         self.row_xfmr = _layers(lambda: _SingleTransformer(n, device=device), num_layers, unfold)
         self.col_xfmr = _layers(lambda: _SingleTransformer(n, device=device), num_layers, unfold)
         if unfold:
             self.concat_block = DepthwiseGate(n, device=device)
-        self.output = nn.Conv2d(n, output_size, 1, device=device)
+        self.output = nn.Conv2d(n, output_size // G, 1, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, n, K, S = x.shape
-        cur = x.permute(0, 3, 2, 1)  # [B, S, K, n]: rows
+        G = self.num_group
+        B, n, K, S = x.shape[0] * G, x.shape[1] // G, x.shape[2], x.shape[3]  # each group a batch row
+        cur = x.reshape(B, n, K, S).permute(0, 3, 2, 1)  # [B*G, S, K, n]: rows
         for i in range(self.num_layers):
             j = 0 if self.unfold else i
+            if G > 1:
+                cur = group_exchange(self.TAC[i], cur, G)
             row = self.row_xfmr[j](cur.reshape(B * S, K, n)).reshape(B, S, K, n)
             cur = (cur + row).transpose(1, 2)  # [B, K, S, n]: columns
             col = self.col_xfmr[j](cur.reshape(B * K, S, n)).reshape(B, K, S, n)
@@ -78,4 +87,4 @@ class DPTNetCore(nn.Module):
                 cur = self.concat_block(cur)
             if i + 1 < self.num_layers:
                 cur = cur.transpose(1, 2)
-        return core_output(cur, self.output, self.num_spk)
+        return core_output(cur, self.output, self.num_spk, G)

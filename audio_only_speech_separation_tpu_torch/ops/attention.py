@@ -20,8 +20,13 @@ Dispatch, per call:
   dropout, a head width outside the envelope): the plain einsum form, f32
   logits and softmax.
 
-The 4-D batched-axis form of the JAX module (``_mha_batched_axis1``,
-Sandglasset's) is not ported yet (ROADMAP Queue 1).
+A 4-D input [B, T, K, E] attends over axis 1 with K as a second batch
+axis (the JAX module's ``_mha_batched_axis1``, Sandglasset's identity-pool
+blocks), self-attention only, with the same dispatch.  Its kernel form
+writes q, k and v straight into K4's [B*K*h, dh, T] layout and the output
+projection straight back to [B, T, K, E], each a batched product over K
+whose operands are strided views of the block tensor, so no transposed
+copy of it is made; its plain form is the JAX einsum path.
 
 Also the fixed sinusoidal positions (``sinusoidal_positions``,
 ``PositionalEncoding``) that Sepformer adds to each transformer stack's
@@ -31,6 +36,7 @@ input.
 from __future__ import annotations
 
 import math
+from functools import lru_cache
 from typing import Optional
 
 import numpy as np
@@ -57,6 +63,70 @@ def mha_kernel_form(x, w_in, b_in, w_out, b_out, num_heads: int, attention=fused
         qkv.append(y.reshape(B * num_heads, dh, T).contiguous())
     o = attention(*qkv).reshape(B, E, T)
     out = torch.matmul(o.transpose(1, 2), w_out.to(o.dtype).t())  # [B, T, E]
+    return out + b_out.to(out.dtype) if b_out is not None else out
+
+
+def _bmm_into(out: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> None:
+    """a @ b (batched) written into the view ``out``: by the product itself
+    where no gradient is recorded, else through a copy autograd can follow
+    (``out=`` records none)."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        out.copy_(torch.bmm(a, b))
+    else:
+        torch.bmm(a, b, out=out)
+
+
+def mha_batched_axis1_kernel_form(x, w_in, b_in, w_out, b_out, num_heads: int,
+                                  attention=fused_attention_bdt):
+    """Self-attention over axis 1 of x [B, T, K, E] around ``attention`` on
+    [B*K*h, dh, T]; weights as ``mha_kernel_form``'s.
+
+    For each b, q[b] = W_q x[b]^T is one product batched over K whose
+    right operand x[b, :, k, :]^T is a view (batch stride E, leading
+    dimension K*E), written into [K, E, T]; the output [b, :, k, :] =
+    o[b, k]^T W_out^T is written through a view of [T, K, E] the same way.
+    Products accumulate in f32 and round to x's dtype; the biases are added
+    after the rounding, as the JAX package does."""
+    B, T, K, E = x.shape
+    dh = E // num_heads
+    qkv = []
+    for j in range(3):
+        w = w_in[j * E:(j + 1) * E].to(x.dtype).expand(K, E, E)
+        y = x.new_empty(B, K, E, T)
+        for b in range(B):
+            _bmm_into(y[b], w, x[b].permute(1, 2, 0))  # [K, E, T]
+        if b_in is not None:
+            y.add_(b_in[j * E:(j + 1) * E].to(x.dtype)[:, None])
+        qkv.append(y.view(B * K * num_heads, dh, T))
+    o = attention(*qkv).view(B, K, E, T)
+    wo = w_out.to(o.dtype).t().expand(K, E, E)
+    out = o.new_empty(B, T, K, E)
+    for b in range(B):
+        _bmm_into(out[b].transpose(0, 1), o[b].transpose(1, 2), wo)  # into a [K, T, E] view
+    return out.add_(b_out.to(out.dtype)) if b_out is not None else out
+
+
+def mha_batched_axis1_plain_form(x, w_in, b_in, w_out, b_out, num_heads: int, drop=None):
+    """The JAX package's einsum path of the 4-D form: per-head q, k, v on
+    [B, T, K, h, dh] in x's dtype, f32 logits and softmax over axis 1, the
+    weights cast to v's dtype, then ``drop`` on them; the output projection
+    f32-accumulated."""
+    B, T, K, E = x.shape
+    dh = E // num_heads
+    bs = (None, None, None) if b_in is None else b_in.split(E)
+
+    def proj(j):
+        y = torch.matmul(x, w_in[j * E:(j + 1) * E].to(x.dtype).t())
+        y = y if bs[j] is None else y + bs[j].to(y.dtype)
+        return y.reshape(B, T, K, num_heads, dh)
+
+    q, k, v = proj(0), proj(1), proj(2)
+    logits = torch.einsum("bqkhd,btkhd->bkhqt", q.float(), k.float()) * (1.0 / math.sqrt(dh))
+    attn = torch.softmax(logits, dim=-1).to(v.dtype)
+    if drop is not None:
+        attn = drop(attn)
+    out = torch.einsum("bkhqt,btkhd->bqkhd", attn.float(), v.float()).to(v.dtype)
+    out = torch.matmul(out.reshape(B, T, K, E), w_out.to(out.dtype).t())
     return out + b_out.to(out.dtype) if b_out is not None else out
 
 
@@ -88,8 +158,8 @@ def mha_plain_form(query, key, value, w_in, b_in, w_out, b_out, num_heads: int,
 
 
 class MultiheadAttention(nn.Module):
-    """Self- or cross-attention on [B, T, E] (see the module docstring for
-    the dispatch).  ``dropout`` acts on the attention weights while
+    """Self- or cross-attention on [B, T, E], or self-attention over axis
+    1 of [B, T, K, E] (see the module docstring for the dispatch).  ``dropout`` acts on the attention weights while
     training, as in ``nn.MultiheadAttention``, with the masks from its own
     generator (``ops/dropout.py``)."""
 
@@ -107,15 +177,20 @@ class MultiheadAttention(nn.Module):
 
     def forward(self, query: torch.Tensor, key: Optional[torch.Tensor] = None,
                 value: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None):
-        if query.ndim != 3:
-            raise NotImplementedError("only [B, T, E] inputs: the 4-D batched-axis form is still "
-                                      "to port (ROADMAP Queue 1)")
         self_attention = (key is None or key is query) and (value is None or value is query)
         w = (self.in_proj_weight, self.in_proj_bias, self.out_proj.weight, self.out_proj.bias)
         dropping = self.training and self.attn_drop.rate > 0.0
-        if (self_attention and mask is None and not dropping and kernels.kernel_input(query)
-                and attention_kernel_ok(self.embed_dim // self.num_heads)):
-            attention = kernels.pick(fused_attention_bdt, attention_bdt_reference)
+        kernel_form = (self_attention and mask is None and not dropping and kernels.kernel_input(query)
+                       and attention_kernel_ok(self.embed_dim // self.num_heads))
+        attention = kernels.pick(fused_attention_bdt, attention_bdt_reference)
+        if query.ndim == 4:
+            if not self_attention or mask is not None:
+                raise ValueError("a 4-D input [B, T, K, E] takes self-attention without a mask")
+            if kernel_form:
+                return mha_batched_axis1_kernel_form(query, *w, self.num_heads, attention)
+            return mha_batched_axis1_plain_form(query, *w, self.num_heads,
+                                                self.attn_drop if dropping else None)
+        if kernel_form:
             return mha_kernel_form(query, *w, self.num_heads, attention)
         key = query if key is None else key
         value = key if value is None else value
@@ -135,17 +210,21 @@ def sinusoidal_positions(max_len: int, d_model: int, dtype=torch.float32, device
     return torch.from_numpy(table).to(device=device, dtype=dtype)
 
 
+@lru_cache(maxsize=64)
+def positions_table(max_len: int, d_model: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``sinusoidal_positions`` built once a (length, width, dtype, device)
+    and kept: a copy from host memory inside a forward would wait for the
+    device's queue."""
+    return sinusoidal_positions(max_len, d_model, dtype, device)
+
+
 class PositionalEncoding(nn.Module):
     """Adds fixed sinusoidal positions to [B, T, E], in x's dtype.  No
-    parameters; each (T, dtype, device) table is built once and kept."""
+    parameters."""
 
     def __init__(self, d_model: int):
         super().__init__()
         self.d_model = d_model
-        self._tables = {}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        key = (x.shape[1], x.dtype, x.device)
-        if key not in self._tables:
-            self._tables[key] = sinusoidal_positions(x.shape[1], self.d_model, x.dtype, x.device)
-        return x + self._tables[key][None]
+        return x + positions_table(x.shape[1], self.d_model, x.dtype, x.device)[None]

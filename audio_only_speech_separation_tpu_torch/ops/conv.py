@@ -1,5 +1,7 @@
 """Framing, overlap-add and the learned filterbanks (counterpart of
-``audio_only_speech_separation_tpu/ops/conv.py``), channels-first only.
+``audio_only_speech_separation_tpu/ops/conv.py``): channels-first
+framing and overlap-add, and their channels-last duals on axis 1
+(``frame_axis1``, ``overlap_add_axis1``) for Sandglasset's chunking.
 
 The JAX package's ``PointwiseConv`` and depthwise ``Conv1d`` are plain
 ``torch.nn.Conv1d`` here (kernel 1, and ``groups=C`` with a dilation); their
@@ -41,6 +43,31 @@ def overlap_add(frames: torch.Tensor, stride: int) -> torch.Tensor:
         frames.transpose(1, 2), output_size=(1, T), kernel_size=(1, win), stride=(1, stride)
     )
     return folded.reshape(B, T)
+
+
+def frame_axis1(x: torch.Tensor, win: int, stride: int) -> torch.Tensor:
+    """x: [B, T, D] -> frames [B, n, win, D] over axis 1, the channels
+    trailing (a strided view), n = (T - win)//stride + 1."""
+    return x.unfold(1, win, stride).transpose(2, 3)
+
+
+def overlap_add_axis1(frames: torch.Tensor, stride: int) -> torch.Tensor:
+    """frames: [B, n, win, D] -> [B, (n-1)*stride + win, D]: overlap-add
+    over axis 1, the channels-last dual of ``overlap_add`` (for win %
+    stride == 0 the padded slices summed in the JAX package's order)."""
+    B, n, win, D = frames.shape
+    T = (n - 1) * stride + win
+    if win % stride == 0:
+        r = win // stride
+        chunks = frames.reshape(B, n, r, stride, D)
+        out = None
+        for j in range(r):
+            cj = F.pad(chunks[:, :, j], (0, 0, 0, 0, j, r - 1 - j))
+            out = cj if out is None else out + cj
+        return out.reshape(B, -1, D)[:, :T]
+    idx = (torch.arange(n)[:, None] * stride + torch.arange(win)[None, :]).reshape(-1).to(frames.device)
+    out = frames.new_zeros(B, T, D)
+    return out.index_add_(1, idx, frames.reshape(B, n * win, D))
 
 
 def _xavier_(w: torch.Tensor, fan_in: int, fan_out: int, generator) -> None:

@@ -17,6 +17,9 @@ Layouts translated:
 - Sepformer's ``conv2d_kernel`` [N, N*spks] -> Conv2d weight [N*spks, N, 1, 1]
 - dual-path gate weight [C] -> Conv2d weight [C, 1, 1, 1]; core
   ``out_kernel`` [in, out] -> Conv2d weight [out, in, 1, 1]
+- Sandglasset's ``first_out_kernel`` [N, M] -> Conv2d weight [M, N, 1, 1]
+  and ``decoder_kernel`` [N, win] -> ``decoder.basis_lin.weight`` [win, N]
+- TAC's three Dense layers -> look2hear's ``TAC_{input,mean,output}.0``
 """
 
 from __future__ import annotations
@@ -103,26 +106,87 @@ def _gate(sd, prefix: str, p, conv_dims: int = 2) -> None:
     sd[f"{prefix}.1.weight"] = _f32(p["act"]["alpha"]).reshape(1)
 
 
-def tasnet_from_jax(params_np, module: str, layer: int, unfold: bool) -> Dict[str, np.ndarray]:
-    """JAX TasNet params (DPRNN or DPTNet core, group_size 1) -> port TasNet
-    ``state_dict`` (numpy): the inverse of the JAX package's
+def _prelu(sd, prefix: str, p) -> None:
+    sd[f"{prefix}.weight"] = _f32(p["alpha"]).reshape(1)
+
+
+def _tac(sd, prefix: str, p) -> None:
+    """JAX ``TAC`` -> look2hear's ``TAC_{input,mean,output}.{0,1}``, ``TAC_norm``."""
+    for port, dense, act in (("TAC_input", "transform", "act_in"), ("TAC_mean", "average", "act_mean"),
+                             ("TAC_output", "concat", "act_out")):
+        _dense(sd, f"{prefix}.{port}.0", p[dense])
+        _prelu(sd, f"{prefix}.{port}.1", p[act])
+    _norm(sd, f"{prefix}.TAC_norm", p["norm"])
+
+
+def _proj_rnn(sd, prefix: str, p) -> None:
+    _lstm(sd, f"{prefix}.rnn", p["rnn"])
+    _dense(sd, f"{prefix}.proj", p["proj"])
+
+
+def _gc_rnn(sd, prefix: str, p, num_layers: int = 2) -> None:
+    for i in range(num_layers):
+        _tac(sd, f"{prefix}.TAC.{i}", p[f"tac_{i}"])
+        _proj_rnn(sd, f"{prefix}.rnn.{i}", p[f"rnn_{i}"])
+        _norm(sd, f"{prefix}.LN.{i}", p[f"norm_{i}"])
+
+
+def _uconv_block(sd, prefix: str, p, depth: int = 5) -> None:
+    _conv_norm(sd, f"{prefix}.proj_1x1", p["proj_1x1"])
+    for k in range(depth):
+        _conv_norm(sd, f"{prefix}.spp_dw.{k}", p[f"spp_{k}"])
+    _norm(sd, f"{prefix}.final_norm.norm", p["final_norm"])
+    _prelu(sd, f"{prefix}.final_norm.act", p["final_act"])
+    _pointwise(sd, f"{prefix}.res_conv", p["res_conv"])
+
+
+def _tcn(sd, pre: str, core, n_blocks: int, grouped: bool) -> None:
+    """A JAX ``TCN`` (or ``GC_TCN``) of ``n_blocks`` blocks under ``pre``."""
+    if grouped:
+        _pointwise(sd, f"{pre}.output", core["out_conv"])
+    else:
+        _norm(sd, f"{pre}.LN", core["LN"])
+        _pointwise(sd, f"{pre}.BN", core["BN"])
+        _prelu(sd, f"{pre}.output.0", core["out_act"])
+        _pointwise(sd, f"{pre}.output.1", core["out_conv"])
+    for i in range(n_blocks):
+        if grouped:
+            _tac(sd, f"{pre}.TAC.{i}", core[f"tac_{i}"])
+        blk, bp = core[f"block_{i}"], f"{pre}.TCN.{i}"
+        for name in ("conv1d", "res_out", "skip_out"):
+            _pointwise(sd, f"{bp}.{name}", blk[name])
+        _conv1d(sd, f"{bp}.dconv1d", blk["dconv1d"])
+        _prelu(sd, f"{bp}.nonlinearity1", blk["act1"])
+        _prelu(sd, f"{bp}.nonlinearity2", blk["act2"])
+        _norm(sd, f"{bp}.reg1", blk["reg1"])
+        _norm(sd, f"{bp}.reg2", blk["reg2"])
+
+
+def tasnet_from_jax(params_np, module: str, layer: int, unfold: bool,
+                    group_size: int = 1) -> Dict[str, np.ndarray]:
+    """JAX TasNet params (any separator module and group size) -> port
+    TasNet ``state_dict`` (numpy): the inverse of the JAX package's
     ``utils/torch_import.py::convert_tasnet``."""
     p = params_np["params"] if "params" in params_np else params_np
     sd: Dict[str, np.ndarray] = {}
     sd["encoder.weight"] = _f32(np.asarray(p["encoder"]["kernel"]).T[:, None, :])
     _norm(sd, "bottleneck.0", p["bn_norm"])
     sd["bottleneck.1.weight"] = _f32(np.asarray(p["bn_conv"]["kernel"]).T[:, :, None])
-    core, pre = p["seq_model"], "seq_model.seq_model"
-    names = [("_shared", 0)] if unfold else [(f"_{i}", i) for i in range(layer)]
-    for jax_sfx, i in names:
-        if module == "DPRNN":
+    if group_size > 1:
+        _gc_rnn(sd, "context_enc", p["context_enc"])
+        _gc_rnn(sd, "context_dec", p["context_dec"])
+    if module in ("DPRNN", "DPTNet"):
+        core, pre = p["seq_model"], "seq_model.seq_model"
+        if group_size > 1:
+            for i in range(layer):
+                _tac(sd, f"{pre}.TAC.{i}", core[f"tac_{i}"])
+        names = [("_shared", 0)] if unfold else [(f"_{i}", i) for i in range(layer)]
+        for jax_sfx, i in names:
             for side in ("row", "col"):
-                rnn = core[f"{side}_rnn{jax_sfx}"]
-                _lstm(sd, f"{pre}.{side}_rnn.{i}.rnn", rnn["rnn"])
-                _dense(sd, f"{pre}.{side}_rnn.{i}.proj", rnn["proj"])
-                _norm(sd, f"{pre}.{side}_norm.{i}", core[f"{side}_norm{jax_sfx}"])
-        elif module == "DPTNet":
-            for side in ("row", "col"):
+                if module == "DPRNN":
+                    _proj_rnn(sd, f"{pre}.{side}_rnn.{i}", core[f"{side}_rnn{jax_sfx}"])
+                    _norm(sd, f"{pre}.{side}_norm.{i}", core[f"{side}_norm{jax_sfx}"])
+                    continue
                 x = core[f"{side}_xfmr{jax_sfx}"]
                 tp = f"{pre}.{side}_xfmr.{i}.transformer"
                 _mha(sd, f"{tp}.self_attn", x["self_attn"])
@@ -130,12 +194,22 @@ def tasnet_from_jax(params_np, module: str, layer: int, unfold: bool) -> Dict[st
                     _layer_norm(sd, f"{tp}.{n}", x[n])
                 _lstm(sd, f"{tp}.linear1", x["ffn_lstm"])
                 _dense(sd, f"{tp}.linear2", x["ffn_proj"])
-        else:
-            raise NotImplementedError(f"no JAX converter for TasNet module {module!r}")
-    if unfold:
-        _gate(sd, f"{pre}.concat_block", core["concat_block"])
-    sd[f"{pre}.output.weight"] = _f32(np.asarray(core["out_kernel"]).T[:, :, None, None])
-    sd[f"{pre}.output.bias"] = _f32(core["out_bias"])
+        if unfold:
+            _gate(sd, f"{pre}.concat_block", core["concat_block"])
+        sd[f"{pre}.output.weight"] = _f32(np.asarray(core["out_kernel"]).T[:, :, None, None])
+        sd[f"{pre}.output.bias"] = _f32(core["out_bias"])
+    elif module in ("TCN", "GC_TCN"):
+        _tcn(sd, "seq_model.tcn", p["seq_model"], 2 * layer, module == "GC_TCN")  # stack 2
+    elif module in ("SudoRMRF", "GC_SudoRMRF"):
+        for i in range(layer):
+            blk, pre = p[f"seq_model_{i}"], f"seq_model.sudo_rmrf_layers.{i}"
+            if module == "GC_SudoRMRF":
+                _tac(sd, f"{pre}.TAC", blk["tac"])
+                _uconv_block(sd, f"{pre}.UBlock", blk["ublock"])
+            else:
+                _uconv_block(sd, pre, blk)
+    else:
+        raise NotImplementedError(f"no JAX converter for TasNet module {module!r}")
     _pointwise(sd, "mask.0", p["mask_conv"])
     sd["decoder.weight"] = _f32(np.asarray(p["decoder"]["kernel"])[:, None, :])
     return sd
@@ -287,13 +361,74 @@ def afrcnn_from_jax(params_np, upsampling_depth: int) -> Dict[str, np.ndarray]:
     return sd
 
 
+def dprnn_tasnet_from_jax(params_np, layer: int) -> Dict[str, np.ndarray]:
+    """JAX DPRNNTasNet params -> port DPRNNTasNet ``state_dict`` (numpy): the
+    inverse of the JAX package's ``utils/torch_import.py::convert_dprnn_tasnet``
+    (cLN norms, as ``OldDPRNN(full_causal=True)`` has, included)."""
+    p = params_np["params"] if "params" in params_np else params_np
+    sd: Dict[str, np.ndarray] = {}
+    sd["encoder._filters"] = _f32(np.asarray(p["encoder"]["kernel"]).T[:, None, :])
+    _norm(sd, "freq_norm", p["freq_norm"])
+    sd["freq_separator.BN.weight"] = _f32(np.asarray(p["BN"]["kernel"]).T[:, :, None])
+    sd.update({f"freq_separator.DPRNN.{k}": v for k, v in old_dprnn_from_jax(p["DPRNN"], layer).items()})
+    sd["decoder._filters"] = _f32(np.asarray(p["decoder"]["kernel"])[:, None, :])
+    return sd
+
+
+def old_dprnn_from_jax(core, layer: int) -> Dict[str, np.ndarray]:
+    """A JAX ``OldDPRNN``'s params -> the port core's ``state_dict``."""
+    core = core["params"] if "params" in core else core
+    sd: Dict[str, np.ndarray] = {}
+    for i in range(layer):
+        for side in ("row", "col"):
+            rnn = core[f"{side}_rnn_{i}"]
+            _proj_rnn(sd, f"{side}_rnn.{i}", rnn)
+            _norm(sd, f"{side}_norm.{i}", core[f"{side}_norm_{i}"])
+    sd["output.weight"] = _f32(np.asarray(core["out_kernel"]).T[:, :, None, None])
+    sd["output.bias"] = _f32(core["out_bias"])
+    return sd
+
+
+def sandglasset_block_from_jax(blk) -> Dict[str, np.ndarray]:
+    """A JAX ``SandglassetBlock``'s params -> the port block's ``state_dict``."""
+    blk = blk["params"] if "params" in blk else blk
+    sd: Dict[str, np.ndarray] = {}
+    _lstm(sd, "intra_RNN.rnn", blk["intra_rnn"])
+    _dense(sd, "intra_linear", blk["intra_linear"])
+    _norm(sd, "intra_norm", blk["intra_norm"])
+    _layer_norm(sd, "inter_RNN.attn_in_norm", blk["attn_in_norm"])
+    _mha(sd, "inter_RNN.attn_layer.0.attn", blk["attn_layer"]["attn"])
+    _layer_norm(sd, "inter_RNN.attn_layer.0.norm", blk["attn_layer"]["norm"])
+    _norm(sd, "inter_norm", blk["inter_norm"])
+    return sd
+
+
+def sandglasset_from_jax(params_np, n_repeats: int) -> Dict[str, np.ndarray]:
+    """JAX Sandglasset params -> port Sandglasset ``state_dict`` (numpy): the
+    inverse of the JAX package's ``utils/torch_import.py::convert_sandglasset``."""
+    p = params_np["params"] if "params" in params_np else params_np
+    sd: Dict[str, np.ndarray] = {}
+    sd["encoder.weight"] = _f32(np.asarray(p["encoder"]["kernel"]).T[:, None, :])
+    _norm(sd, "enc_LN", p["enc_LN"])
+    sd["bottleneck.weight"] = _f32(np.asarray(p["bottleneck"]["kernel"]).T[:, :, None])
+    _norm(sd, "seg_norm", p["seg_norm"])
+    for i in range(n_repeats):
+        sd.update({f"sep_net.{i}.{k}": v for k, v in sandglasset_block_from_jax(p[f"sep_{i}"]).items()})
+    sd["first_out.0.weight"] = _f32(p["first_out_act"]["alpha"]).reshape(1)
+    sd["first_out.1.weight"] = _f32(np.asarray(p["first_out_kernel"]).T[:, :, None, None])
+    sd["first_out.1.bias"] = _f32(p["first_out_bias"])
+    _norm(sd, "out_norm", p["out_norm"])
+    sd["decoder.basis_lin.weight"] = _f32(np.asarray(p["decoder_kernel"]).T)
+    return sd
+
+
 def from_jax(model, params_np) -> Dict[str, np.ndarray]:
     """Convert a JAX tree for ``model`` (a port model instance)."""
     name = type(model).__name__
     if name == "ConvTasNet":
         return convtasnet_from_jax(params_np, model.R, model.X)
     if name == "TasNet":
-        return tasnet_from_jax(params_np, model.module, model.layer, model.unfold)
+        return tasnet_from_jax(params_np, model.module, model.layer, model.unfold, model.group_size)
     if name == "Sepformer":
         return sepformer_from_jax(params_np, model.masknet_numlayers, model.intra_numlayers,
                                   model.inter_numlayers)
@@ -303,4 +438,8 @@ def from_jax(model, params_np) -> Dict[str, np.ndarray]:
         return tdanet_from_jax(params_np, model.upsampling_depth, model.num_blocks, model.unfold)
     if name == "AFRCNN":
         return afrcnn_from_jax(params_np, model.upsampling_depth)
+    if name == "DPRNNTasNet":
+        return dprnn_tasnet_from_jax(params_np, model.layer)
+    if name == "Sandglasset":
+        return sandglasset_from_jax(params_np, model.n_repeats)
     raise NotImplementedError(f"no JAX converter for {name}")

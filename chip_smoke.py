@@ -15,9 +15,12 @@ families; then BSRNN (bsrnn_wsj0, 8 kHz) through K5 and K6, TDANet
 (tdanet_lrs2, 16 kHz) on its module path through K4 and on its
 analytic fast path, AFRCNN (afrcnn_lrs2), and the eval CLI over those
 three; the elementwise probe K7 (``scripts/micro_vpu.py``'s function);
-and training on the card for every served family through ``Trainer``'s
+training on the card for every served family through ``Trainer``'s
 bf16 cast policy (K4-K6 in the forward, their backwards through the plain
-versions).  In phases:
+versions); then the rest of the model zoo: Sandglasset (K4 in its 3-D and
+4-D forms, K6), DPRNNTasNet (K5, K6) and TasNet's other separator modules
+and group communication, served, through the eval CLI and in a train
+step.  In phases:
 
 0. the card's name and power limit (fails without a CUDA device);
 1. build the kernels from ``csrc/`` with nvcc;
@@ -89,7 +92,7 @@ versions).  In phases:
     K4), TDANet ("fast_tdanet", no kernel) and AFRCNN ("kernels", no
     kernel);
 24. time BSRNN at B=1 and 4 x 4 s (kernel path, plain bf16 path, f32
-    module; the kernel path profiled), K5 and K6 alone at BSRNN's B=1
+    module, median of 3; the kernel path profiled), K5 and K6 alone at BSRNN's B=1
     shapes beside their plain versions, bf16 ``nn.LSTM`` on the same shape
     and their bounds (K5 also a step), a TDANet call on the fast path and
     on the module path (both profiled), and an AFRCNN call;
@@ -108,7 +111,35 @@ versions).  In phases:
     best_model.pth served on the card;
 28. each family's train step timed (kernel path, plain bf16 path, f32; the
     kernel path split into forward, backward and optimizer and profiled),
-    and for BSRNN the backward of K5 and K6 through their plain versions.
+    and for BSRNN the backward of K5 and K6 through their plain versions;
+29. Sandglasset at its defaults (8 kHz, full width and depth) at B=8 and
+    1 x 2 s: the kernel path (``serve``'s "kernels") with exactly 6 K4 (two
+    in the 4-D batched-axis form) and 6 K6 launches a call and no call of
+    a plain version, the plain bf16 path and the f32 module under the 1.5x
+    rule; then each kernel against its plain version at every shape the
+    kernel path's calls gave it, recorded as they ran (K4 at [16000, 16,
+    131], [3968, 16, 131], [960, 16, 131] and their B=1 shapes, K6 at
+    (250, 1048 and 131, 128, 128)), and those shapes must be the ones
+    ``sandglasset_shapes`` states for phase 33;
+30. DPRNNTasNet at its defaults (8 kHz) the same way at B=8 (12 K6) and
+    B=1 (12 K5) x 2 s, K5 and K6 against their plain versions at the row
+    and column shapes its calls gave them (H 256; stated in
+    DPRNN_TASNET_K5 and DPRNN_TASNET_K6);
+31. TasNet at the wsj0 widths with each other separator module (TCN,
+    SudoRMRF; GC_TCN, GC_SudoRMRF, DPRNN and DPTNet with group size 2) at
+    B=8 x 2 s the same way, with the launches of TASNET_MODULES, and K4,
+    K5 and K6 against their plain versions at every shape those calls
+    gave them (the context GC_RNNs' and the grouped cores' LSTMs at Din
+    32, H 64; DPTNet's attention at dh 8);
+32. the eval CLI as in phase 18 on Sandglasset (K4, K6), DPRNNTasNet (K5)
+    and the DPTNet TasNet with group size 2 (K4, K5, K6);
+33. time Sandglasset and DPRNNTasNet at B=8 and B=1 x 2 s (kernel path,
+    plain bf16 path, f32 module; the kernel path profiled), K4 alone at
+    Sandglasset's three shapes beside its plain version, SDPA and its
+    bound, and K6 and K5 alone at Sandglasset's and DPRNNTasNet's shapes
+    beside their plain versions, bf16 ``nn.LSTM`` and their bounds;
+34. one bf16 train step of Sandglasset and DPRNNTasNet (B=2 x 2 s) three
+    ways as in phase 26, exact forward launches, none in the backward.
 
 TF32 is off for matmuls and cuDNN, so the f32 references are full f32.
 
@@ -119,6 +150,7 @@ describing the kernels; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -175,6 +207,37 @@ TDANET_K4 = 16  # K4 launches a module-path TDANet call: one global attention a 
 TDANET_K4_SHAPE = (126 * 8, 64)
 # utterances of the eval CLI phase, seconds
 EVAL_SECONDS = (1.3, 2.0, 4.0, 6.5, 8.0)
+# Sandglasset at its constructor defaults (models/sandglasset.py), 8 kHz as
+# scripts/bench_all.py:39 runs it: 2 s give 16002 frames, S = 131 chunks of
+# K = 250, D 128, 8 heads of dh 16, 6 blocks pooling 1, 4, 16, 16, 4, 1
+SANDGLASSET = dict(n_feats=64, bn_chan=128, hid_size=128, chunk_size=250, hop_size=125, n_repeats=6,
+                   n_head=8, kernel_size=2)
+SANDGLASSET_LAUNCHES = (6, 0, 6)  # K4, K5, K6 a call: one attention and one intra BiLSTM a block
+
+
+def sandglasset_shapes(batch: int):
+    """K4's [BH, dh, T] by block pair and K6's (T, B, Din, H, D) in a
+    Sandglasset call at B=batch x 2 s x 8 kHz: blocks 0/5 attend over the
+    131 chunks with the 250 positions batched, 1/4 with 62 pooled, 2/3 15."""
+    k4 = {"blocks 0/5": (batch * 250 * 8, 16, 131), "blocks 1/4": (batch * 62 * 8, 16, 131),
+          "blocks 2/3": (batch * 15 * 8, 16, 131)}
+    return k4, (250, batch * 131, 128, 128, 2)
+
+
+# DPRNNTasNet at its defaults (models/dprnn_old.py), 8 kHz as
+# scripts/bench_all.py:40: win 32 samples, 2006 frames at 2 s, 128 chunks of
+# 32 an utterance; rows (B*128 sequences of 32) and columns (B*32 of 128)
+DPRNN_TASNET = dict(feature_dim=128, hidden_dim=256, win=4, layer=6, segment_size=32)
+DPRNN_TASNET_LAUNCHES = {1: (0, 12, 0), 8: (0, 0, 12)}  # K4, K5, K6 a call: 128 and 32 / 1024 and 256 sequences
+DPRNN_TASNET_K5 = ((32, 2, 128, 256), (128, 2, 32, 256))  # (T, D, B, H) at B=1: rows, columns
+DPRNN_TASNET_K6 = ((32, 1024, 128, 256, 2), (128, 256, 128, 256, 2))  # (T, B, Din, H, D) at B=8
+# The other TasNet separator modules at the wsj0 widths (module swapped),
+# with group size 2 where they communicate, and the K4, K5, K6 launches of
+# a call at B=8 x 2 s x 8 kHz: the context GC_RNNs (4 layers over 8 x 168
+# windows x 2 groups: K6), the grouped cores' rows (96 sequences: K5) and
+# columns (1600: K6), DPTNet's attention (dh 8: K4); TCN and SudoRM-RF none
+TASNET_MODULES = {"TCN": (1, (0, 0, 0)), "SudoRMRF": (1, (0, 0, 0)), "GC_TCN": (2, (0, 0, 4)),
+                  "GC_SudoRMRF": (2, (0, 0, 4)), "DPRNN G2": (2, (0, 6, 10)), "DPTNet G2": (2, (12, 6, 10))}
 PEAK_FLOPS = 989e12  # H100 SXM bf16 dense tensor-core peak, FLOP/s
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 
@@ -369,11 +432,31 @@ def launch_ms(fn, prefix: str, calls: int = 5):
     return sum(ms for ms, _ in rows) / launches if launches else None
 
 
+def traced_per_step(device_ms, T: int) -> str:
+    """``launch_ms``'s reading of a recurrence over T steps, as printed."""
+    if device_ms is None:
+        return "not traced on the device (torch.profiler)"
+    return f"{device_ms:.4f} ms a launch on the device (torch.profiler), {device_ms / T * 1e3:.3f} us a step"
+
+
 def back_to_back_ms(fn, n: int = 50) -> float:
     """CUDA-event ms of ``n`` calls of ``fn`` issued back to back, over n:
     the device time of one where the host issues faster than the device
     runs."""
     return cuda_time(lambda: [fn() for _ in range(n)], reps=5, warmup=1) / n
+
+
+def lstm_library_ms(dev, x, Din: int, H: int):
+    """bf16 ``nn.LSTM(Din, H, bidirectional)`` on x [B, T, Din], back to
+    back, or None where the installed PyTorch has no bf16 LSTM here."""
+    lstm = torch.nn.LSTM(Din, H, batch_first=True, bidirectional=True).to(dev, torch.bfloat16)
+    lstm.flatten_parameters()
+    try:
+        with torch.no_grad():
+            return back_to_back_ms(lambda: lstm(x), 10)
+    except RuntimeError as e:
+        print(f"  nn.LSTM in bf16 not timed: {e}")
+        return None
 
 
 def least_time(nbytes: float, flops: float):
@@ -807,8 +890,8 @@ def tasnet_timing(dev, card, tasnets):
                                           for key, val in d.items()))
     with torch.no_grad():
         k5_dev = launch_ms(lambda: fused_bilstm(xw, whh), "lstm_recurrence_kernel")
-    print(f"  K5 (T=242, D=2, B=100, H=128): the kernel {k5_dev:.4f} ms a launch on the device (torch.profiler), "
-          f"{k5_dev / 242 * 1e3:.3f} us a step, cluster of {recurrence_cluster(100, 2, 128)}")
+    print(f"  K5 (T=242, D=2, B=100, H=128): the kernel {traced_per_step(k5_dev, 242)}, "
+          f"cluster of {recurrence_cluster(100, 2, 128)}")
     for label, T, B in (("rows", 100, 336), ("DPRNN columns", 42, 800), ("batch-1 rows", 100, 242),
                         ("K5's batch-1 columns", 242, 100)):
         x = rand((B, T, 64), 0.5)
@@ -816,8 +899,8 @@ def tasnet_timing(dev, card, tasnets):
         with torch.no_grad():
             dev_ms = launch_ms(lambda: resident_bilstm(x, wih6, whh6, b6), "lstm_resident_kernel")
         print(f"  K6 {label} (T={T}, B={B}): {timed(lambda: resident_bilstm(x, wih6, whh6, b6)):.4f} ms a call; "
-              f"the kernel {dev_ms:.4f} ms a launch on the device (torch.profiler), {dev_ms / T * 1e3:.3f} us a step, "
-              f"cluster of {resident_cluster(B, 2, 64, 128)}; nn.LSTM " + ("not timed" if lib is None else f"{lib:.4f} ms"))
+              f"the kernel {traced_per_step(dev_ms, T)}, cluster of {resident_cluster(B, 2, 64, 128)}; nn.LSTM "
+              + ("not timed" if lib is None else f"{lib:.4f} ms"))
     qc, kc, vc = (rand((3200, 16, 42)) for _ in range(3))
     print(f"  K4 DPTNet columns [3200, 16, 42]: {timed(lambda: fused_attention_bdt(qc, kc, vc)):.4f} ms")
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1179,32 +1262,20 @@ def new_models_timing(dev, card, bsrnn, tdanet, afrcnn) -> dict:
     print(f"phase 24: timing, BSRNN at B=1 and 4 x 4 s x 8 kHz, TDANet and AFRCNN at B=1 x 2 s x 16 kHz, "
           f"on {card}")
     for batch in (1, 4):
-        time_calls(dev, card, {"BSRNN": bsrnn}, batch, 4.0, TSR, 5, tasnet_counters()[1:])
+        time_calls(dev, card, {"BSRNN": bsrnn}, batch, 4.0, TSR, 3, tasnet_counters()[1:])
     rand = rand_maker(37, dev)
     (T5, D5, B5, H5), (T6, B6, Din6, H6, D6) = bsrnn_shapes(1)
     xw, whh = lstm_kernel_inputs(rand, k5_shape=bsrnn_shapes(1)[0])
     x6, wih6, whh6, b6 = lstm_kernel_inputs(rand, k6_shape=bsrnn_shapes(1)[1])
 
-    def lstm_yardstick(x, Din, H):
-        """bf16 nn.LSTM(Din, H, bidirectional) on x [B, T, Din], or None where
-        the installed PyTorch has no bf16 LSTM on this card."""
-        lstm = torch.nn.LSTM(Din, H, batch_first=True, bidirectional=True).to(dev, torch.bfloat16)
-        lstm.flatten_parameters()
-        try:
-            with torch.no_grad():
-                return back_to_back_ms(lambda: lstm(x), 10)
-        except RuntimeError as e:
-            print(f"  nn.LSTM in bf16 not timed: {e}")
-            return None
-
     with torch.no_grad():
         k5 = {"ms": back_to_back_ms(lambda: fused_bilstm(xw, whh), 10),
               "plain_ms": back_to_back_ms(lambda: bilstm_reference(xw, whh), 2),
-              "library_ms": lstm_yardstick(rand((B5, T5, 128), 0.5), 128, H5),
+              "library_ms": lstm_library_ms(dev, rand((B5, T5, 128), 0.5), 128, H5),
               "device_ms": launch_ms(lambda: fused_bilstm(xw, whh), "lstm_recurrence_kernel")}
         k6 = {"ms": back_to_back_ms(lambda: resident_bilstm(x6, wih6, whh6, b6)),
               "plain_ms": back_to_back_ms(lambda: resident_bilstm_reference(x6, wih6, whh6, b6), 5),
-              "library_ms": lstm_yardstick(x6, Din6, H6),
+              "library_ms": lstm_library_ms(dev, x6, Din6, H6),
               "device_ms": launch_ms(lambda: resident_bilstm(x6, wih6, whh6, b6), "lstm_resident_kernel", 20)}
     k5["bound_ms"], k5["bound_by"] = least_time((xw.numel() + xw.numel() // 4 + whh.numel()) * 2,
                                                 2 * T5 * D5 * B5 * H5 * 4 * H5)
@@ -1266,6 +1337,18 @@ TRAIN_LAUNCHES = {"DPRNN": ((0, 0, 12), (0, 0, 12)), "DPTNet": ((12, 0, 12), (12
                   "BSRNN": ((0, 8, 8), (0, 8, 8)), "Sepformer": ((0, 0, 0), (SEPFORMER_K4, 0, 0)),
                   "TDANet": ((0, 0, 0), (TDANET_K4, 0, 0)), "AFRCNN": ((0, 0, 0), (0, 0, 0))}
 TRAIN_STEPS = 2  # optimizer steps of a training run (one epoch)
+# One bf16 train step each (phase 34) of Sandglasset and DPRNNTasNet, at B=2 x
+# 2 s x 8 kHz: Sandglasset's intra BiLSTMs (262 sequences) K6 and its six
+# attentions K4 (dropout 0); DPRNNTasNet's rows (256 sequences) K6 and
+# columns (64) K5
+STEP_FAMILIES = {"Sandglasset": ("Sandglasset", SANDGLASSET, TSR, 2, 2.0, False),
+                 "DPRNNTasNet": ("DPRNNTasNet", DPRNN_TASNET, TSR, 2, 2.0, False)}
+TRAIN_LAUNCHES.update({"Sandglasset": ((6, 0, 6), (6, 0, 6)), "DPRNNTasNet": ((0, 6, 6), (0, 6, 6))})
+
+
+def family_settings(family: str):
+    """(audionet name, config, sample rate, batch, segment s, threshold_byloss)."""
+    return TRAIN_FAMILIES[family] if family in TRAIN_FAMILIES else STEP_FAMILIES[family]
 
 
 def micro_vpu_checks(card: str) -> dict:
@@ -1336,7 +1419,7 @@ def train_model(family: str, seed: int, dev):
     """``family`` at its config's full width and depth, seeded weights."""
     from audio_only_speech_separation_tpu_torch import models
 
-    name, cfg, sr = TRAIN_FAMILIES[family][:3]
+    name, cfg, sr = family_settings(family)[:3]
     if name == "TasNet":
         return tasnet_model(cfg["module"], seed, dev)
     return seeded_model(models.get(name), cfg, sr, seed, dev)
@@ -1344,7 +1427,7 @@ def train_model(family: str, seed: int, dev):
 
 def train_batch(family: str, seed: int, dev):
     """A seeded (mix, sources) batch at the config's batch and segment."""
-    sr, batch, secs = TRAIN_FAMILIES[family][2:5]
+    sr, batch, secs = family_settings(family)[2:5]
     rng = np.random.default_rng(seed)
     srcs = (0.3 * rng.standard_normal((batch, 2, int(secs * sr)))).astype(np.float32)
     return torch.from_numpy(srcs.sum(1)).to(dev), torch.from_numpy(srcs).to(dev)
@@ -1369,20 +1452,22 @@ def train_paths(model, exp_dir: str, dev):
             "f32 module": (contextlib.nullcontext, forward("float32"))}
 
 
-def train_step_checks(dev, root: str) -> None:
-    """Phase 26: one bf16 train step of DPRNN, DPTNet and BSRNN at their
-    configs' full width, batch and segment, three ways: through the
-    kernels, inside ``plain_versions()``, and the f32 module.  All
-    gradients as one vector under the rule of PERF.md section 2,
-    |g_kernel - g_f32| <= 1.5 |g_plain - g_f32| + 1e-3 |g_f32|; the forward
-    launches exactly TRAIN_LAUNCHES' K4, K5 and K6, the backward none."""
+def train_step_checks(dev, root: str, families) -> None:
+    """Phases 26 and 34: one bf16 train step of each of ``families`` (DPRNN,
+    DPTNet and BSRNN at their configs' full width, batch and segment;
+    Sandglasset and DPRNNTasNet at full width, STEP_FAMILIES' batch), three
+    ways: through the kernels, inside ``plain_versions()``, and the f32
+    module.  All gradients as one vector under the rule of PERF.md section
+    2, |g_kernel - g_f32| <= 1.5 |g_plain - g_f32| + 1e-3 |g_f32|; the
+    forward launches exactly TRAIN_LAUNCHES' K4, K5 and K6, the backward
+    none."""
     from audio_only_speech_separation_tpu_torch.losses import PITLossWrapper, pairwise_neg_snr
 
     counters = tasnet_counters()
-    for family in ("DPRNN", "DPTNet", "BSRNN"):
+    for family in families:
         model = train_model(family, 51, dev).train()
         mix, srcs = train_batch(family, 52, dev)
-        loss_fn = PITLossWrapper(pairwise_neg_snr, pit_from="pw_mtx", threshold_byloss=TRAIN_FAMILIES[family][5])
+        loss_fn = PITLossWrapper(pairwise_neg_snr, pit_from="pw_mtx", threshold_byloss=family_settings(family)[5])
         params = list(model.parameters())
         grads, losses_, counts = {}, {}, {}
         for path, (context, forward) in train_paths(model, os.path.join(root, family), dev).items():
@@ -1401,7 +1486,7 @@ def train_step_checks(dev, root: str) -> None:
         e_p = float((grads["plain bf16 path"] - grads["f32 module"]).norm())
         n_f = float(grads["f32 module"].norm())
         bound = 1.5 * e_p + 1e-3 * n_f
-        print(f"  {family} (B={mix.shape[0]} x {mix.shape[1] / TRAIN_FAMILIES[family][2]:g} s): loss "
+        print(f"  {family} (B={mix.shape[0]} x {mix.shape[1] / family_settings(family)[2]:g} s): loss "
               + ", ".join(f"{k} {v:.6g}" for k, v in losses_.items())
               + f"; gradients |kernel - f32| {e_k:.6g}, |plain - f32| {e_p:.6g}, |f32| {n_f:.6g}, bound {bound:.6g}"
               f"; K4, K5, K6 launches in the forward {counts['kernel path'][0]} (want {want}), after the "
@@ -1527,8 +1612,9 @@ def train_timing(dev, card: str, root: str) -> None:
     """Phase 28: a train step of each family at its config's batch and
     segment (forward, PIT loss, backward, clipping and Adam, as
     ``Trainer.fit`` takes it) on the kernel path, the plain bf16 path and
-    the f32 module, timed in turns (CUDA events, median of 5 after a
-    warm-up), the kernel path's steps split into forward, backward and the
+    the f32 module, timed in turns (CUDA events, median of 3 after a
+    warm-up; the phase is host-paced and the script's longest), the
+    kernel path's steps split into forward, backward and the
     optimizer; one kernel-path step under torch.profiler (device work by
     kernel, idle share); and for the LSTM families the host time of one
     kernel-path step spent in the backwards of K5 and K6, which recompute
@@ -1565,7 +1651,7 @@ def train_timing(dev, card: str, root: str) -> None:
 
         runs = {path: step(*cf, split=path == "kernel path")
                 for path, cf in train_paths(model, os.path.join(root, f"t_{family}"), dev).items()}
-        reps = 5
+        reps = 3
         for fn in runs.values():  # one warm-up each
             fn()
         torch.cuda.synchronize()
@@ -1595,6 +1681,268 @@ def train_timing(dev, card: str, root: str) -> None:
                        tasnet_counters(), card, calls=1, cpu=False)
         print(f"  {time.perf_counter() - t_phase:.1f} s into phase 28")
         del model, opt, runs
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+
+@contextlib.contextmanager
+def noting_calls(targets):
+    """Each (module, name, note) of ``targets``: inside the block,
+    module.name calls note(*args) and then what it was."""
+    originals = [getattr(mod, name) for mod, name, _ in targets]
+
+    def noted(fn, note):
+        def run(*args):
+            note(*args)
+            return fn(*args)
+        return run
+
+    for (mod, name, note), fn in zip(targets, originals):
+        setattr(mod, name, noted(fn, note))
+    try:
+        yield
+    finally:
+        for (mod, name, _), fn in zip(targets, originals):
+            setattr(mod, name, fn)
+
+
+def dispatch_modules():
+    from audio_only_speech_separation_tpu_torch.ops import attention as port_attention
+    from audio_only_speech_separation_tpu_torch.ops import rnn as port_rnn
+
+    return port_attention, port_rnn
+
+
+@contextlib.contextmanager
+def counting_plain_versions():
+    """{"K4", "K5", "K6": calls} of the kernels' plain versions made through
+    the models' dispatch (``ops/attention.py``, ``ops/rnn.py``) inside the
+    block: a kernel path inside the envelopes makes none."""
+    port_attention, port_rnn = dispatch_modules()
+    calls = {"K4": 0, "K5": 0, "K6": 0}
+
+    def count(label):
+        return lambda *args: calls.__setitem__(label, calls[label] + 1)
+
+    with noting_calls([(port_attention, "attention_bdt_reference", count("K4")),
+                       (port_rnn, "bilstm_reference", count("K5")),
+                       (port_rnn, "resident_bilstm_reference", count("K6"))]):
+        yield calls
+
+
+@contextlib.contextmanager
+def recording_kernel_shapes():
+    """{"K4": {[BH, dh, T]}, "K5": {(T, D, B, H)}, "K6": {(T, B, Din, H,
+    D)}}: the shapes the models' dispatch hands each kernel's wrapper inside
+    the block."""
+    port_attention, port_rnn = dispatch_modules()
+    shapes = {"K4": set(), "K5": set(), "K6": set()}
+
+    def k5(xw, w_hh):
+        T, D, B, gates = xw.shape
+        shapes["K5"].add((T, D, B, gates // 4))
+
+    def k6(x, w_ih, w_hh, bias):
+        B, T, Din = x.shape
+        shapes["K6"].add((T, B, Din, w_hh.shape[1], w_hh.shape[0]))
+
+    with noting_calls([(port_attention, "fused_attention_bdt", lambda q, k, v: shapes["K4"].add(tuple(q.shape))),
+                       (port_rnn, "fused_bilstm", k5), (port_rnn, "resident_bilstm", k6)]):
+        yield shapes
+
+
+def served_model_checks(dev, label: str, model, cases, sr: int = TSR, secs: float = 2.0):
+    """``model`` served as "kernels" (``dualpath_paths``) at each (batch,
+    (K4, K5, K6) launches a call) of ``cases``, B x secs s: the launches
+    exact, no plain version of a kernel called on the kernel path, finite
+    output of the f32 module's shape, within the 1.5x rule of the f32
+    module against the plain bf16 path.  Returns the kernel path's launches
+    summed over the cases and the shapes it gave each kernel
+    (``recording_kernel_shapes``)."""
+    kernel, plain, f32 = dualpath_paths(model)
+    counters = [c for _, c, _ in tasnet_counters()]
+    total = [0, 0, 0]
+    shapes = {"K4": set(), "K5": set(), "K6": set()}
+    for batch, want in cases:
+        x = torch.from_numpy(np.random.default_rng(90 + batch).standard_normal(
+            (batch, int(secs * sr))).astype(np.float32)).to(dev)
+        for c in counters:
+            c.launches = 0
+        with counting_plain_versions() as plain_calls, recording_kernel_shapes() as seen:
+            got = kernel(x)
+            torch.cuda.synchronize()
+        launched = tuple(c.launches for c in counters)
+        ref, pl = f32(x), plain(x)
+        torch.cuda.synchronize()
+        for out in (got, pl):
+            if out.shape != ref.shape or not torch.isfinite(out.float()).all():
+                raise AssertionError(f"{label}: bad output {tuple(out.shape)}")
+        print(f"  {label} B={batch} x {secs:g} s (output scale {float(ref.abs().max()):.4g}): launches K4, K5, K6 "
+              f"{launched} (want {want}); plain versions called on the kernel path {tuple(plain_calls.values())}; "
+              f"shapes {({g: sorted(v) for g, v in seen.items() if v})}")
+        if launched != tuple(want) or any(plain_calls.values()):
+            raise AssertionError(f"{label} B={batch}: launches {launched}, plain versions {plain_calls}")
+        check_rule(f"{label} B={batch} x {secs:g} s", max_err(got, ref), max_err(pl, ref))
+        total = [t + n for t, n in zip(total, launched)]
+        for g in shapes:
+            shapes[g] |= seen[g]
+    return total, shapes
+
+
+def kernels_at_shapes(dev, label: str, shapes, written=None) -> tuple:
+    """K4, K5 and K6 against their plain versions at every shape of
+    ``shapes`` (``served_model_checks``'s record of a model's calls) on
+    seeded inputs as in phases 10-13: unit-normal q, k, v; the validator's
+    LSTM inputs.  ``written``, where given, holds the shapes this script
+    states for the model (the timing phase's): they must be the recorded
+    ones.  Returns the worst max abs errors (0.0 for a kernel not called)."""
+    from audio_only_speech_separation_tpu_torch.ops.kernels.attention import (
+        attention_bdt_reference,
+        fused_attention_bdt,
+    )
+    from audio_only_speech_separation_tpu_torch.ops.kernels.lstm import (
+        bilstm_reference,
+        fused_bilstm,
+        resident_bilstm,
+        resident_bilstm_reference,
+    )
+
+    for g, want in (written or {}).items():
+        if set(want) != shapes[g]:
+            raise AssertionError(f"{label}: {g} shapes called {sorted(shapes[g])}, stated {sorted(want)}")
+    rand = rand_maker(91, dev)
+    print(f"  K4, K5, K6 vs plain at every shape {label}'s calls gave them")
+    k4 = [kernel_vs_plain(f"K4 [BH, dh, T] = {list(s)}", fused_attention_bdt, attention_bdt_reference,
+                          [rand(s) for _ in range(3)], 2e-2) for s in sorted(shapes["K4"])]
+    k5 = [kernel_vs_plain(f"K5 (T, D, B, H) = {s}", fused_bilstm, bilstm_reference,
+                          lstm_kernel_inputs(rand, k5_shape=s), 1e-2) for s in sorted(shapes["K5"])]
+    k6 = [kernel_vs_plain(f"K6 (T, B, Din, H, D) = {s}", resident_bilstm, resident_bilstm_reference,
+                          lstm_kernel_inputs(rand, k6_shape=s), 1e-2) for s in sorted(shapes["K6"])]
+    return tuple(max(errs, default=0.0) for errs in (k4, k5, k6))
+
+
+def zoo_checks(dev):
+    """Phases 29-31: Sandglasset, DPRNNTasNet and the other TasNet modules
+    served at full width under ``served_model_checks``, and K4, K5 and K6
+    against their plain versions at every shape those calls gave them.
+    Returns (the models, the kernel paths' launches, the worst K4, K5, K6
+    max abs errors)."""
+    from audio_only_speech_separation_tpu_torch.models import DPRNNTasNet, Sandglasset, TasNet
+
+    errs = []
+    print("phase 29: Sandglasset (defaults, 8 kHz, full width and depth), kernel path vs plain bf16 vs f32")
+    sandglasset = seeded_model(Sandglasset, SANDGLASSET, TSR, 92, dev)
+    launched, shapes = served_model_checks(dev, "Sandglasset", sandglasset, [(8, SANDGLASSET_LAUNCHES),
+                                                                              (1, SANDGLASSET_LAUNCHES)])
+    stated = [sandglasset_shapes(b) for b in (8, 1)]
+    errs.append(kernels_at_shapes(dev, "Sandglasset", shapes, {
+        "K4": [s for k4, _ in stated for s in k4.values()], "K5": [], "K6": [k6 for _, k6 in stated]}))
+
+    print("phase 30: DPRNNTasNet (defaults, 8 kHz, full width and depth), kernel path vs plain bf16 vs f32")
+    dprnn_tasnet = seeded_model(DPRNNTasNet, DPRNN_TASNET, TSR, 93, dev)
+    more, shapes = served_model_checks(dev, "DPRNNTasNet", dprnn_tasnet,
+                                       sorted(DPRNN_TASNET_LAUNCHES.items(), reverse=True))
+    launched = [a + b for a, b in zip(launched, more)]
+    errs.append(kernels_at_shapes(dev, "DPRNNTasNet", shapes,
+                                  {"K4": [], "K5": DPRNN_TASNET_K5, "K6": DPRNN_TASNET_K6}))
+
+    print("phase 31: TasNet's other separator modules (wsj0 widths, group size 2 where they communicate), "
+          "B=8 x 2 s")
+    wsj0 = {k: v for k, v in WSJ0_TASNET.items() if k not in ("sample_rate", "group_size")}
+    modules = {}
+    for label, (G, want) in TASNET_MODULES.items():
+        modules[label] = seeded_model(TasNet, dict(wsj0, module=label.split()[0], group_size=G), TSR, 94, dev)
+        more, shapes = served_model_checks(dev, f"TasNet {label}", modules[label], [(8, want)])
+        launched = [a + b for a, b in zip(launched, more)]
+        errs.append(kernels_at_shapes(dev, f"TasNet {label}", shapes))
+    worst = tuple(max(e[i] for e in errs) for i in range(3))
+    return {"Sandglasset": sandglasset, "DPRNNTasNet": dprnn_tasnet, **modules}, launched, worst
+
+
+def zoo_eval_cli(dev, zoo) -> list:
+    """Phase 32: the eval CLI as in phase 18 on Sandglasset (K4, K6),
+    DPRNNTasNet (K5, K6 at batch 1) and the DPTNet TasNet with group size 2
+    (K4, K5, K6).  Returns their K4, K5, K6 launches."""
+    wsj0 = {k: v for k, v in WSJ0_TASNET.items() if k != "sample_rate"}
+    scratch = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    launched = eval_cli_checks(dev, scratch.name, "phase 32: the eval CLI on the card for the new models", {
+        "(g) Sandglasset": (None, zoo["Sandglasset"], {"audionet_name": "Sandglasset",
+                                                       "audionet_config": dict(SANDGLASSET)},
+                            "LRS2DataModule", 2, TSR, ("K4", "K6"), ("K5",), "kernels"),
+        "(h) DPRNNTasNet": (None, zoo["DPRNNTasNet"], {"audionet_name": "DPRNNTasNet",
+                                                       "audionet_config": dict(DPRNN_TASNET)},
+                            "LRS2DataModule", 2, TSR, ("K5",), ("K4",), "kernels"),
+        "(i) DPTNet TasNet G2": (None, zoo["DPTNet G2"], {"audionet_name": "TasNet", "audionet_config": dict(
+            wsj0, module="DPTNet", group_size=2)}, "LRS2DataModule", 2, TSR, ("K4", "K5", "K6"), (), "kernels"),
+    })
+    scratch.cleanup()
+    return [sum(v[g] for v in launched.values()) for g in ("K4", "K5", "K6")]
+
+
+def zoo_timing(dev, card, zoo) -> None:
+    """Phase 33: Sandglasset and DPRNNTasNet at B=8 and B=1 x 2 s x 8 kHz
+    (kernel path, plain bf16 path, f32 module; the kernel path profiled);
+    then K4 alone at Sandglasset's three shapes beside its plain version,
+    SDPA and its bound, K6 at Sandglasset's intra shape and at
+    DPRNNTasNet's B=8 rows and columns, and K5 at its B=1 rows and
+    columns, each beside its plain version, bf16 ``nn.LSTM`` and its
+    bound."""
+    from audio_only_speech_separation_tpu_torch.ops.kernels.attention import (
+        attention_bdt_reference,
+        fused_attention_bdt,
+    )
+    from audio_only_speech_separation_tpu_torch.ops.kernels.lstm import (
+        bilstm_reference,
+        fused_bilstm,
+        resident_bilstm,
+        resident_bilstm_reference,
+    )
+
+    print(f"phase 33: timing, Sandglasset and DPRNNTasNet at B=8 and B=1 x 2 s x 8 kHz, on {card}")
+    models = {"Sandglasset": zoo["Sandglasset"], "DPRNNTasNet": zoo["DPRNNTasNet"]}
+    for batch in (8, 1):
+        time_calls(dev, card, models, batch, 2.0, TSR, 5, tasnet_counters())
+    rand = rand_maker(95, dev)
+    with torch.no_grad():
+        for side, (BH, dh, T) in sandglasset_shapes(8)[0].items():
+            q, k, v = (rand((BH, dh, T)) for _ in range(3))
+            qt, kt, vt = (a.transpose(1, 2).reshape(BH // 8, 8, T, dh).contiguous() for a in (q, k, v))
+            d = {"ms": back_to_back_ms(lambda: fused_attention_bdt(q, k, v)),
+                 "device_ms": launch_ms(lambda: fused_attention_bdt(q, k, v), "attention_kernel", 20),
+                 "plain_ms": back_to_back_ms(lambda: attention_bdt_reference(q, k, v), 5),
+                 "library_ms": back_to_back_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))}
+            bound, by = least_time(4 * q.numel() * 2, 4 * BH * T * T * dh)
+            traced = "not traced" if d["device_ms"] is None else f"{d['device_ms']:.4f} ms"
+            print(f"  K4 Sandglasset {side} [{BH}, {dh}, {T}]: kernel {d['ms']:.4f} ms a launch (CUDA events, back "
+                  f"to back), {traced} on the device (torch.profiler); plain {d['plain_ms']:.4f} ms; SDPA on "
+                  f"[{BH // 8}, 8, {T}, {dh}] {d['library_ms']:.4f} ms; bound {bound:.5f} ms ({by}); {card}")
+        lstm_cases = [("K6 Sandglasset intra", sandglasset_shapes(8)[1]),
+                      ("K6 DPRNNTasNet rows B=8", DPRNN_TASNET_K6[0]), ("K6 DPRNNTasNet columns B=8", DPRNN_TASNET_K6[1]),
+                      ("K5 DPRNNTasNet rows B=1", DPRNN_TASNET_K5[0]), ("K5 DPRNNTasNet columns B=1", DPRNN_TASNET_K5[1])]
+        for label, shape in lstm_cases:
+            if label.startswith("K6"):
+                T, B, Din, H, D = shape
+                args = lstm_kernel_inputs(rand, k6_shape=shape)
+                kernel, plain, name = resident_bilstm, resident_bilstm_reference, "lstm_resident_kernel"
+                nbytes = (args[0].numel() + args[1].numel() + args[2].numel() + T * D * B * H) * 2 + args[3].numel() * 4
+                flops = 2 * T * D * B * (Din + H) * 4 * H
+            else:
+                T, D, B, H = shape
+                Din = DPRNN_TASNET["feature_dim"]  # the rows' and columns' input width
+                args = lstm_kernel_inputs(rand, k5_shape=shape)
+                kernel, plain, name = fused_bilstm, bilstm_reference, "lstm_recurrence_kernel"
+                nbytes = (args[0].numel() + args[0].numel() // 4 + args[1].numel()) * 2
+                flops = 2 * T * D * B * H * 4 * H
+            d = {"ms": back_to_back_ms(lambda: kernel(*args), 10),
+                 "device_ms": launch_ms(lambda: kernel(*args), name, 5),
+                 "plain_ms": back_to_back_ms(lambda: plain(*args), 1)}
+            lib = lstm_library_ms(dev, rand((B, T, Din), 0.5), Din, H)
+            bound, by = least_time(nbytes, flops)
+            traced = "not traced" if d["device_ms"] is None else f"{d['device_ms']:.4f} ms"
+            print(f"  {label} {shape}: kernel {d['ms']:.4f} ms a launch (CUDA events, back to back), {traced} on "
+                  f"the device (torch.profiler); plain {d['plain_ms']:.4f} ms; bf16 nn.LSTM({Din}, {H}) on "
+                  f"[{B}, {T}, {Din}] " + ("not timed" if lib is None else f"{lib:.4f} ms")
+                  + f"; bound {bound:.5f} ms ({by}); {card}")
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
@@ -2042,13 +2390,31 @@ def main() -> None:
     print(f"  {time.perf_counter() - t_start:.1f} s since the start")
     scratch = tempfile.TemporaryDirectory(prefix="chip_smoke_")  # phases 26-28
     print("phase 26: one bf16 train step of DPRNN, DPTNet and BSRNN three ways (kernels, plain versions, f32)")
-    train_step_checks(dev, scratch.name)
+    train_step_checks(dev, scratch.name, ("DPRNN", "DPTNet", "BSRNN"))
     print(f"  {time.perf_counter() - t_start:.1f} s since the start")
     trained = train_cli_checks(dev, scratch.name)
     k4_launches, k5_launches, k6_launches = (k4_launches + trained["K4"], k5_launches + trained["K5"],
                                              k6_launches + trained["K6"])
     print(f"  {time.perf_counter() - t_start:.1f} s since the start")
     train_timing(dev, card, scratch.name)
+    scratch.cleanup()
+    print(f"  {time.perf_counter() - t_start:.1f} s since the start")
+
+    zoo, zoo_launched, zoo_errs = zoo_checks(dev)
+    k4_err, k5_err, k6_err = (max(a, b) for a, b in zip((k4_err, k5_err, k6_err), zoo_errs))
+    print(f"  {time.perf_counter() - t_start:.1f} s since the start")
+    cli_launched = zoo_eval_cli(dev, zoo)
+    # the new models' kernel paths (phases 29-31) and the eval CLI on them (phase 32)
+    k4_launches, k5_launches, k6_launches = (n + a + b for n, a, b in zip(
+        (k4_launches, k5_launches, k6_launches), zoo_launched, cli_launched))
+    print(f"  {time.perf_counter() - t_start:.1f} s since the start")
+    zoo_timing(dev, card, zoo)
+    del zoo
+    torch.cuda.empty_cache()
+    print(f"  {time.perf_counter() - t_start:.1f} s since the start")
+    scratch = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    print("phase 34: one bf16 train step of Sandglasset and DPRNNTasNet three ways (kernels, plain versions, f32)")
+    train_step_checks(dev, scratch.name, tuple(STEP_FAMILIES))
     scratch.cleanup()
     print(f"  {time.perf_counter() - t_start:.1f} s since the start")
 

@@ -292,11 +292,17 @@ def _bf16(dev, a):
 # and columns, and edge cases: dh not a multiple of 16, T = 1, a ragged tile;
 # T on either side of a 16-query tile, the batch-1 12 s rows (T 242: two
 # query blocks, two key chunks), several key chunks at dh 16, dh 8 and 256;
-# Sepformer's intra and inter passes at B=2 x 2 s x 16 kHz
+# Sepformer's intra and inter passes at B=2 x 2 s x 16 kHz; Sandglasset's
+# three attentions at B=8 x 2 s x 8 kHz (S = 131 chunks, 8 heads of 16, K 250
+# positions batched in blocks 0 and 5, 62 pooled in blocks 1 and 4, 15 in 2
+# and 3); DPTNet's rows with group size 2 (dh 8); the wsj0 TasNet DPTNet
+# core with group size 2 at B=8 x 2 s x 8 kHz (rows: 8 x 2 x 6 chunks of 100
+# frames; columns: 8 x 2 x 100 sequences of 6 chunks; 4 heads of dh 8)
 ATTN_CASES = [(512, 32, 250), (16, 64, 129), (1344, 16, 100), (3200, 16, 42),
               (3, 8, 1), (5, 24, 77), (2, 256, 300), (3, 16, 15), (3, 16, 16), (3, 16, 17),
               (400, 16, 242), (4, 16, 300), (6, 8, 50), (3, 256, 40),
-              (544, 32, 250), (4000, 32, 34)]
+              (544, 32, 250), (4000, 32, 34), (16000, 16, 131), (3968, 16, 131), (960, 16, 131),
+              (64, 8, 100), (384, 8, 100), (6400, 8, 6)]
 
 
 @pytest.mark.parametrize("BH,dh,T", ATTN_CASES)
@@ -320,10 +326,14 @@ def test_attention_matches_plain_version(cuda, BH, dh, T):
 # (B 17), 100 sequences at H 128 with a short T, H 48 (a cluster of 2) and
 # H 256 at B 2; batches too large for a cluster (one block a tile), where
 # the xw ring is 4H wide and W_hh (H 256) is read from L2; BSRNN's band RNNs
-# at B=1 and 4 x 4 s x 8 kHz (8 bands of 501 frames, H 256)
+# at B=1 and 4 x 4 s x 8 kHz (8 bands of 501 frames, H 256); DPRNNTasNet's
+# rows (128 chunks of 32 frames) and columns (32 sequences of 128 chunks) at
+# B=1 x 2 s x 8 kHz (H 256); the wsj0 TasNet DPRNN and DPTNet cores' rows with
+# group size 2 at B=8 x 2 s x 8 kHz (8 x 2 x 6 chunks of 100 frames, H 64)
 BILSTM_CASES = [(251, 2, 64, 256), (250, 2, 96, 128), (128, 1, 32, 128), (242, 2, 100, 128),
                 (9, 2, 3, 16), (1, 2, 4, 32), (6, 2, 17, 16), (5, 2, 100, 128), (40, 2, 3, 48),
-                (4, 1, 2, 256), (3, 2, 1100, 128), (3, 2, 1100, 256), (501, 2, 8, 256), (501, 2, 32, 256)]
+                (4, 1, 2, 256), (3, 2, 1100, 128), (3, 2, 1100, 256), (501, 2, 8, 256), (501, 2, 32, 256),
+                (32, 2, 128, 256), (128, 2, 32, 256), (100, 2, 96, 64)]
 
 
 @pytest.mark.parametrize("T,D,B,H", BILSTM_CASES)
@@ -359,13 +369,22 @@ def test_recurrence_cases_cover_each_cluster_plan(cuda):
 # batches too large for a cluster (one block a tile), where W_hh (H 256) or
 # W_ih (Din 128, H 128) does not fit in shared memory and is read from L2;
 # BSRNN's band-comm RNNs at B=1 and 4 x 4 s x 8 kHz (501 B sequences of 8
-# bands, Din 128, H 256)
+# bands, Din 128, H 256); Sandglasset's intra BiLSTM at B=8 and 1 x 2 s x 8
+# kHz (131 chunks of 250 frames an utterance, Din 128, H 128: 1048 = 65
+# tiles of 16 and 8 rows); DPRNNTasNet's rows (1024 chunks of 32 frames) and
+# columns (256 sequences of 128 chunks) at B=8 x 2 s x 8 kHz (H 256); the
+# wsj0 TasNet with group size 2 at B=8 x 2 s x 8 kHz: the context GC_RNNs
+# (8 x 168 windows of 24 frames x 2 groups, Din 32, H 64) and the grouped
+# cores' columns (8 x 2 x 100 sequences of 6 chunks)
 RESIDENT_CASES = [(100, 336, 64, 128, 2, True), (42, 800, 64, 128, 2, True), (42, 800, 64, 128, 1, True),
                   (100, 241, 64, 128, 2, True), (250, 256, 128, 128, 2, True),
                   (7, 19, 32, 32, 2, False), (30, 16, 64, 128, 2, True), (1, 40, 64, 128, 2, True),
                   (12, 5, 16, 16, 1, True), (20, 50, 128, 256, 2, True), (9, 33, 64, 256, 1, False),
                   (3, 1100, 64, 256, 2, True), (3, 2200, 128, 128, 1, True),
-                  (8, 501, 128, 256, 2, True), (8, 2004, 128, 256, 2, True)]
+                  (8, 501, 128, 256, 2, True), (8, 2004, 128, 256, 2, True),
+                  (250, 1048, 128, 128, 2, True), (250, 131, 128, 128, 2, True),
+                  (32, 1024, 128, 256, 2, True), (128, 256, 128, 256, 2, True),
+                  (24, 2688, 32, 64, 2, True), (6, 1600, 32, 64, 2, True)]
 
 
 @pytest.mark.parametrize("T,B,Din,H,D,with_bias", RESIDENT_CASES)
@@ -686,3 +705,80 @@ def test_lstm_kernel_gradients_under_the_cast_policy(cuda, T, B, Din, H, kernel)
     for name, a in grads_p.items():
         limit = 2e-2 if name == "proj.weight" else 1e-4
         assert a.dtype == torch.float32 and _rel(a, grads_k[name]) < limit, (name, _rel(a, grads_k[name]))
+
+
+# ---------------------------------------------------------------------------
+# Sandglasset (K4 in its 3-D and 4-D forms, K6), DPRNNTasNet (K5, K6), the
+# rest of the TasNet modules
+# ---------------------------------------------------------------------------
+
+
+def test_sandglasset_kernel_path_meets_the_validator_rule(cuda):
+    """A Sandglasset (bn 64, 4 heads of dh 16, H 64, chunks of 50, 4 blocks)
+    at B=2 x 1 s x 8 kHz (8001 frames: 323 chunks an utterance) cast to
+    bf16: each block attends once through K4 (blocks 0 and 3 in the 4-D
+    form) and runs its intra BiLSTM (646 sequences) through K6, within the
+    1.5x rule of the f32 module."""
+    from audio_only_speech_separation_tpu_torch.models import Sandglasset
+
+    m = Sandglasset(n_feats=32, bn_chan=64, hid_size=64, chunk_size=50, hop_size=25, n_repeats=4, n_head=4,
+                    sample_rate=8000, generator=torch.Generator().manual_seed(17)).to(cuda).eval()
+    launched = _validator_rule(m, _waves(cuda, 18, 2, 8000), (fused_attention_bdt, fused_bilstm, resident_bilstm))
+    assert launched == [4, 0, 4]
+
+
+def test_batched_axis1_attention_kernel_form_matches_plain_form(cuda):
+    """The 4-D attention's kernel form (the projections written straight
+    into K4's layout and back) against its plain form in bf16 at
+    Sandglasset's widths ([2, 131, 250, 128], 8 heads): within 2e-2 of each
+    other's output."""
+    from audio_only_speech_separation_tpu_torch.ops.attention import (
+        MultiheadAttention,
+        mha_batched_axis1_kernel_form,
+        mha_batched_axis1_plain_form,
+    )
+
+    m = MultiheadAttention(128, 8).to(cuda, torch.bfloat16).eval()
+    x = _bf16(cuda, np.random.default_rng(19).standard_normal((2, 131, 250, 128)))
+    w = (m.in_proj_weight, m.in_proj_bias, m.out_proj.weight, m.out_proj.bias)
+    before = fused_attention_bdt.launches
+    with torch.no_grad():
+        got = mha_batched_axis1_kernel_form(x, *w, 8)
+        want = mha_batched_axis1_plain_form(x, *w, 8)
+    torch.cuda.synchronize()
+    assert fused_attention_bdt.launches - before == 1
+    assert float((got.float() - want.float()).abs().max()) < 2e-2
+
+
+@pytest.mark.parametrize("batch,launched", [(1, [0, 4, 0]), (8, [0, 0, 4])])
+def test_dprnn_tasnet_kernel_path_meets_the_validator_rule(cuda, batch, launched):
+    """A DPRNNTasNet (feature 64, H 128, 2 layers, segments of 32) at B x
+    1 s x 8 kHz (1006 frames: 64 chunks an utterance) cast to bf16: rows
+    and columns through K5 at batch 1 (64 and 32 sequences) and K6 at
+    batch 8 (512 and 256), within the 1.5x rule of the f32 module."""
+    from audio_only_speech_separation_tpu_torch.models import DPRNNTasNet
+
+    m = DPRNNTasNet(feature_dim=64, hidden_dim=128, sample_rate=8000, layer=2,
+                    generator=torch.Generator().manual_seed(20)).to(cuda).eval()
+    counters = (fused_attention_bdt, fused_bilstm, resident_bilstm)
+    assert _validator_rule(m, _waves(cuda, 21, batch, 8000), counters) == launched
+
+
+TASNET_MODULE_CASES = [("TCN", 1, [0, 0, 0]), ("SudoRMRF", 1, [0, 0, 0]), ("GC_TCN", 2, [0, 0, 4]),
+                       ("GC_SudoRMRF", 2, [0, 0, 4]), ("DPRNN", 2, [0, 2, 6]), ("DPTNet", 2, [4, 2, 6])]
+
+
+@pytest.mark.parametrize("module,group_size,launched", TASNET_MODULE_CASES)
+def test_tasnet_modules_meet_the_validator_rule(cuda, module, group_size, launched):
+    """A TasNet (enc and bn 64, H 128, 2 layers, chunks of 50, context 24) of
+    each separator module at B=4 x 1 s x 8 kHz cast to bf16: TCN and
+    SudoRM-RF run no kernel; with group size 2 the context GC_RNNs (4
+    layers, 4 x 86 windows x 2 groups) take K6, the grouped cores' rows
+    (4 x 2 x 6 sequences) K5 and their columns (4 x 2 x 50) K6, DPTNet's
+    attention K4 (dh 8); within the 1.5x rule of the f32 module."""
+    from audio_only_speech_separation_tpu_torch.models import TasNet
+
+    m = TasNet(enc_dim=64, bn_dim=64, hidden_dim=128, layer=2, module=module, group_size=group_size,
+               block_size=50, sample_rate=8000, generator=torch.Generator().manual_seed(22)).to(cuda).eval()
+    counters = (fused_attention_bdt, fused_bilstm, resident_bilstm)
+    assert _validator_rule(m, _waves(cuda, 23, 4, 8000), counters) == launched

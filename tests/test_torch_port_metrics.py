@@ -206,13 +206,14 @@ def test_eval_cli_matches_jax(tmp_path, test_manifests, name, batch_size):
 
 def test_eval_cli_needs_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
     """No card: ``main`` raises unless the caller passes ``device="cpu"``;
-    an unported model fails at the registry's lookup, before any data is
-    read."""
+    a model name the registry does not hold (the port registers every
+    model the JAX package does) fails at the registry's lookup, before any
+    data is read."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     missing = tmp_path / "missing"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         audio_test.main(_config("ConvTasNet", missing, tmp_path, False))
-    sandglasset = dict(_config("ConvTasNet", missing, tmp_path, False),
-                       audionet={"audionet_name": "Sandglasset", "audionet_config": {}})
-    with pytest.raises(KeyError, match="Sandglasset"):
-        audio_test.main(sandglasset, device="cpu")
+    unknown = dict(_config("ConvTasNet", missing, tmp_path, False),
+                   audionet={"audionet_name": "NoSuchModel", "audionet_config": {}})
+    with pytest.raises(KeyError, match="NoSuchModel"):
+        audio_test.main(unknown, device="cpu")

@@ -288,19 +288,13 @@ def test_jax_checkpoint_serves_through_the_port(tmp_path, module):
             _close(est[i], want[j, :, : len(wavs[i])])
 
 
-def test_dispatch_and_unported_configs():
+def test_dispatch_of_bf16_on_the_card():
     """bf16 TasNet on a CUDA device dispatches to the kernels; f32 or the
-    CPU to the module; other separator modules and group communication
-    raise, naming the ROADMAP."""
+    CPU to the module."""
     _, _, tm = tasnet_pair("DPRNN", True)
     assert choose_dispatch(tm, True, "cuda") == "kernels"
     assert choose_dispatch(tm, False, "cuda") == "eager"
     assert choose_dispatch(tm, True, "cpu") == "eager"
-    for bad in (dict(module="TCN"), dict(module="DPRNN", group_size=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TasNet(**dict(SMALL, **bad))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MultiheadAttention(16, 2)(torch.zeros(1, 3, 4, 16))
 
 
 def test_plain_versions_switch():
