@@ -9,7 +9,8 @@ Config -> registries -> AudioSystem -> Trainer on one device: the CUDA
 card unless ``main`` is given ``device="cpu"``.  Every YAML leaf is a CLI
 flag (``utils/parser_utils``), and ``--<group>.<leaf> value`` sets any
 key (``training.precision``, ``training.seed``: the dropout masks' seed,
-42 by default, as in the JAX package).  Artifacts land in
+42 by default, as in the JAX package; ``training.remat``: recompute the
+train forward's activations in the backward).  Artifacts land in
 ``Experiments/checkpoint/<exp_name>/`` under the working directory
 (conf.yml, top-5 and last checkpoints, best_k_models.json,
 best_model.pth), logs in ``Experiments/tensorboard_logs/<exp_name>``.
@@ -30,6 +31,10 @@ import torch
 from . import data as datas
 from . import losses, models
 from .train import AudioSystem, Trainer, make_optimizer, make_scheduler
+
+# The warm-start hook that audio_train_twostep sets: a (pretrained state
+# dict, merge_fn) pair, merged into the model before the first step.
+WARM_START = None
 
 
 def build_loss(loss_conf: dict):
@@ -82,6 +87,8 @@ def main(config: dict, device="cuda") -> str:
     system = AudioSystem(audio_model=model, loss_func=loss_func, optimizer=optimizer,
                          train_loader=train_loader, val_loader=val_loader,
                          test_loader=test_loader, scheduler=scheduler, config=config)
+    if WARM_START is not None:
+        system.warm_start = WARM_START
     trainer = Trainer(
         exp_dir=exp_dir,
         epochs=config["training"]["epochs"],
@@ -92,6 +99,7 @@ def main(config: dict, device="cuda") -> str:
         precision=config["training"].get("precision", "float32"),
         seed=config["training"].get("seed", 42),
         fused_forward=bool(config["training"].get("fused_forward", False)),
+        remat=bool(config["training"].get("remat", False)),
         device=device,
     )
     trainer.fit(system)

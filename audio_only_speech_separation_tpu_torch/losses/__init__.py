@@ -1,5 +1,5 @@
 """Loss registry (counterpart of ``audio_only_speech_separation_tpu/losses``;
-reference look2hear/losses/__init__.py:8-36).  MixIT is not ported yet."""
+reference look2hear/losses/__init__.py:8-36)."""
 
 from .matrix import (
     MultiSrcNegSDR,
@@ -15,6 +15,7 @@ from .matrix import (
     singlesrc_neg_sisdr,
     singlesrc_neg_snr,
 )
+from .mixit import MixITLossWrapper
 from .pit import PITLossWrapper
 
 __all__ = [
@@ -22,6 +23,7 @@ __all__ = [
     "SingleSrcNegSDR",
     "MultiSrcNegSDR",
     "PITLossWrapper",
+    "MixITLossWrapper",
     "pairwise_neg_sisdr",
     "pairwise_neg_sdsdr",
     "pairwise_neg_snr",

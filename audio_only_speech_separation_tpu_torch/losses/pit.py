@@ -5,7 +5,9 @@ look2hear/losses/pit_wrapper.py:15-142).
 Modes ``pw_mtx`` / ``pw_pt`` / ``perm_avg``, the -30 dB loss threshold, and
 source reordering by the best permutation.  The best permutation is found
 on the device by enumerating all n! permutations (up to n_src = 6) in one
-contraction with a fixed one-hot tensor: no host round-trip.
+contraction with a fixed one-hot tensor: no host round-trip.  Past 6
+sources ``hungarian_best_perm`` solves it on the host (scipy's Hungarian
+solver), outside the training step.
 """
 
 from __future__ import annotations
@@ -33,13 +35,28 @@ def find_best_perm(pair_wise_losses: torch.Tensor):
     n_src = pair_wise_losses.shape[-1]
     if n_src > _MAX_FACTORIAL_N:
         raise NotImplementedError(
-            f"on-device PIT enumerates up to n_src={_MAX_FACTORIAL_N}; got {n_src}"
+            f"on-device PIT enumerates up to n_src={_MAX_FACTORIAL_N}; "
+            f"got {n_src}. Use hungarian_best_perm (host) for larger n."
         )
     pwl = pair_wise_losses.transpose(-1, -2)  # [B, tgt, est]
     perms, one_hot = _perm_tensors(n_src, pwl.device)
     loss_set = torch.einsum("bij,pij->bp", pwl, one_hot.to(pwl.dtype)) / n_src
     min_loss, idx = loss_set.min(dim=1)
     return min_loss, perms[idx]
+
+
+def hungarian_best_perm(pair_wise_losses):
+    """``find_best_perm`` on the host for any n_src (scipy's Hungarian
+    solver; eval time only): pair_wise_losses [B, n_est, n_tgt] (a tensor
+    or an array) -> numpy (min_loss [B], batch_indices [B, n])."""
+    from scipy.optimize import linear_sum_assignment
+
+    if isinstance(pair_wise_losses, torch.Tensor):
+        pair_wise_losses = pair_wise_losses.detach().cpu().numpy()
+    pwl = np.swapaxes(np.asarray(pair_wise_losses), -1, -2)
+    batch_indices = np.stack([linear_sum_assignment(m)[1] for m in pwl])
+    min_loss = np.take_along_axis(pwl, batch_indices[..., None], axis=2).mean((-1, -2))
+    return min_loss, batch_indices
 
 
 def reorder_sources(sources: torch.Tensor, batch_indices: torch.Tensor):

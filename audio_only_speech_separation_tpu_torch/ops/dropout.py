@@ -5,16 +5,20 @@
 The JAX package draws every mask from the ``dropout`` stream of a key that
 its Trainer folds from ``seed`` and the step.  Here each module draws from
 a ``torch.Generator`` of its own on the input's device, so no mask comes
-from torch's process-wide generator and a training run repeats:
-``seed_generators(model, seed)`` seeds every such module of a model from
-one seed (``train.Trainer.fit`` calls it once, before the first step).  The
-masks are not the JAX package's: the two frameworks have different
+from torch's process-wide generator: ``seed_generators(model, seed, step)``
+seeds every such module of a model from (seed, step), and
+``train.Trainer`` calls it at the start of every step's forward.  So a
+step's masks depend on the seed and the global step alone: a run resumed
+from a checkpoint draws what the uninterrupted run draws, and a forward
+recomputed for the backward (remat) draws the masks of the first pass.
+The masks are not the JAX package's: the two frameworks have different
 generators.  Neither module holds parameters or buffers, so state dicts
 keep their keys.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -31,7 +35,9 @@ class _Draws(nn.Module):
 
     def reseed(self, seed: int) -> None:
         """Start the draws again from ``seed``."""
-        self.seed, self.generator = seed, None
+        self.seed = seed
+        if self.generator is not None:
+            self.generator.manual_seed(seed)
 
     def uniform(self, shape, device: torch.device) -> torch.Tensor:
         """f32 U[0, 1) of ``shape`` on ``device`` from this module's generator."""
@@ -71,12 +77,14 @@ class DropPath(_Draws):
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def seed_generators(model: nn.Module, seed: int) -> int:
-    """Reseed every ``Dropout`` and ``DropPath`` of ``model`` from ``seed``:
-    each its own seed, drawn in module order from one generator seeded
-    with ``seed``.  Returns how many it reseeded."""
+def seed_generators(model: nn.Module, seed: int, step: int | None = None) -> int:
+    """Reseed every ``Dropout`` and ``DropPath`` of ``model`` from ``seed``
+    (and the training ``step``, when given): each its own seed, drawn in
+    module order from numpy's ``SeedSequence`` of (seed, step).  Returns how
+    many it reseeded."""
     draws = [m for m in model.modules() if isinstance(m, _Draws)]
-    seeds = torch.randint(2**62, (len(draws),), generator=torch.Generator().manual_seed(seed))
+    entropy = (seed,) if step is None else (seed, step)
+    seeds = np.random.SeedSequence(entropy).generate_state(len(draws), np.uint64) >> np.uint64(2)
     for m, s in zip(draws, seeds.tolist()):
         m.reseed(s)
     return len(draws)

@@ -115,10 +115,22 @@ def load_library() -> ctypes.CDLL:
     lib.lstm_resident_launches.restype = i
     lib.lstm_resident_cluster.argtypes = [i] * 4
     lib.lstm_resident_cluster.restype = i
+    bind_micro_vpu(lib)
+    return lib
+
+
+def bind_micro_vpu(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare K7's C entry points on ``lib`` (the package's library, or a
+    profile build of ``csrc/micro_vpu.cu`` alone)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
     lib.micro_vpu.argtypes = [p] * 4 + [i] * 3 + [ctypes.c_float] * 2 + [p]
     lib.micro_vpu.restype = i
-    lib.micro_vpu_partials.argtypes = [i, i]
+    lib.micro_vpu_per_thread.argtypes = [i, i]
+    lib.micro_vpu_per_thread.restype = i
+    lib.micro_vpu_partials.argtypes = [i] * 3
     lib.micro_vpu_partials.restype = i
+    lib.micro_vpu_fits.argtypes = [i] * 3
+    lib.micro_vpu_fits.restype = i
     lib.micro_vpu_launches.argtypes = [i]
     lib.micro_vpu_launches.restype = i
     return lib

@@ -4,9 +4,9 @@ reference look2hear/system/__init__.py:9-12)."""
 from .checkpoints import CheckpointManager
 from .loggers import CompositeLogger, CSVLogger, TensorBoardLogger, make_default_logger
 from .optimizers import get_learning_rate, make_optimizer, set_learning_rate
-from .schedulers import NoamLR, ReduceLROnPlateau, StepLR, make_scheduler
+from .schedulers import CosineAnnealingLR, ExponentialLR, NoamLR, ReduceLROnPlateau, StepLR, make_scheduler
 from .system import AudioLightningModule, AudioSystem
-from .trainer import EarlyStopping, Trainer
+from .trainer import EarlyStopping, Trainer, bf16_forward
 
 __all__ = [
     "make_optimizer",
@@ -15,12 +15,15 @@ __all__ = [
     "make_scheduler",
     "ReduceLROnPlateau",
     "StepLR",
+    "ExponentialLR",
+    "CosineAnnealingLR",
     "NoamLR",
     "CheckpointManager",
     "AudioSystem",
     "AudioLightningModule",
     "EarlyStopping",
     "Trainer",
+    "bf16_forward",
     "CSVLogger",
     "TensorBoardLogger",
     "CompositeLogger",

@@ -11,6 +11,7 @@ package's, step for step.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 
@@ -82,6 +83,36 @@ class StepLR(_Stateful):
         return self.lr
 
 
+class ExponentialLR(_Stateful):
+    """lr times ``gamma`` every epoch."""
+
+    def __init__(self, lr: float, gamma: float = 0.95, **_):
+        self.lr = lr
+        self.gamma = gamma
+
+    def step(self, metric: float = 0.0) -> float:
+        self.lr *= self.gamma
+        return self.lr
+
+
+class CosineAnnealingLR(_Stateful):
+    """eta_min + (lr - eta_min) (1 + cos(pi epoch / T_max)) / 2 after each
+    epoch."""
+
+    def __init__(self, lr: float, T_max: int, eta_min: float = 0.0, **_):
+        self.base_lr = lr
+        self.lr = lr
+        self.T_max = T_max
+        self.eta_min = eta_min
+        self.epoch = 0
+
+    def step(self, metric: float = 0.0) -> float:
+        self.epoch += 1
+        self.lr = self.eta_min + 0.5 * (self.base_lr - self.eta_min) * (
+            1 + math.cos(math.pi * self.epoch / self.T_max))
+        return self.lr
+
+
 class NoamLR(_Stateful):
     """Transformer warm-up (reference utils/transformer_optimizer.py:3-57),
     stepped per optimizer step through ``step_batch``."""
@@ -104,7 +135,8 @@ class NoamLR(_Stateful):
         return self.lr
 
 
-_SCHEDULERS = {"ReduceLROnPlateau": ReduceLROnPlateau, "StepLR": StepLR, "NoamLR": NoamLR}
+_SCHEDULERS = {"ReduceLROnPlateau": ReduceLROnPlateau, "StepLR": StepLR, "ExponentialLR": ExponentialLR,
+               "CosineAnnealingLR": CosineAnnealingLR, "NoamLR": NoamLR}
 
 
 def make_scheduler(sche_name: str, lr: float, **sche_config):

@@ -15,7 +15,17 @@ for the reference, written out.
   ``models.convtasnet.make_kernel_train_apply`` on the same casts (the TCN
   chain through its forward and backward kernels).
 - Dropout and DropPath draw from their own generators, seeded from
-  ``seed`` once before the first step (``ops.dropout.seed_generators``).
+  (``seed``, global step) at the start of every step's forward
+  (``ops.dropout.seed_generators``), as the JAX Trainer folds the step into
+  its key: a run resumed from last.ckpt (which keeps the global step)
+  draws the masks of the uninterrupted run.
+- ``remat=True`` recomputes the train forward's activations in the
+  backward (``torch.utils.checkpoint``, non-reentrant; the JAX Trainer's
+  ``jax.checkpoint``): the TCN chain's forward kernel runs again there, and
+  the recomputed forward reseeds its masks, so it draws the first pass's.
+- A warm start: ``system.warm_start = (pretrained state dict, merge_fn)``
+  calls ``merge_fn(model, pretrained)`` before the first step of a run that
+  does not resume (``audio_train_twostep.update_parameter``).
 - Global-norm gradient clipping happens in the optimizer's ``step``.
 - ReduceLROnPlateau (per epoch, on the val loss) or Noam (per step), and
   EarlyStopping on the val loss.
@@ -38,6 +48,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..models import save_serialized, serialize
 from ..ops.dropout import seed_generators
@@ -47,6 +58,31 @@ from .optimizers import get_learning_rate, set_learning_rate
 from .schedulers import NoamLR
 
 TEST_EVERY = 10  # epochs between runs of the test loader
+
+
+def bf16_forward(model, fused: bool = False, **kernel_apply):
+    """The JAX Trainer's mixed-precision forward: est = forward(mix) in f32
+    from bf16 casts of ``model``'s f32 parameters and of the mix (the
+    gradients reach the f32 parameters through the casts).  With ``fused``
+    a ConvTasNet runs ``make_kernel_train_apply`` (the TCN chain through its
+    forward and backward kernels; ``kernel_apply`` is passed to it) on the
+    casts, any other model ``torch.func.functional_call``."""
+    bf = torch.bfloat16
+    params = dict(model.named_parameters())
+    apply_fn = None
+    if fused:
+        from ..models.convtasnet import ConvTasNet, make_kernel_train_apply
+
+        if isinstance(model, ConvTasNet):
+            apply_fn = make_kernel_train_apply(model, **kernel_apply)
+
+    def forward(mix):
+        cast = {k: p.to(bf) if p.dtype == torch.float32 else p for k, p in params.items()}
+        if apply_fn is not None:
+            return apply_fn(cast, mix.to(bf)).float()
+        return torch.func.functional_call(model, cast, (mix.to(bf),)).float()
+
+    return forward
 
 
 class EarlyStopping:
@@ -81,7 +117,8 @@ class Trainer:
     def __init__(self, exp_dir: str, epochs: int = 500, early_stop: Optional[dict] = None,
                  logger_dir: Optional[str] = None, checkpoint: Optional[dict] = None,
                  precision: str = "float32", seed: int = 42,
-                 logger: Optional[BaseLogger] = None, fused_forward: bool = False, device="cuda"):
+                 logger: Optional[BaseLogger] = None, fused_forward: bool = False, remat: bool = False,
+                 device="cuda"):
         if precision not in ("float32", "bfloat16"):
             raise ValueError(f"precision must be float32 or bfloat16, got {precision!r}")
         self.exp_dir = exp_dir
@@ -90,6 +127,7 @@ class Trainer:
         self.seed = seed  # the dropout masks' seed (the JAX Trainer's default)
         # opt-in: bf16 training through the TCN chain's kernels
         self.fused_forward = fused_forward
+        self.remat = remat  # recompute the train forward's activations in the backward
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer: no CUDA device; pass device=\"cpu\" to train on the CPU")
@@ -107,22 +145,20 @@ class Trainer:
         """est = forward(mix) in f32, by ``precision`` and ``fused_forward``."""
         if self.precision == "float32":
             return model
-        bf = torch.bfloat16
-        params = dict(model.named_parameters())
-        apply_fn = None
-        if self.fused_forward:
-            from ..models.convtasnet import ConvTasNet, make_kernel_train_apply
+        return bf16_forward(model, self.fused_forward)
 
-            if isinstance(model, ConvTasNet):
-                apply_fn = make_kernel_train_apply(model)
+    def _train_forward(self, forward, model, step: int):
+        """``forward`` for the train step ``step``: the dropout generators
+        seeded from (seed, step) at its start, inside the checkpointed
+        region under ``remat`` so that the recomputation draws the same
+        masks."""
+        def run(mix):
+            seed_generators(model, self.seed, step)
+            return forward(mix)
 
-        def forward(mix):
-            cast = {k: p.to(bf) if p.dtype == torch.float32 else p for k, p in params.items()}
-            if apply_fn is not None:
-                return apply_fn(cast, mix.to(bf)).float()
-            return torch.func.functional_call(model, cast, (mix.to(bf),)).float()
-
-        return forward
+        if not self.remat:
+            return run
+        return lambda mix: checkpoint(run, mix, use_reentrant=False)
 
     def _batch(self, np_batch):
         mix, sources, _keys = np_batch
@@ -148,18 +184,21 @@ class Trainer:
         scheduler = system.scheduler
         train_loss_fn, val_loss_fn = system.loss_func["train"], system.loss_func["val"]
 
-        start_epoch = 0
+        start_epoch, global_step = 0, 0
         resume = self.ckpt.maybe_resume()
         if resume is not None:
             model.load_state_dict({k: torch.from_numpy(v) for k, v in resume["model"].items()})
             opt.load_state_dict(resume["optimizer"])
             start_epoch = resume["epoch"] + 1
+            global_step = resume.get("global_step", start_epoch * max(1, len(system.train_loader)))
             if scheduler is not None and resume.get("scheduler"):
                 scheduler.load_state_dict(resume["scheduler"])
             if resume.get("early_stop"):
                 self.early_stop.load_state_dict(resume["early_stop"])
+        elif getattr(system, "warm_start", None) is not None:
+            pretrained, merge_fn = system.warm_start
+            merge_fn(model, pretrained)
         forward = self._make_forward(model)
-        seed_generators(model, self.seed)
         self.logger.log_hyperparams(getattr(system, "hparams", None) or {})
 
         current_lr = getattr(scheduler, "lr", None)
@@ -171,9 +210,10 @@ class Trainer:
             for np_batch in system.train_loader:
                 mix, sources = self._batch(np_batch)
                 opt.zero_grad()
-                loss = train_loss_fn(forward(mix), sources)
+                loss = train_loss_fn(self._train_forward(forward, model, global_step)(mix), sources)
                 loss.backward()
                 opt.step()
+                global_step += 1
                 if isinstance(scheduler, NoamLR):
                     current_lr = scheduler.step_batch()
                     set_learning_rate(opt, current_lr)
@@ -208,6 +248,7 @@ class Trainer:
                 "optimizer": opt.state_dict(),
                 "scheduler": scheduler.state_dict() if scheduler else None,
                 "early_stop": self.early_stop.state_dict(),
+                "global_step": global_step,
                 "config": getattr(system, "config", None),
             }, epoch, val_loss)
             if self.early_stop.step(val_loss):

@@ -20,7 +20,9 @@ bf16 cast policy (K4-K6 in the forward, their backwards through the plain
 versions); then the rest of the model zoo: Sandglasset (K4 in its 3-D and
 4-D forms, K6), DPRNNTasNet (K5, K6) and TasNet's other separator modules
 and group communication, served, through the eval CLI and in a train
-step.  In phases:
+step; then the training-quality study, the main path's training with
+remat, lamb and a cosine schedule, the optimizers written after optax's
+rules, MixIT and the two-step entry.  In phases:
 
 0. the card's name and power limit (fails without a CUDA device);
 1. build the kernels from ``csrc/`` with nvcc;
@@ -98,8 +100,10 @@ step.  In phases:
     on the module path (both profiled), and an AFRCNN call;
 25. the elementwise probe K7 (``ops/kernels/micro_vpu.py``) against its
     plain version at the script's [2048, 512] in f32 and bf16, with and
-    without stats, then its four timed cases beside their bounds (the
-    CUDA cores' rate at the max SM clock) and the bf16x2 / f32 rate ratio;
+    without stats (bf16 bit for bit), at the script's slope (min select)
+    and at 0.75 (max select), then its four timed cases (one launch
+    a call) beside their bounds (the CUDA cores' rate at the max SM clock)
+    and the earlier design's times, and the bf16x2 / f32 rate ratio;
 26. one bf16 train step of DPRNN, DPTNet and BSRNN (their wsj0 configs'
     full width, batch and segment) through the kernels, inside
     ``plain_versions()`` and in f32: the gradient rule of PERF.md section 2,
@@ -139,7 +143,26 @@ step.  In phases:
     bound, and K6 and K5 alone at Sandglasset's and DPRNNTasNet's shapes
     beside their plain versions, bf16 ``nn.LSTM`` and their bounds;
 34. one bf16 train step of Sandglasset and DPRNNTasNet (B=2 x 2 s) three
-    ways as in phase 26, exact forward launches, none in the backward.
+    ways as in phase 26, exact forward launches, none in the backward;
+35. the training-quality study (``validate.py``, the JAX script's
+    ``kernel_train_quality``, through its command line in a process of
+    its own) at full width: 300 Adam steps a run, f32
+    from seed 0, bf16 and bf16 through K2 + K3 from six seeds, each run's
+    SI-SDRi after the last step and over the last 50 steps' models, final
+    loss and seconds, and the script's two thresholds as gates (the
+    training gate on the mean over the seeds of the tail averages'
+    difference, with its standard error; the script's reading at seed 0
+    printed beside, ungated);
+36. ``audio_train.main`` on the LRS3 config (B=12 x 2 s) with
+    ``fused_forward``, ``remat``, lamb and CosineAnnealingLR for three
+    steps and validation: 2 x 49 K2 and 170 K3 launches a step; one
+    step's gradients with remat bit-identical to one without; the step's
+    time and peak device memory either way;
+37. the optimizers written after optax's rules, three steps each on the
+    card against the CPU (1e-5 relative);
+38. MixIT on the card against the CPU (1e-5 relative);
+39. the two-step entry on TDANet (tdanet_lrs2 width): step 2's ``sm``
+    parameters are step 1's best_model.pth's after the warm start.
 
 TF32 is off for matmuls and cuDNN, so the f32 references are full f32.
 
@@ -156,6 +179,7 @@ import os
 import shutil
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 import wave
@@ -1351,63 +1375,95 @@ def family_settings(family: str):
     return TRAIN_FAMILIES[family] if family in TRAIN_FAMILIES else STEP_FAMILIES[family]
 
 
-def micro_vpu_checks(card: str) -> dict:
-    """Phase 25: K7 against its plain version at the script's [2048, 512]
-    in its four cases (f32 within 1e-5 of the output's magnitude, bf16
-    exactly, the sum of squares within 1e-5), then its main path, the
-    script's four timed cases (``ops/kernels/micro_vpu.py::bench``), with
-    the launches counted from 0; each case beside its bound: the bytes over
-    HBM bandwidth or the script's operation count over the CUDA cores' rate
-    (132 SMs x 128 f32 lanes x 2 x the max SM clock, twice that for packed
-    bf16x2), whichever is larger.  Returns K7's entry of the kernels line
-    (the bf16 case with stats, K1's epilogue case)."""
+# K7's times before its redesign (three runs of the earlier design on an
+# NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 6), us a call, printed
+# beside this run's for the reader; nothing is gated on them
+K7_BEFORE_US = {(torch.float32, False): "8.72-8.99", (torch.float32, True): "14.33-15.04",
+             (torch.bfloat16, False): "6.67-7.19", (torch.bfloat16, True): "15.77-16.01"}
+
+
+def micro_vpu_bounds() -> dict:
+    """K7's bound in each of the script's four cases: {(dtype, stats): (least
+    ms, "bytes" or "operations")}, the bytes over HBM bandwidth or the
+    script's operation count over the CUDA cores' rate (132 SMs x 128 f32
+    lanes x 2 x the max SM clock, twice that for packed bf16x2), whichever
+    is larger."""
     from audio_only_speech_separation_tpu_torch.ops.kernels import micro_vpu as k7
 
-    print("phase 25: K7 (micro_vpu) vs its plain version at [2048, 512], then its four timed cases")
     clock_mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
                                      capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
     f32_rate = 132 * 128 * 2 * clock_mhz * 1e6  # f32 operations a second on the CUDA cores
+    bounds = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for ws in (False, True):
+            itemsize = 2 if dt == torch.bfloat16 else 4
+            t_bytes = 2 * k7.N * k7.C * itemsize / PEAK_BYTES * 1e3
+            t_ops = k7.N * k7.C * k7.ops_per_element(ws) / (f32_rate * (2 if itemsize == 2 else 1)) * 1e3
+            bounds[dt, ws] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bounds
+
+
+def micro_vpu_checks(card: str) -> dict:
+    """Phase 25: K7 against its plain version (the script's where-form
+    chain) at the script's [2048, 512] in its four cases, at the script's
+    slope and at 0.75 (the kernel's min and max selects): f32 within 1e-5
+    of the output's magnitude, bf16 exactly, the sum of squares within 1e-5
+    (600 * 2**-24 at 0.75); then its main path, the
+    script's four timed cases (``ops/kernels/micro_vpu.py::bench``), with
+    the launches counted from 0 (one a call, with or without stats); each
+    case beside its bound (``micro_vpu_bounds``) and the earlier design's
+    time.  Returns
+    K7's entry of the kernels line (the bf16 case with stats, K1's
+    epilogue case)."""
+    from audio_only_speech_separation_tpu_torch.ops.kernels import micro_vpu as k7
+    from audio_only_speech_separation_tpu_torch.ops.kernels._build import load_library
+
+    print("phase 25: K7 (micro_vpu) vs its plain version at [2048, 512], then its four timed cases")
     cases = [(dt, ws) for dt in (torch.float32, torch.bfloat16) for ws in (False, True)]
     errs, plain_ms = {}, {}
+    # the script's slope (min select in f32; 1 in bf16) and one below 1 (max
+    # select), whose chain settles on 2, so that every addition of a
+    # thread's in-order sum of squares rounds alike: its bound is then the
+    # worst case of 512 such additions and the plain version's 64, in f32
+    slopes = [(k7.A, k7.B, 1e-5), (0.75, 0.5, 600 * 2.0**-24)]
     for dt, ws in cases:
         x = k7.bench_input(dt)
-        with torch.no_grad():
-            got, total = k7.micro_vpu(x, ws, return_stats=True)
-            again = k7.micro_vpu(x, ws)
-            want, want_total = k7.micro_vpu_reference(x, ws, return_stats=True)
-        torch.cuda.synchronize()
-        err, scale = max_err(got, want), float(want.float().abs().max())
-        limit = 1e-5 * scale if dt == torch.float32 else 0.0
-        stats_rel = abs(float(total) - float(want_total)) / float(want_total) if ws else 0.0
-        print(f"  {dt} stats={ws}: max abs {err:.6g} (bound {limit:.3g}, scale {scale:.4g})"
-              + (f", sum of squares {float(total):.6g} vs {float(want_total):.6g} (rel {stats_rel:.3g}, "
-                 "bound 1e-5)" if ws else ""))
-        if not torch.equal(got, again) or not err <= limit or not stats_rel <= 1e-5:
-            raise AssertionError(f"K7 {dt} stats={ws}: differs from its plain version or from run to run")
-        errs[dt, ws] = err
+        for a, b, stats_bound in slopes:
+            with torch.no_grad():
+                got, total = k7.micro_vpu(x, ws, return_stats=True, a=a, b=b)
+                again, total_again = k7.micro_vpu(x, ws, return_stats=True, a=a, b=b)
+                want, want_total = k7.micro_vpu_reference(x, ws, return_stats=True, a=a, b=b)
+            torch.cuda.synchronize()
+            err, scale = max_err(got, want), float(want.float().abs().max())
+            limit = 1e-5 * scale if dt == torch.float32 else 0.0
+            stats_rel = abs(float(total) - float(want_total)) / float(want_total) if ws else 0.0
+            print(f"  {dt} stats={ws} a={a} ({k7.select_for(a)} select): max abs {err:.6g} (bound {limit:.3g}, "
+                  f"scale {scale:.4g})" + (f", sum of squares {float(total):.6g} vs {float(want_total):.6g} "
+                                           f"(rel {stats_rel:.3g}, bound {stats_bound:.3g})" if ws else ""))
+            same = torch.equal(got, again) and (not ws or float(total) == float(total_again))
+            if not same or not err <= limit or not stats_rel <= stats_bound:
+                raise AssertionError(f"K7 {dt} stats={ws} a={a}: differs from its plain version or from run to run")
+            if a == k7.A:
+                errs[dt, ws] = err
         plain_ms[dt, ws] = cuda_time(lambda: k7.micro_vpu_reference(x, ws), reps=5)
     k7.micro_vpu.launches = 0
     rates = {case: k7.bench(*case) for case in cases}
     torch.cuda.synchronize()
     launches = k7.micro_vpu.launches
-    want = sum(201 * (2 if ws else 1) for _, ws in cases)  # 200 timed calls and a warm-up each
-    print(f"  launches {launches} (want {want})")
+    lib = load_library()
+    want = sum(201 * lib.micro_vpu_launches(int(ws)) for _, ws in cases)  # 200 timed calls and a warm-up each
+    print(f"  launches {launches} (want {want}: one a call)")
     if launches != want:
         raise AssertionError(f"K7: {launches} launches, want {want}")
-    bounds = {}
+    bounds = micro_vpu_bounds()
     for dt, ws in cases:
-        itemsize = 2 if dt == torch.bfloat16 else 4
-        t_bytes = 2 * k7.N * k7.C * itemsize / PEAK_BYTES * 1e3
-        t_ops = k7.N * k7.C * k7.ops_per_element(ws) / (f32_rate * (2 if itemsize == 2 else 1)) * 1e3
-        bounds[dt, ws] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
         r = rates[dt, ws]
-        print(f"  {dt} stats={ws}: {r['us']:.4f} us a call, {r['gops']:.1f} Gop/s (the script's count), "
-              f"plain {plain_ms[dt, ws]:.4f} ms, bound {bounds[dt, ws][0] * 1e3:.4f} us "
+        print(f"  {dt} stats={ws}: {r['us']:.4f} us a call (before the redesign: {K7_BEFORE_US[dt, ws]} us), {r['gops']:.1f} Gop/s "
+              f"(the script's count), plain {plain_ms[dt, ws]:.4f} ms, bound {bounds[dt, ws][0] * 1e3:.4f} us "
               f"({bounds[dt, ws][1]}), {bounds[dt, ws][0] * 1e3 / r['us']:.3f} of it; {card}")
     f32_r, bf_r = rates[torch.float32, False]["gops"], rates[torch.bfloat16, False]["gops"]
     print(f"  bf16x2 / f32 rate: {bf_r / f32_r:.3f} without stats, "
-          f"{rates[torch.bfloat16, True]['gops'] / rates[torch.float32, True]['gops']:.3f} with stats "
-          f"(max SM clock {clock_mhz:g} MHz)")
+          f"{rates[torch.bfloat16, True]['gops'] / rates[torch.float32, True]['gops']:.3f} with stats")
     case = (torch.bfloat16, True)
     return {"name": "micro_vpu", "route": "cuda", "source": CSRC + "micro_vpu.cu",
             "replaces": "scripts/micro_vpu.py:22", "launches": launches, "max_abs_err": max(errs.values()),
@@ -1946,6 +2002,273 @@ def zoo_timing(dev, card, zoo) -> None:
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+# The optimizers written after optax's rules (phase 37) and the study's
+# parameter shapes: a zero tensor, a 1-element one, and two that adafactor
+# factors
+OPTAX_RULES = ("rmsprop", "adagrad", "lamb", "novograd", "yogi", "lars", "sm3", "adafactor", "adabelief")
+OPT_SHAPES = [(4, 3), (7,), (2, 2, 2), (160, 128), (3, 128, 144), (1,)]
+
+
+def quality_study(card: str) -> None:
+    """Phase 35: the training-quality study (``validate.py``, the JAX
+    script's ``kernel_train_quality``) at full width on the card, run as
+    its command line (``python -m audio_only_speech_separation_tpu_torch.validate``)
+    in a process of its own, which the earlier phases' state does not slow:
+    300 Adam steps a run, f32 from seed 0 and bf16 plain and bf16 through
+    K2 + K3 from each of six seeds; each run's SI-SDRi after the last step
+    (the script's reading) and averaged over the last 50 steps' models,
+    final loss and seconds; both gates (|bf16 plain - bf16 kernel| < 0.3 dB
+    on the mean over the seeds of the tail averages' difference, printed
+    with its standard error; the f32 arm's model served through K1 within
+    0.1 dB of its f32 forward) and the script's reading at seed 0, which no
+    gate reads."""
+    from audio_only_speech_separation_tpu_torch import validate
+
+    print(f"phase 35: the training-quality study (validate.py), full-width ConvTasNet, 300 steps a run, seeds "
+          f"{list(validate.SEEDS)}")
+    torch.cuda.empty_cache()  # leave the study's process the card's memory
+    proc = subprocess.run([sys.executable, "-m", "audio_only_speech_separation_tpu_torch.validate"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+                          timeout=900)
+    if proc.returncode not in (0, 1) or "{" not in proc.stdout:
+        raise RuntimeError(f"validate.py exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    r = json.loads(proc.stdout[proc.stdout.index("{"):])
+    if (proc.returncode == 0) != r["ok"]:
+        raise AssertionError(f"validate.py exited {proc.returncode} with ok {r['ok']}")
+    for row in r["per_seed"]:
+        for arm in validate.ARMS:
+            if arm in row:
+                print(f"  seed {row['seed']} {arm}: SI-SDRi {row[arm]:.4f} dB after the last step, "
+                      f"{row[f'{arm}_tail']:.4f} dB over the last {r['tail_steps']} steps' models; final loss "
+                      f"{row[f'{arm}_final_loss_db']:.4f} dB, {row[f'{arm}_seconds']:.2f} s; {card}")
+        print(f"  seed {row['seed']}: bf16 plain - bf16 kernel {row['tail_delta_db']:.4f} dB over the tail")
+    print(f"  over the seeds: f32 {r['f32_tail']:.4f} (seed 0), bf16 plain {r['bf16_plain_tail']:.4f}, bf16 kernel "
+          f"{r['bf16_kernel_tail']:.4f} dB (tail averages); bf16 plain - bf16 kernel {r['train_gate_delta_db']:.4f} "
+          f"dB, standard error {r['train_gate_se_db']:.4f} dB (gate < {validate.TRAIN_GATE_DB}: "
+          f"{r['train_gate_ok']}); the script's reading at seed 0: {r['script_reading_delta_db']:.4f} dB (no gate)")
+    print(f"  the f32 arm's model: f32 forward {r['serve_f32_db']:.4f} dB, bf16 through K1 "
+          f"{r['serve_bf16_fused_db']:.4f} dB, difference {r['serve_delta_db']:.4f} dB (gate < "
+          f"{validate.SERVE_GATE_DB}: {r['serve_gate_ok']})")
+    if not r["ok"]:
+        raise AssertionError(f"the quality study failed a gate: train {r['train_gate_ok']}, "
+                             f"serve {r['serve_gate_ok']}")
+
+
+def registry_training(dev, card: str, root: str, make_model) -> tuple:
+    """Phase 36: the main path's training with the new registry:
+    ``audio_train.main`` on the LRS3 config (B=12 x 2 s x 16 kHz) with
+    ``fused_forward``, ``remat``, lamb and CosineAnnealingLR, three steps
+    and validation, K2 launched twice a step (forward and recomputation)
+    and K3 once; then one step's gradients with remat against one without
+    on the same model and batch (bit for bit: K2 and K3 are
+    deterministic), and the step's time and peak device memory either way.
+    Returns (K2, K3) launches of the training run."""
+    from audio_only_speech_separation_tpu_torch import audio_train
+    from audio_only_speech_separation_tpu_torch.losses import PITLossWrapper, pairwise_neg_snr
+    from audio_only_speech_separation_tpu_torch.ops.kernels.convtasnet_backward import (
+        fused_tcn_backward,
+        tcn_backward_launches,
+    )
+    from audio_only_speech_separation_tpu_torch.ops.kernels.convtasnet_block import (
+        fused_tcn_separator,
+        tcn_separator_launches,
+    )
+    from audio_only_speech_separation_tpu_torch.train import CSVLogger, Trainer, make_optimizer
+
+    print(f"phase 36: audio_train.main, LRS3 (B={TRAIN_B} x 2 s), fused_forward + remat + lamb + CosineAnnealingLR")
+    work = tempfile.mkdtemp(prefix="registry_", dir=root)
+    data = os.path.join(work, "data")
+    write_manifests(data, {"tr": [2 * SR] * 3 * TRAIN_B, "cv": [2 * SR] * TRAIN_B, "tt": [2 * SR] * TRAIN_B}, 80)
+    config = lrs3_train_config(data, epochs=1)
+    config["training"]["remat"] = True
+    config["optimizer"]["optim_name"] = "lamb"
+    config["scheduler"] = {"sche_name": "CosineAnnealingLR", "sche_config": {"T_max": 10}}
+    config["exp"]["exp_name"] = "registry"
+    fused_tcn_separator.launches = fused_tcn_backward.launches = 0
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t0 = time.perf_counter()
+        audio_train.main(config)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    k2, k3 = fused_tcn_separator.launches, fused_tcn_backward.launches
+    steps = 3
+    want_k2 = (2 * steps + 2) * tcn_separator_launches(24)  # forward and recompute a step; cv and tt
+    want_k3 = steps * tcn_backward_launches(24)
+    with open(os.path.join(work, "Experiments", "tensorboard_logs", "registry", "scalars.csv")) as f:
+        scalars = {row.split(",")[1]: float(row.split(",")[2]) for row in f.read().splitlines()[1:]}
+    want_lr = 0.5 * 1e-3 * (1 + np.cos(np.pi / 10))
+    print(f"  {run_s:.1f} s; train_loss {scalars['train_loss']:.6g}, val_loss {scalars['val_loss']:.6g}, "
+          f"learning_rate {scalars['learning_rate']:.6g} (want {want_lr:.6g}); K2 launches {k2} (want {want_k2}), "
+          f"K3 launches {k3} (want {want_k3})")
+    if (k2, k3) != (want_k2, want_k3):
+        raise AssertionError("the remat training run did not go through K2 and K3 as counted")
+    if not all(np.isfinite(scalars[k]) for k in ("train_loss", "val_loss", "test_loss")):
+        raise AssertionError(f"non-finite losses: {scalars}")
+    if abs(scalars["learning_rate"] - want_lr) > 1e-9:
+        raise AssertionError(f"CosineAnnealingLR gave {scalars['learning_rate']}, want {want_lr}")
+    shutil.rmtree(work, ignore_errors=True)
+
+    model = make_model().train()
+    rng = np.random.default_rng(81)
+    mix = torch.from_numpy(rng.standard_normal((TRAIN_B, 2 * SR)).astype(np.float32)).to(dev)
+    srcs = torch.from_numpy(rng.standard_normal((TRAIN_B, 3, 2 * SR)).astype(np.float32)).to(dev)
+    loss_fn = PITLossWrapper(pairwise_neg_snr, pit_from="pw_mtx", threshold_byloss=True)
+    grads, times, peaks = {}, {}, {}
+    for remat in (False, True):
+        trainer = Trainer(os.path.join(root, f"remat{remat}"), precision="bfloat16", fused_forward=True,
+                          remat=remat, logger=CSVLogger(os.path.join(root, f"remat{remat}", "logs")))
+        forward = trainer._train_forward(trainer._make_forward(model), model, 0)
+        model.zero_grad(set_to_none=True)
+        loss_fn(forward(mix), srcs).backward()
+        grads[remat] = [p.grad.clone() for p in model.parameters()]
+        opt = make_optimizer(model.parameters(), optim_name="lamb", lr=1e-3, grad_clip=5.0)
+        state = {k: v.clone() for k, v in model.state_dict().items()}
+
+        def step():
+            opt.zero_grad()
+            loss_fn(forward(mix), srcs).backward()
+            opt.step()
+
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times[remat] = cuda_time(step, reps=5, warmup=1)
+        peaks[remat] = torch.cuda.max_memory_allocated() / 2**30
+        model.load_state_dict(state)
+        del opt
+    same = all(torch.equal(a, b) for a, b in zip(grads[False], grads[True]))
+    for remat in (False, True):
+        print(f"  train step (fused_forward, lamb) {'with' if remat else 'without'} remat: {times[remat]:.4f} ms "
+              f"(median of 5, CUDA events), peak device memory {peaks[remat]:.3f} GiB; {card}")
+    print(f"  one step's gradients with remat equal those without, bit for bit: {same}")
+    if not same:
+        raise AssertionError("remat changed the step's gradients")
+    return k2, k3
+
+
+def optimizer_card_checks(dev) -> None:
+    """Phase 37: each optimizer written after optax's rules takes three
+    steps on the card (global-norm clipping at 5.0, weight decay 0.01, an LR
+    change before the third) and ends within 1e-5 relative of the same
+    steps on the CPU, parameter by parameter."""
+    from audio_only_speech_separation_tpu_torch.train import make_optimizer, set_learning_rate
+
+    print("phase 37: the optax-rule optimizers on the card against the CPU (3 steps)")
+    rng = np.random.default_rng(90)
+    p0 = [rng.standard_normal(s).astype(np.float32) for s in OPT_SHAPES]
+    p0[1][:] = 0.0
+    total = sum(int(np.prod(s)) for s in OPT_SHAPES)
+    grads = [[(scale * np.sqrt(27 / total) * rng.standard_normal(s)).astype(np.float32) for s in OPT_SHAPES]
+             for scale in (4.0, 0.3, 9.0)]
+    worst = {}
+    for name in OPTAX_RULES:
+        runs = {}
+        for where in ("cpu", dev):
+            params = [torch.nn.Parameter(torch.from_numpy(p.copy()).to(where)) for p in p0]
+            opt = make_optimizer(params, optim_name=name, lr=1e-2, weight_decay=0.01, grad_clip=5.0)
+            for i, g in enumerate(grads):
+                if i == 2:
+                    set_learning_rate(opt, 3e-3)
+                for p, gi in zip(params, g):
+                    p.grad = torch.from_numpy(gi.copy()).to(where)
+                opt.step()
+            runs[str(where)] = [p.detach().cpu() for p in params]
+        worst[name] = max(float((a - b).norm() / b.norm()) for a, b in zip(runs[str(dev)], runs["cpu"]) if b.norm() > 0)
+    print("  worst relative l2, card vs CPU: " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + " (bound 1e-5)")
+    if not all(v <= 1e-5 for v in worst.values()):
+        raise AssertionError(f"an optimizer's card steps left the CPU's: {worst}")
+
+
+def mixit_card_checks(dev) -> None:
+    """Phase 38: MixIT (both partition modes, with ``return_est``) on the
+    card against the CPU: the loss, its gradient and the estimate mixtures
+    within 1e-5 relative."""
+    from audio_only_speech_separation_tpu_torch.losses import MixITLossWrapper, multisrc_neg_snr
+
+    print("phase 38: MixIT on the card against the CPU")
+    rng = np.random.default_rng(91)
+    for generalized, n_src, n_mix in ((True, 4, 2), (False, 6, 3)):
+        est = (rng.standard_normal((4, n_src, 16000))).astype(np.float32)
+        mixes = (rng.standard_normal((4, n_mix, 16000))).astype(np.float32)
+        out = {}
+        for where in ("cpu", dev):
+            e = torch.from_numpy(est).to(where).requires_grad_()
+            loss, est_mix = MixITLossWrapper(multisrc_neg_snr, generalized=generalized)(
+                e, torch.from_numpy(mixes).to(where), return_est=True)
+            loss.backward()
+            out[str(where)] = (loss.detach().cpu(), e.grad.cpu(), est_mix.detach().cpu())
+        errs = [float((a - b).norm() / b.norm()) for a, b in zip(out[str(dev)], out["cpu"])]
+        print(f"  generalized={generalized}, {n_src} estimates, {n_mix} mixtures: relative l2 of the loss "
+              f"{errs[0]:.3g}, the gradient {errs[1]:.3g}, the estimate mixtures {errs[2]:.3g} (bound 1e-5)")
+        if not all(e <= 1e-5 for e in errs):
+            raise AssertionError(f"MixIT on the card differs from the CPU: {errs}")
+
+
+def two_step_checks(dev, root: str) -> None:
+    """Phase 39: the two-step entry on ``configs/tdanet_lrs2.yml``'s model
+    at its width (B=2 x 2 s x 16 kHz): step 1 ``audio_train.main`` for two
+    steps, then ``audio_train_twostep.main`` warm-started from step 1's
+    best_model.pth: the fresh model's ``sm`` parameters are step 1's after
+    the merge, bit for bit, and its other parameters are not."""
+    from audio_only_speech_separation_tpu_torch import audio_train, audio_train_twostep
+    from audio_only_speech_separation_tpu_torch.models import from_pretrain
+
+    print("phase 39: two-step training, TDANet (tdanet_lrs2 width), step 2 warm-started from step 1")
+    sr, batch, secs = TRAIN_FAMILIES["TDANet"][2:5]
+    work = tempfile.mkdtemp(prefix="twostep_", dir=root)
+    data = os.path.join(work, "data")
+    n = int(secs * sr)
+    write_manifests(data, {"tr": [n] * (TRAIN_STEPS * batch), "cv": [n] * batch, "tt": [n] * batch}, 92,
+                    mix="mix", n_src=2, sr=sr)
+    merged, real = {}, audio_train_twostep.update_parameter
+
+    def recording(model, state, prefix="sm"):
+        copied = real(model, state, prefix)
+        merged.update({k: v.detach().cpu().clone() for k, v in model.state_dict().items()})
+        merged["copied"] = copied
+        return copied
+
+    cwd = os.getcwd()
+    os.chdir(work)
+    audio_train_twostep.update_parameter = recording
+    try:
+        t0 = time.perf_counter()
+        step1 = audio_train.main(train_config("TDANet", data, "twostep1"))
+        pretrained = os.path.join(step1, "best_model.pth")
+        audio_train_twostep.main(train_config("TDANet", data, "twostep2"), pretrained=pretrained)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        audio_train_twostep.update_parameter = real
+        os.chdir(cwd)
+    first = {k: v.cpu() for k, v in from_pretrain(pretrained, device=dev).state_dict().items()}
+    sm = [k for k in first if k.startswith("sm.")]
+    arrived = bool(sm) and all(torch.equal(merged[k], first[k]) for k in sm)
+    others_fresh = any(not torch.equal(merged[k], first[k]) for k in first if not k.startswith("sm."))
+    print(f"  {run_s:.1f} s; {merged.get('copied')} top-level module copied; {len(sm)} sm tensors arrived "
+          f"bit for bit: {arrived}; another parameter left fresh: {others_fresh}")
+    if not (merged.get("copied") == 1 and arrived and others_fresh):
+        raise AssertionError("the two-step warm start did not carry step 1's sm parameters")
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def new_training_phases(dev, card: str, make_model) -> tuple:
+    """Phases 35-39; returns phase 36's (K2, K3) launches."""
+    quality_study(card)
+    scratch = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    launched = registry_training(dev, card, scratch.name, make_model)
+    optimizer_card_checks(dev)
+    mixit_card_checks(dev)
+    two_step_checks(dev, scratch.name)
+    scratch.cleanup()
+    return launched
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels need one")
@@ -2416,6 +2739,9 @@ def main() -> None:
     print("phase 34: one bf16 train step of Sandglasset and DPRNNTasNet three ways (kernels, plain versions, f32)")
     train_step_checks(dev, scratch.name, tuple(STEP_FAMILIES))
     scratch.cleanup()
+    print(f"  {time.perf_counter() - t_start:.1f} s since the start")
+    k2_remat, k3_remat = new_training_phases(dev, card, lambda: model_for(LRS3, seed=82))
+    k2_launches, k3_launches = k2_launches + k2_remat, k3_launches + k3_remat
     print(f"  {time.perf_counter() - t_start:.1f} s since the start")
 
     k1_b, k1_by = least_time(*separator_work(8, frames_bench))

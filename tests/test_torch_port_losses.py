@@ -1,5 +1,6 @@
 """The port's losses against the JAX package's, on the CPU: the three NegSDR
-families with their aliases, and PITLossWrapper in its three modes.
+families with their aliases, PITLossWrapper in its three modes with the host
+Hungarian solver for many sources, and MixITLossWrapper.
 
 Same float32 inputs (numpy, seeded) through both; values, and gradients
 with respect to the estimates (as a whole, l2), agree within 1e-5
@@ -14,6 +15,8 @@ import torch
 
 import audio_only_speech_separation_tpu.losses as jl
 import audio_only_speech_separation_tpu_torch.losses as tl
+from audio_only_speech_separation_tpu.losses import pit as jpit
+from audio_only_speech_separation_tpu_torch.losses import pit as tpit
 
 torch.set_num_threads(2)
 RTOL = 1e-5
@@ -112,3 +115,54 @@ def test_registry_rejects_unknown_names():
         tl.get("no_such_loss")
     with pytest.raises(ValueError):
         tl.PITLossWrapper(tl.pairwise_neg_snr, pit_from="hungarian")
+
+
+@pytest.mark.parametrize("generalized,n_src,n_mix", [(True, 4, 2), (True, 3, 2), (False, 4, 2), (False, 6, 3)])
+def test_mixit_matches_jax(generalized, n_src, n_mix):
+    """MixIT's loss, its gradient and (``return_est``) the best partition's
+    estimate mixtures against the JAX package's, in both modes, through the
+    registry; the estimates are a noisy known partition of the mixtures'
+    sources, so the best partition is clear."""
+    rng = np.random.default_rng(10 + n_src)
+    srcs = rng.standard_normal((3, n_src, 400)).astype(np.float32)
+    parts = np.array_split(rng.permutation(n_src), n_mix) if not generalized else [[0], list(range(1, n_src))]
+    mixes = np.stack([srcs[:, p].sum(1) for p in parts], 1)
+    est = (srcs + 0.3 * rng.standard_normal(srcs.shape)).astype(np.float32)
+    jw = jl.get("MixITLossWrapper")(jl.multisrc_neg_snr, generalized=generalized)
+    tw = tl.get("MixITLossWrapper")(tl.multisrc_neg_snr, generalized=generalized)
+    want, got = _value_and_grad_both(jw, tw, est, mixes)
+    _close(got, want)
+    jl_, j_est = jw(jnp.asarray(est), jnp.asarray(mixes), return_est=True)
+    tl_, t_est = tw(torch.from_numpy(est), torch.from_numpy(mixes), return_est=True)
+    assert t_est.shape == (3, n_mix, 400)
+    np.testing.assert_allclose(t_est.numpy(), np.asarray(j_est), rtol=RTOL, atol=RTOL)
+    assert abs(float(tl_) - float(jl_)) <= RTOL * abs(float(jl_))
+
+
+def test_mixit_refuses_what_the_jax_package_refuses():
+    est, mixes = torch.zeros(1, 4, 10), torch.zeros(1, 3, 10)
+    with pytest.raises(ValueError, match="two mixtures"):
+        tl.MixITLossWrapper(tl.multisrc_neg_snr)(est, mixes)
+    with pytest.raises(ValueError, match="same number of sources"):
+        tl.MixITLossWrapper(tl.multisrc_neg_snr, generalized=False)(est, mixes)
+
+
+@pytest.mark.parametrize("n_src", [3, 7])
+def test_hungarian_best_perm_matches_jax(n_src):
+    """The host Hungarian solve against the JAX package's on the same
+    pairwise losses: the same assignment and mean loss; at 3 sources also
+    the device enumeration's answer.  Past 6 sources ``find_best_perm``
+    names it."""
+    rng = np.random.default_rng(20 + n_src)
+    pwl = rng.standard_normal((4, n_src, n_src)).astype(np.float32)
+    want_loss, want_idx = jpit.hungarian_best_perm(pwl)
+    got_loss, got_idx = tpit.hungarian_best_perm(torch.from_numpy(pwl))
+    np.testing.assert_array_equal(got_idx, want_idx)
+    np.testing.assert_allclose(got_loss, want_loss, rtol=1e-6)
+    if n_src <= 6:
+        dev_loss, dev_idx = tpit.find_best_perm(torch.from_numpy(pwl))
+        np.testing.assert_array_equal(dev_idx.numpy(), got_idx)
+        np.testing.assert_allclose(dev_loss.numpy(), got_loss, rtol=1e-5)
+    else:
+        with pytest.raises(NotImplementedError, match="hungarian_best_perm"):
+            tpit.find_best_perm(torch.from_numpy(pwl))

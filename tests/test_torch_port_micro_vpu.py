@@ -19,6 +19,7 @@ from audio_only_speech_separation_tpu_torch.ops.kernels.micro_vpu import (
     micro_vpu,
     micro_vpu_reference,
     ops_per_element,
+    select_for,
 )
 
 torch.set_num_threads(2)
@@ -78,3 +79,28 @@ def test_wrapper_refuses_other_devices():
     no quiet fallback to the plain version."""
     with pytest.raises(ValueError, match="no micro_vpu kernel"):
         micro_vpu(torch.zeros(8, device="meta"))
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("a", [0.0, 0.25, 0.5, 1.0, 1.0009, 1.5, 2.0])
+def test_the_select_forms_are_the_where(dtype, a):
+    """The kernel's select (``select_for``: min(y, a * y) for a >= 1, max
+    below) against where(y >= 0, y, a * y), bit for bit, signed zeros
+    included, for inputs around zero and both signs (b 0.5, so y is never
+    -0); a negative slope is refused by the wrapper on any device, and the
+    CPU wrapper at another slope is the plain version at it."""
+    x = torch.tensor([0.0, -0.0, 1.0, -1.0, -0.5, 0.5, -3.0, 7.0, -1e-3, 2.5, -2.5, -0.75], dtype=dtype)
+    at, bt = torch.tensor(a, dtype=dtype), torch.tensor(0.5, dtype=dtype)
+    y = x * at + bt
+    want = torch.where(y >= 0, y, at * y)
+    form = select_for(a)
+    assert form == ("min" if a >= 1 else "max")
+    got = (torch.minimum if form == "min" else torch.maximum)(y, at * y)
+    assert torch.equal(_bits(got), _bits(want)), (got, want)
+    assert torch.equal(micro_vpu(x, a=a, b=0.5), micro_vpu_reference(x, a=a, b=0.5))
+    with pytest.raises(ValueError, match="a >= 0"):
+        micro_vpu(x, a=-0.5)

@@ -38,17 +38,32 @@ TINY = dict(N=128, L=16, B=128, H=128, P=3, X=2, R=1, num_spks=2)
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name,wd", [("adam", 0.0), ("adam", 0.01), ("adamw", 0.05)])
+# Every name the port's registry builds, and a parameter set with a zero
+# tensor (the trust ratios' zero branch), a 1-element one, and two whose two
+# largest dimensions are >= 128 (adafactor factors them)
+OPTIMIZERS = ("adam", "adamw", "sgd", "rmsprop", "adagrad", "adamax", "radam", "lamb", "novograd", "yogi",
+              "lars", "sm3", "adafactor", "adabelief")
+OPT_SHAPES = [(4, 3), (7,), (2, 2, 2), (160, 128), (3, 128, 144), (1,)]
+
+
+def _optimizer_case(seed=0):
+    """Initial parameters and three steps' gradients: the global norms about
+    20, 1.5 and 47 (clipped at 5.0, not, clipped)."""
+    rng = np.random.default_rng(seed)
+    p0 = [rng.standard_normal(s).astype(np.float32) for s in OPT_SHAPES]
+    p0[1][:] = 0.0
+    total = sum(int(np.prod(s)) for s in OPT_SHAPES)
+    grads = [[(scale * np.sqrt(27 / total) * rng.standard_normal(s)).astype(np.float32) for s in OPT_SHAPES]
+             for scale in (4.0, 0.3, 9.0)]
+    return p0, grads
+
+
+@pytest.mark.parametrize("name,wd", [(n, wd) for n in OPTIMIZERS for wd in (0.0, 0.01)] + [("adamw", 0.05)])
 def test_optimizer_matches_optax(name, wd):
     """Three steps with global-norm clipping at 5.0 (two gradients above
     it, one below) and an LR change after the second, against the JAX
     package's optax chain: parameters within 1e-5 relative."""
-    rng = np.random.default_rng(0)
-    shapes = [(4, 3), (7,), (2, 2, 2)]
-    p0 = [rng.standard_normal(s).astype(np.float32) for s in shapes]
-    grads = [[(scale * rng.standard_normal(s)).astype(np.float32) for s in shapes]
-             for scale in (4.0, 0.3, 9.0)]
-
+    p0, grads = _optimizer_case()
     tparams = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in p0]
     opt = make_optimizer(tparams, optim_name=name, lr=1e-2, weight_decay=wd, grad_clip=5.0)
     tx = jopt.make_optimizer(name, lr=1e-2, weight_decay=wd, grad_clip=5.0)
@@ -63,26 +78,68 @@ def test_optimizer_matches_optax(name, wd):
         opt.step()
         updates, state = tx.update([jnp.asarray(gi) for gi in g], state, jparams)
         jparams = optax.apply_updates(jparams, updates)
-        for a, b in zip(jparams, tparams):
+        for a, b, a0 in zip(jparams, tparams, p0):
             a = np.asarray(a)
-            assert np.linalg.norm(b.detach().numpy() - a) <= 1e-5 * np.linalg.norm(a)
+            assert np.linalg.norm(b.detach().numpy() - a) <= 1e-5 * np.linalg.norm(a), (name, i, a.shape)
+    assert any(not np.array_equal(np.asarray(a), a0) for a, a0 in zip(jparams, p0))
     assert get_learning_rate(opt) == pytest.approx(3e-3)
     assert jopt.get_learning_rate(state) == pytest.approx(3e-3)
 
 
+@pytest.mark.parametrize("name", OPTIMIZERS)
+def test_optimizer_state_round_trips_mid_run(name):
+    """Two steps, the state through ``state_dict`` and a pickle (as
+    last.ckpt keeps it) into a new optimizer over copies of the parameters,
+    then a third step on both: the same parameters, bit for bit."""
+    import pickle
+
+    p0, grads = _optimizer_case(seed=1)
+    first = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in p0]
+    opt = make_optimizer(first, optim_name=name, lr=1e-2, weight_decay=0.01, grad_clip=5.0)
+    for g in grads[:2]:
+        for p, gi in zip(first, g):
+            p.grad = torch.from_numpy(gi.copy())
+        opt.step()
+    blob = pickle.dumps(opt.state_dict())
+    second = [torch.nn.Parameter(p.detach().clone()) for p in first]
+    resumed = make_optimizer(second, optim_name=name, lr=1e-2, weight_decay=0.01, grad_clip=5.0)
+    resumed.load_state_dict(pickle.loads(blob))
+    for o, params in ((opt, first), (resumed, second)):
+        for p, gi in zip(params, grads[2]):
+            p.grad = torch.from_numpy(gi.copy())
+        o.step()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_optimizer_names():
+    """Every name of the JAX registry builds but ranger, which raises and
+    names the reference's own fault; an unknown name raises ValueError."""
     p = [torch.nn.Parameter(torch.zeros(3))]
-    for name in ("sgd", "rmsprop", "adagrad", "adamax", "radam"):
+    for name in OPTIMIZERS:
         make_optimizer(p, optim_name=name, lr=1e-3)
-    with pytest.raises(NotImplementedError):
-        make_optimizer(p, optim_name="lamb")
+    with pytest.raises(NotImplementedError, match="LookaheadParams"):
+        make_optimizer(p, optim_name="ranger")
     with pytest.raises(ValueError):
         make_optimizer(p, optim_name="no_such_optimizer")
+
+
+def test_jax_ranger_fails_at_its_first_update():
+    """The fault the port's ranger names: the JAX package's ranger
+    (optax.lookahead over radam) builds and inits, then fails at its first
+    update on the plain parameters its Trainer passes."""
+    tx = jopt.make_optimizer("ranger", lr=1e-3, grad_clip=5.0)
+    params = [jnp.ones(3)]
+    state = tx.init(params)
+    with pytest.raises(AttributeError, match="fast"):
+        tx.update([jnp.ones(3)], state, params)
 
 
 @pytest.mark.parametrize("name,cfg", [
     ("ReduceLROnPlateau", dict(patience=2, factor=0.5, cooldown=1, min_lr=1e-4)),
     ("StepLR", dict(step_size=3, gamma=0.5)),
+    ("ExponentialLR", dict(gamma=0.8)),
+    ("CosineAnnealingLR", dict(T_max=6, eta_min=1e-5)),
 ])
 def test_scheduler_lr_sequence_matches_jax(name, cfg):
     """The same metric sequence gives the same LR sequence, and a state

@@ -424,3 +424,151 @@ def test_dotted_cli_overrides():
     assert rest == ["--conf-dir", "c.yml", "--lr", "0.01"]
     assert overrides == {("training", "precision"): "bfloat16", ("training", "seed"): 7,
                          ("training", "fused_forward"): True}
+
+
+# ---------------------------------------------------------------------------
+# Dropout masks per (seed, step), remat and the two-step warm start
+# ---------------------------------------------------------------------------
+
+
+def scalar_rows(cwd, exp_name):
+    """Every (step, tag, value) row a run's CSV logger wrote, in order."""
+    path = os.path.join(cwd, "Experiments", "tensorboard_logs", exp_name, "scalars.csv")
+    with open(path) as f:
+        return [(int(r[0]), r[1], float(r[2])) for r in (line.split(",") for line in f.read().splitlines()[1:])]
+
+
+def test_resumed_run_with_dropout_logs_the_straight_runs_losses(tmp_path, monkeypatch, no_tensorboard):
+    """A small Sepformer at dropout 0.1 (f32, CPU, seed 7): three epochs
+    straight and one epoch then a resume to three log the same losses, bit
+    for bit.  The masks of a step come from (seed, global step), and
+    last.ckpt keeps the global step."""
+    root = _manifests(str(tmp_path / "data"), SR8)
+    monkeypatch.chdir(tmp_path)
+
+    def run(exp, epochs):
+        config = train_config("Sepformer", root, SR8, exp, precision="float32", seed=7, dropout=0.1)
+        config["training"]["epochs"] = epochs
+        audio_train.main(config, device="cpu")
+
+    run("straight", 3)
+    run("resumed", 1)
+    run("resumed", 3)
+    straight, resumed = scalar_rows(str(tmp_path), "straight"), scalar_rows(str(tmp_path), "resumed")
+    assert [r for r in straight if r[1] != "learning_rate"] == [r for r in resumed if r[1] != "learning_rate"]
+    assert len([r for r in straight if r[1] == "train_loss"]) == 3
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_remat_gives_the_steps_loss_and_gradients(rate, tmp_path):
+    """One train step of a small Sepformer (f32, dropout ``rate``) through
+    ``Trainer``'s train forward with and without ``remat``: the same loss
+    and gradients, bit for bit, and under remat the forward runs twice (the
+    recomputation in the backward draws the first pass's masks)."""
+    model = port_model("Sepformer", 11, dropout=rate).train()
+    mix, sources = (torch.from_numpy(a) for a in batch(12, 2, 1600))
+    loss_fn = losses.PITLossWrapper(losses.pairwise_neg_snr, pit_from="pw_mtx")
+    calls = []
+    first_layer = next(m for m in model.modules() if type(m).__name__ == "SBTransformerLayer")
+    first_layer.register_forward_hook(lambda *args: calls.append(1))
+    got = {}
+    for remat in (False, True):
+        trainer = Trainer(str(tmp_path / f"exp{remat}"), device="cpu", remat=remat, seed=7,
+                          logger=loggers.CSVLogger(str(tmp_path / "logs")))
+        forward = trainer._train_forward(trainer._make_forward(model), model, step=5)
+        model.zero_grad(set_to_none=True)
+        calls.clear()
+        loss = loss_fn(forward(mix), sources)
+        loss.backward()
+        got[remat] = (loss.detach(), [p.grad.clone() for p in model.parameters()], len(calls))
+    assert torch.equal(got[False][0], got[True][0])
+    assert all(torch.equal(a, b) for a, b in zip(got[False][1], got[True][1]))
+    assert (got[False][2], got[True][2]) == (1, 2)
+
+
+def test_remat_through_the_tcn_chain(tmp_path):
+    """The bf16 ConvTasNet step through ``make_kernel_train_apply`` (the
+    chain's plain versions on the CPU) with and without ``remat``: the same
+    loss and gradients, bit for bit; the chain's forward runs twice under
+    remat."""
+    from audio_only_speech_separation_tpu_torch.ops.kernels import convtasnet_backward
+
+    model = models.ConvTasNet(N=128, L=16, B=128, H=128, P=3, X=2, R=1, num_spks=2, sample_rate=SR8,
+                              generator=torch.Generator().manual_seed(3)).train()
+    mix, sources = (torch.from_numpy(a) for a in batch(13, 2, 800))
+    loss_fn = losses.PITLossWrapper(losses.pairwise_neg_snr, pit_from="pw_mtx")
+    chain_forwards = []
+    real = convtasnet_backward.fused_tcn_separator
+
+    def counting(*args, **kwargs):
+        chain_forwards.append(1)
+        return real(*args, **kwargs)
+
+    got = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(convtasnet_backward, "fused_tcn_separator", counting)
+        for remat in (False, True):
+            trainer = Trainer(str(tmp_path / f"exp{remat}"), device="cpu", precision="bfloat16",
+                              fused_forward=True, remat=remat, logger=loggers.CSVLogger(str(tmp_path / "logs")))
+            forward = trainer._train_forward(trainer._make_forward(model), model, step=0)
+            model.zero_grad(set_to_none=True)
+            chain_forwards.clear()
+            loss = loss_fn(forward(mix), sources)
+            loss.backward()
+            got[remat] = (loss.detach(), [p.grad.clone() for p in model.parameters()], len(chain_forwards))
+    assert torch.equal(got[False][0], got[True][0])
+    assert all(torch.equal(a, b) for a, b in zip(got[False][1], got[True][1]))
+    assert (got[False][2], got[True][2]) == (1, 2)
+
+
+def test_audio_train_reads_remat(tmp_path, monkeypatch, no_tensorboard):
+    """``training.remat`` reaches the Trainer (it was dropped before)."""
+    seen = []
+    real = Trainer.__init__
+
+    def record(self, *args, **kwargs):
+        seen.append(kwargs.get("remat"))
+        real(self, *args, **kwargs)
+
+    monkeypatch.setattr(Trainer, "__init__", record)
+    root = _manifests(str(tmp_path / "data"), SR8)
+    monkeypatch.chdir(tmp_path)
+    config = train_config("DPRNN", root, SR8, "remat", precision="float32")
+    config["training"]["remat"] = True
+    audio_train.main(config, device="cpu")
+    assert seen == [True]
+
+
+def test_two_step_warm_start_copies_the_sm_parameters(tmp_path, monkeypatch, no_tensorboard):
+    """``update_parameter`` copies TDANet's ``sm`` parameters and nothing
+    else; ``audio_train_twostep.main`` feeds it through
+    ``audio_train.WARM_START`` to ``Trainer.fit``, which merges step 1's
+    best_model.pth into the fresh model before the first step (and clears
+    the hook after)."""
+    from audio_only_speech_separation_tpu_torch import audio_train_twostep
+
+    donor, target = port_model("TDANet", 1), port_model("TDANet", 2)
+    before = {k: v.clone() for k, v in target.state_dict().items()}
+    assert audio_train_twostep.update_parameter(target, donor.state_dict()) == 1
+    for k, v in target.state_dict().items():
+        want = donor.state_dict()[k] if k.startswith("sm.") else before[k]
+        assert torch.equal(v, want), k
+    assert any(k.startswith("sm.") for k in before) and any(not k.startswith("sm.") for k in before)
+
+    root = _manifests(str(tmp_path / "data"), SR16, seconds=0.3)
+    monkeypatch.chdir(tmp_path)
+    step1 = audio_train.main(train_config("TDANet", root, SR16, "step1", precision="float32"), device="cpu")
+    pretrained = os.path.join(step1, "best_model.pth")
+    merged, real = {}, audio_train_twostep.update_parameter
+
+    def recording(model, state, prefix="sm"):
+        n = real(model, state, prefix)
+        merged.update({k: v.clone() for k, v in model.state_dict().items()})
+        return n
+
+    monkeypatch.setattr(audio_train_twostep, "update_parameter", recording)
+    audio_train_twostep.main(train_config("TDANet", root, SR16, "step2", precision="float32"),
+                             pretrained=pretrained, device="cpu")
+    assert audio_train.WARM_START is None
+    step1_sd = models.from_pretrain(pretrained, device="cpu").state_dict()
+    assert merged and all(torch.equal(merged[k], step1_sd[k]) for k in merged if k.startswith("sm."))
