@@ -5,8 +5,17 @@ reference audio_train.py:33-163).
     python -m audio_only_speech_separation_tpu_torch.audio_train --conf-dir=configs/bsrnn_wsj0.yml \
         --training.precision bfloat16
 
-Config -> registries -> AudioSystem -> Trainer on one device: the CUDA
-card unless ``main`` is given ``device="cpu"``.  Every YAML leaf is a CLI
+Config -> registries -> AudioSystem -> Trainer, on the CUDA card unless
+``main`` is given ``device="cpu"``.  On several cards, one process a card
+under torchrun (data parallel; ``parallel.init_distributed`` joins the
+group that torchrun describes):
+
+    torchrun --nproc_per_node=N -m audio_only_speech_separation_tpu_torch.audio_train \
+        --conf-dir=configs/convtasnet_lrs3.yml
+
+The config's ``batch_size`` is per card (the reference's per-GPU batch
+under DDP, as the JAX package reads it), each rank loads its own shard of
+the data, and rank 0 writes the artifacts and prints.  Every YAML leaf is a CLI
 flag (``utils/parser_utils``), and ``--<group>.<leaf> value`` sets any
 key (``training.precision``, ``training.seed``: the dropout masks' seed,
 42 by default, as in the JAX package; ``training.remat``: recompute the
@@ -30,7 +39,9 @@ import torch
 
 from . import data as datas
 from . import losses, models
+from .parallel import init_distributed, local_shard_info
 from .train import AudioSystem, Trainer, make_optimizer, make_scheduler
+from .utils.console import print_only
 
 # The warm-start hook that audio_train_twostep sets: a (pretrained state
 # dict, merge_fn) pair, merged into the model before the first step.
@@ -45,22 +56,26 @@ def build_loss(loss_conf: dict):
 
 def main(config: dict, device="cuda") -> str:
     """Train from a config dict (the YAML schema of ``configs/``) on
-    ``device``; returns the experiment directory.  Raises when ``device`` is
-    CUDA and there is no card."""
+    ``device``, this process's shard of the data under a process group;
+    returns the experiment directory.  Raises when ``device`` is CUDA and
+    there is no card."""
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("audio_train: no CUDA device; pass device=\"cpu\" to train on the CPU")
-    print("Instantiating datamodule <{}>".format(config["datamodule"]["data_name"]))
-    datamodule = datas.get(config["datamodule"]["data_name"])(**config["datamodule"]["data_config"])
+    print_only("Instantiating datamodule <{}>".format(config["datamodule"]["data_name"]))
+    rank, world_size = local_shard_info()
+    # batch_size is per card: one process a card loads that many items a step
+    datamodule = datas.get(config["datamodule"]["data_name"])(**config["datamodule"]["data_config"],
+                                                              shard_id=rank, num_shards=world_size)
     datamodule.setup()
     train_loader, val_loader, test_loader = datamodule.make_loader
 
-    print("Instantiating AudioNet <{}>".format(config["audionet"]["audionet_name"]))
+    print_only("Instantiating AudioNet <{}>".format(config["audionet"]["audionet_name"]))
     model = models.get(config["audionet"]["audionet_name"])(
         sample_rate=config["datamodule"]["data_config"]["sample_rate"],
         **(config["audionet"]["audionet_config"] or {}),
     )
 
-    print("Instantiating optimizer <{}>".format(config["optimizer"]["optim_name"]))
+    print_only("Instantiating optimizer <{}>".format(config["optimizer"]["optim_name"]))
     optimizer = make_optimizer(
         model.parameters(),
         optim_name=config["optimizer"]["optim_name"],
@@ -70,7 +85,7 @@ def main(config: dict, device="cuda") -> str:
     )
     scheduler = None
     if config.get("scheduler") and config["scheduler"].get("sche_name"):
-        print("Instantiating scheduler <{}>".format(config["scheduler"]["sche_name"]))
+        print_only("Instantiating scheduler <{}>".format(config["scheduler"]["sche_name"]))
         scheduler = make_scheduler(config["scheduler"]["sche_name"], lr=config["optimizer"]["lr"],
                                    **(config["scheduler"].get("sche_config") or {}))
 
@@ -79,10 +94,11 @@ def main(config: dict, device="cuda") -> str:
     exp_dir = os.path.join(os.getcwd(), "Experiments", "checkpoint", config["exp"]["exp_name"])
     os.makedirs(exp_dir, exist_ok=True)
     config["main_args"] = dict(config.get("main_args") or {}, exp_dir=exp_dir)
-    with open(os.path.join(exp_dir, "conf.yml"), "w") as f:
-        json.dump(config, f, indent=2, default=str)
+    if rank == 0:
+        with open(os.path.join(exp_dir, "conf.yml"), "w") as f:
+            json.dump(config, f, indent=2, default=str)
 
-    print("Instantiating losses <{}>".format(config["loss"]["train"]["loss_func"]))
+    print_only("Instantiating losses <{}>".format(config["loss"]["train"]["loss_func"]))
     loss_func = {"train": build_loss(config["loss"]["train"]), "val": build_loss(config["loss"]["val"])}
     system = AudioSystem(audio_model=model, loss_func=loss_func, optimizer=optimizer,
                          train_loader=train_loader, val_loader=val_loader,
@@ -103,7 +119,7 @@ def main(config: dict, device="cuda") -> str:
         device=device,
     )
     trainer.fit(system)
-    print(f"Training finished; artifacts in {exp_dir}")
+    print_only(f"Training finished; artifacts in {exp_dir}")
     return exp_dir
 
 
@@ -137,4 +153,5 @@ def config_from_cli(argv) -> dict:
 if __name__ == "__main__":
     import sys
 
+    init_distributed()
     main(config_from_cli(sys.argv[1:]))

@@ -13,7 +13,8 @@ resume.
     python -m audio_only_speech_separation_tpu_torch.audio_train_twostep --conf-dir=configs/tdanet_lrs2.yml \\
         [--pretrained Experiments/checkpoint/<exp>/best_model.pth]
 
-Trains on the CUDA card; ``main`` takes the parsed config as a dict and
+Trains on the CUDA card, or on several under torchrun as ``audio_train``
+does; ``main`` takes the parsed config as a dict and
 ``device="cpu"`` for the CPU.  YAML is read only when this runs as a
 program.
 """
@@ -27,6 +28,8 @@ import torch
 
 from . import audio_train
 from .models import from_pretrain
+from .parallel import init_distributed
+from .utils.console import print_only
 
 
 def update_parameter(model: torch.nn.Module, pretrained_state: dict, prefix: str = "sm") -> int:
@@ -45,7 +48,7 @@ def update_parameter(model: torch.nn.Module, pretrained_state: dict, prefix: str
             for k in keys:
                 own[k].copy_(torch.as_tensor(pretrained_state[k]))
             copied += 1
-    print(f"warm-started {copied} top-level modules with prefix {prefix!r}")
+    print_only(f"warm-started {copied} top-level modules with prefix {prefix!r}")
     return copied
 
 
@@ -56,7 +59,7 @@ def main(config: dict, pretrained: Optional[str] = None, device="cuda") -> str:
     if pretrained:
         # the checkpoint must load before the (long) training run
         state = from_pretrain(pretrained, device="cpu").state_dict()
-        print(f"Loaded warm-start weights from {pretrained}")
+        print_only(f"Loaded warm-start weights from {pretrained}")
         audio_train.WARM_START = (state, update_parameter)
     try:
         return audio_train.main(config, device=device)
@@ -72,4 +75,5 @@ if __name__ == "__main__":
     parser.add_argument("--pretrained", default=None,
                         help="best_model.pth to warm-start the separation module from")
     args, rest = parser.parse_known_args(sys.argv[1:])
+    init_distributed()
     main(audio_train.config_from_cli([f"--conf-dir={args.conf_dir}", *rest]), pretrained=args.pretrained)

@@ -1,11 +1,10 @@
 """Data layer (counterpart of ``audio_only_speech_separation_tpu/data``;
 reference look2hear/datas/__init__.py:7-14): the manifest datasets and
-datamodules that the configs in ``configs/`` name, and the threaded
-loader.  numpy and the standard library only.
-
-Not ported yet (ROADMAP Queue 1): ``wsj0.py``, ``extra_datasets.py``,
-``sbdataset.py``, ``augment.py``, ``transform.py`` and the native wav
-reader ``native.py``.
+datamodules that the configs in ``configs/`` name, the threaded loader,
+the native wav reader (``native.py``), the other dataset variants
+(``extra_datasets.py``, ``sbdataset.py``), online mixing
+(``augment.py``) and the video pipelines (``transform.py``).  numpy, the
+standard library and the repository's own C++ reader only.
 """
 
 from .datamodules import (
@@ -25,7 +24,10 @@ from .dataset import (
     WhamDataset,
     normalize_wav,
 )
+from .extra_datasets import AudioSlientDataset, AVSpeechDataset, MixITDataset
 from .loader import DataLoader
+from .transform import get_preprocessing_pipelines
+from .wsj0 import WSJ0DataModule, WSJ0Dataset
 
 __all__ = [
     "ManifestDataset",
@@ -34,20 +36,26 @@ __all__ = [
     "Libri2MixDataset",
     "WhamDataset",
     "LRS2TwoStepDataset",
+    "WSJ0Dataset",
     "BaseDataModule",
     "LRS2DataModule",
     "LRS3DataModule",
     "Libri2MixDataModule",
     "WhamDataModule",
     "LRS2TwoStepDataModule",
+    "WSJ0DataModule",
     "DataLoader",
     "normalize_wav",
-    "get",
+    "MixITDataset",
+    "AudioSlientDataset",
+    "AVSpeechDataset",
+    "get_preprocessing_pipelines",
 ]
 
 
 def get(name):
-    """String -> datamodule class; passthrough for classes."""
+    """String -> datamodule class (reference getattr reflection);
+    passthrough for classes."""
     if callable(name):
         return name
     obj = globals().get(name)

@@ -1,12 +1,14 @@
 """Wav IO with partial reads (counterpart of
-``audio_only_speech_separation_tpu/data/audio_io.py``), on the standard
-library's ``wave`` and numpy only.
+``audio_only_speech_separation_tpu/data/audio_io.py``).
 
-``read_wav`` seeks and reads just the samples [start, stop) of a PCM8,
-PCM16 or PCM32 file, so random-crop training never loads a whole
-utterance.  Samples come back as float32 in [-1, 1], mono (the first
-channel of a multi-channel file), as ``soundfile.read(dtype="float32")``
-gives them.
+``read_wav`` reads just the samples [start, stop) of a file, so
+random-crop training never loads a whole utterance: through the native
+reader (``native.py``, ``pread`` of the window with the GIL released:
+PCM16/24/32 and float32), else, for another format or where no C++
+compiler is found, through the standard library's ``wave`` (PCM8, PCM16,
+PCM32).  Samples come back as float32 in [-1, 1], mono (the first channel
+of a multi-channel file), as ``soundfile.read(dtype="float32")`` gives
+them.
 """
 
 from __future__ import annotations
@@ -16,9 +18,20 @@ from typing import Optional
 
 import numpy as np
 
+from . import native
+
 
 def read_wav(path: str, start: int = 0, stop: Optional[int] = None) -> np.ndarray:
     """Read samples [start, stop) as float32 mono."""
+    if native.available():
+        try:
+            return native.read_window(path, start, -1 if stop is None else max(stop - start, 0))
+        except IOError:
+            pass  # a format the native reader does not parse: the wave module's turn
+    return _read_wave_module(path, start, stop)
+
+
+def _read_wave_module(path: str, start: int, stop: Optional[int]) -> np.ndarray:
     with wave.open(path, "rb") as w:
         n_frames = w.getnframes()
         width = w.getsampwidth()

@@ -5,15 +5,16 @@
 The JAX package draws every mask from the ``dropout`` stream of a key that
 its Trainer folds from ``seed`` and the step.  Here each module draws from
 a ``torch.Generator`` of its own on the input's device, so no mask comes
-from torch's process-wide generator: ``seed_generators(model, seed, step)``
-seeds every such module of a model from (seed, step), and
+from torch's process-wide generator: ``seed_generators(model, seed, step,
+rank)`` seeds every such module of a model from (seed, step, rank), and
 ``train.Trainer`` calls it at the start of every step's forward.  So a
-step's masks depend on the seed and the global step alone: a run resumed
-from a checkpoint draws what the uninterrupted run draws, and a forward
-recomputed for the backward (remat) draws the masks of the first pass.
-The masks are not the JAX package's: the two frameworks have different
-generators.  Neither module holds parameters or buffers, so state dicts
-keep their keys.
+step's masks depend on the seed, the global step and the data-parallel
+rank alone: a run resumed from a checkpoint draws what the uninterrupted
+run draws, and a forward recomputed for the backward (remat) draws the
+masks of the first pass.  The masks are not the JAX package's: the two
+frameworks have different generators, and the JAX package draws one mask
+over the global batch where each rank here draws its own.  Neither module
+holds parameters or buffers, so state dicts keep their keys.
 """
 
 from __future__ import annotations
@@ -77,13 +78,14 @@ class DropPath(_Draws):
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def seed_generators(model: nn.Module, seed: int, step: int | None = None) -> int:
+def seed_generators(model: nn.Module, seed: int, step: int | None = None, rank: int = 0) -> int:
     """Reseed every ``Dropout`` and ``DropPath`` of ``model`` from ``seed``
-    (and the training ``step``, when given): each its own seed, drawn in
-    module order from numpy's ``SeedSequence`` of (seed, step).  Returns how
-    many it reseeded."""
+    (and the training ``step`` and data-parallel ``rank``, when a step is
+    given): each its own seed, drawn in module order from numpy's
+    ``SeedSequence`` of (seed, step, rank).  Returns how many it
+    reseeded."""
     draws = [m for m in model.modules() if isinstance(m, _Draws)]
-    entropy = (seed,) if step is None else (seed, step)
+    entropy = (seed,) if step is None else (seed, step, rank)
     seeds = np.random.SeedSequence(entropy).generate_state(len(draws), np.uint64) >> np.uint64(2)
     for m, s in zip(draws, seeds.tolist()):
         m.reseed(s)

@@ -1,0 +1,87 @@
+"""Process groups for data-parallel training (counterpart of
+``audio_only_speech_separation_tpu/parallel/mesh.py`` and of the JAX
+package's ``audio_train.maybe_init_distributed``).
+
+The JAX package builds a 1-D mesh with axis ``dp`` over every device,
+replicates the parameters and shards the batch, and XLA inserts the
+gradient reduction.  Here the same layout is one process a card, launched
+by ``torchrun``: ``init_distributed`` joins the process group that
+torchrun's environment describes, each process loads its own shard of the
+data, and ``train.Trainer`` runs its train forward under
+``DistributedDataParallel``, whose backward averages the gradients over
+the ``dp`` group.  Only the ``dp`` axis is ported (the JAX package's ``sp``
+axis, ``parallel/sequence.py``, is not).
+"""
+
+from __future__ import annotations
+
+import os
+from datetime import timedelta
+from typing import Sequence
+
+import torch
+import torch.distributed as dist
+from torch import nn
+
+
+def init_distributed(device="cuda", backend: str | None = None) -> tuple[int, int]:
+    """Join the process group that torchrun's environment describes
+    (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+    ``MASTER_PORT``); without ``WORLD_SIZE`` and ``RANK`` it does nothing.
+    On the card the process takes card ``LOCAL_RANK`` and the group NCCL;
+    with ``device="cpu"`` gloo.  ``backend`` names another (gloo over CUDA
+    tensors puts two ranks on one card, which NCCL refuses).  Joining the
+    group and every collective wait at most 10 minutes for the other ranks.
+    Returns ``local_shard_info()``."""
+    env = os.environ
+    if dist.is_initialized() or "WORLD_SIZE" not in env or "RANK" not in env:
+        return local_shard_info()
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("init_distributed: no CUDA device; pass device=\"cpu\" for gloo on the CPU")
+        torch.cuda.set_device(int(env.get("LOCAL_RANK", "0")))
+    address = f"tcp://{env.get('MASTER_ADDR', 'localhost')}:{env['MASTER_PORT']}"
+    dist.init_process_group(backend or ("nccl" if dev.type == "cuda" else "gloo"), init_method=address,
+                            rank=int(env["RANK"]), world_size=int(env["WORLD_SIZE"]),
+                            timeout=timedelta(minutes=10))
+    return local_shard_info()
+
+
+def local_shard_info() -> tuple[int, int]:
+    """(rank, world size): this process's shard of the data and the number
+    of shards; (0, 1) without a process group."""
+    if dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def make_mesh(device="cuda", axis_names: Sequence[str] = ("dp",)):
+    """A 1-D ``DeviceMesh`` over every rank of the process group, axis
+    ``dp`` (the JAX package's data-parallel mesh)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if tuple(axis_names) != ("dp",):
+        raise NotImplementedError(f"only the data-parallel axis 'dp' is ported, not {tuple(axis_names)}")
+    return init_device_mesh(torch.device(device).type, (local_shard_info()[1],), mesh_dim_names=("dp",))
+
+
+def local_mesh(device="cuda") -> torch.device:
+    """The device this rank computes on: its card (the current CUDA device)
+    or the CPU.  Evaluation stays on it, with no collective inside the
+    loop, as the JAX package's ``local_mesh`` keeps it on the host's own
+    devices."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def replicate(module: nn.Module) -> nn.Module:
+    """Broadcast rank 0's parameters and buffers to every rank (in place);
+    nothing without a process group.  Returns ``module``."""
+    if dist.is_initialized():
+        with torch.no_grad():
+            for t in [*module.parameters(), *module.buffers()]:
+                dist.broadcast(t.data, src=0)
+    return module

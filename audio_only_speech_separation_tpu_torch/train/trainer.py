@@ -1,4 +1,4 @@
-"""The training loop on one device (counterpart of
+"""The training loop (counterpart of
 ``audio_only_speech_separation_tpu/train/trainer.py``): what Lightning did
 for the reference, written out.
 
@@ -14,19 +14,31 @@ for the reference, written out.
   ``fused_forward=True`` a ConvTasNet instead runs
   ``models.convtasnet.make_kernel_train_apply`` on the same casts (the TCN
   chain through its forward and backward kernels).
+- Data parallel: under a process group (``parallel.init_distributed``,
+  one process a card) the train forward runs under
+  ``DistributedDataParallel`` over the ``dp`` mesh, each rank on its own
+  shard of the global batch (the loaders trim the shards to equal
+  lengths).  So the loss is the mean over the global batch and the
+  gradient its gradient, as in the JAX Trainer's step, and the global-norm
+  clip in the optimizer's ``step`` reads the reduced gradients.  The
+  logged train loss and every evaluation are reduced across the ranks
+  (Σ loss·n, Σ n), so each rank takes the same scheduler and early-stop
+  decisions.  Rank 0 alone writes checkpoints, best_k_models.json,
+  best_model.pth, the logs and the epoch lines; every rank resumes from
+  the same last.ckpt.
 - Dropout and DropPath draw from their own generators, seeded from
-  (``seed``, global step) at the start of every step's forward
+  (``seed``, global step, rank) at the start of every step's forward
   (``ops.dropout.seed_generators``), as the JAX Trainer folds the step into
   its key: a run resumed from last.ckpt (which keeps the global step)
   draws the masks of the uninterrupted run.
 - ``remat=True`` recomputes the train forward's activations in the
   backward (``torch.utils.checkpoint``, non-reentrant; the JAX Trainer's
-  ``jax.checkpoint``): the TCN chain's forward kernel runs again there, and
-  the recomputed forward reseeds its masks, so it draws the first pass's.
+  ``jax.checkpoint``), and the recomputed forward reseeds its masks, so it
+  draws the first pass's.  On the fused ConvTasNet path it does nothing,
+  as in the JAX Trainer, whose fused path bypasses its checkpoint.
 - A warm start: ``system.warm_start = (pretrained state dict, merge_fn)``
   calls ``merge_fn(model, pretrained)`` before the first step of a run that
   does not resume (``audio_train_twostep.update_parameter``).
-- Global-norm gradient clipping happens in the optimizer's ``step``.
 - ReduceLROnPlateau (per epoch, on the val loss) or Noam (per step), and
   EarlyStopping on the val loss.
 - CheckpointManager: top-k, last.ckpt with auto-resume, best_k_models.json,
@@ -36,8 +48,8 @@ for the reference, written out.
 
 Validation runs every epoch, the test loader every ``TEST_EVERY`` epochs
 (reference audio_litmodule.py:109-123).  The device is the CUDA card
-unless the caller passes ``device="cpu"``; there is no quiet fallback.
-Data-parallel and multi-host training are not ported yet.
+(this rank's) unless the caller passes ``device="cpu"``; there is no quiet
+fallback.
 """
 
 from __future__ import annotations
@@ -48,10 +60,15 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch import nn
+from torch.nn.parallel import DistributedDataParallel
 from torch.utils.checkpoint import checkpoint
 
 from ..models import save_serialized, serialize
 from ..ops.dropout import seed_generators
+from ..parallel import local_mesh, local_shard_info, make_mesh
+from ..utils.console import print_only
 from .checkpoints import CheckpointManager
 from .loggers import BaseLogger, make_default_logger
 from .optimizers import get_learning_rate, set_learning_rate
@@ -64,17 +81,16 @@ def bf16_forward(model, fused: bool = False, **kernel_apply):
     """The JAX Trainer's mixed-precision forward: est = forward(mix) in f32
     from bf16 casts of ``model``'s f32 parameters and of the mix (the
     gradients reach the f32 parameters through the casts).  With ``fused``
-    a ConvTasNet runs ``make_kernel_train_apply`` (the TCN chain through its
-    forward and backward kernels; ``kernel_apply`` is passed to it) on the
-    casts, any other model ``torch.func.functional_call``."""
+    (a ConvTasNet) ``make_kernel_train_apply`` runs on the casts (the TCN
+    chain through its forward and backward kernels; ``kernel_apply`` is
+    passed to it), without it ``torch.func.functional_call``."""
     bf = torch.bfloat16
     params = dict(model.named_parameters())
     apply_fn = None
     if fused:
-        from ..models.convtasnet import ConvTasNet, make_kernel_train_apply
+        from ..models.convtasnet import make_kernel_train_apply
 
-        if isinstance(model, ConvTasNet):
-            apply_fn = make_kernel_train_apply(model, **kernel_apply)
+        apply_fn = make_kernel_train_apply(model, **kernel_apply)
 
     def forward(mix):
         cast = {k: p.to(bf) if p.dtype == torch.float32 else p for k, p in params.items()}
@@ -83,6 +99,32 @@ def bf16_forward(model, fused: bool = False, **kernel_apply):
         return torch.func.functional_call(model, cast, (mix.to(bf),)).float()
 
     return forward
+
+
+class TrainForward(nn.Module):
+    """The whole train forward as one module: ``self(mix, step)`` seeds the
+    dropout generators from (seed, ``step``, rank), runs ``forward_fn`` (the
+    module, or ``bf16_forward``'s casts and fused path) and returns the f32
+    estimate, inside one checkpointed region under ``remat`` so that the
+    recomputation draws the same masks.  ``DistributedDataParallel`` arms
+    its gradient reduction only inside its own forward, so wrapping this
+    module (and not the model, which ``bf16_forward`` calls around DDP)
+    lets it see every path."""
+
+    def __init__(self, model: nn.Module, forward, seed: int, rank: int, remat: bool):
+        super().__init__()
+        self.model = model
+        self.forward_fn = forward
+        self.seed, self.rank, self.remat = seed, rank, remat
+
+    def _run(self, mix, step: int):
+        seed_generators(self.model, self.seed, step, self.rank)
+        return self.forward_fn(mix)
+
+    def forward(self, mix, step: int):
+        if self.remat:
+            return checkpoint(self._run, mix, step, use_reentrant=False)
+        return self._run(mix, step)
 
 
 class EarlyStopping:
@@ -128,9 +170,11 @@ class Trainer:
         # opt-in: bf16 training through the TCN chain's kernels
         self.fused_forward = fused_forward
         self.remat = remat  # recompute the train forward's activations in the backward
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer: no CUDA device; pass device=\"cpu\" to train on the CPU")
+        self.device = local_mesh(device)
+        self.rank = local_shard_info()[0]
+        self.is_main = self.rank == 0  # owns the checkpoints, the logs and the epoch lines
         es = dict(early_stop or {})
         es.setdefault("monitor", "val_loss/dataloader_idx_0")
         self.early_stop = EarlyStopping(**es)
@@ -139,34 +183,61 @@ class Trainer:
         self.ckpt = CheckpointManager(os.path.join(exp_dir, ""), **{
             k: v for k, v in ck.items()
             if k in ("monitor", "mode", "save_top_k", "save_last", "filename")})
-        self.logger = logger or make_default_logger(logger_dir or os.path.join(exp_dir, "logs"))
+        self.logger = None
+        if self.is_main:
+            self.logger = logger or make_default_logger(logger_dir or os.path.join(exp_dir, "logs"))
+
+    def _fused(self, model) -> bool:
+        """Whether ``model`` trains on the fused path: bf16 with
+        ``fused_forward`` on a ConvTasNet (every other model ignores it)."""
+        from ..models.convtasnet import ConvTasNet
+
+        return self.precision == "bfloat16" and self.fused_forward and isinstance(model, ConvTasNet)
 
     def _make_forward(self, model):
         """est = forward(mix) in f32, by ``precision`` and ``fused_forward``."""
         if self.precision == "float32":
             return model
-        return bf16_forward(model, self.fused_forward)
+        return bf16_forward(model, self._fused(model))
 
-    def _train_forward(self, forward, model, step: int):
-        """``forward`` for the train step ``step``: the dropout generators
-        seeded from (seed, step) at its start, inside the checkpointed
-        region under ``remat`` so that the recomputation draws the same
-        masks."""
-        def run(mix):
-            seed_generators(model, self.seed, step)
-            return forward(mix)
-
-        if not self.remat:
-            return run
-        return lambda mix: checkpoint(run, mix, use_reentrant=False)
+    def train_module(self, model) -> nn.Module:
+        """The train forward of ``model`` as one module, ``m(mix, step) ->
+        est``; under ``DistributedDataParallel`` over the ``dp`` mesh when a
+        process group is up (which broadcasts rank 0's parameters and
+        buffers).  DDP takes the graph as static: every model here reaches
+        the same parameters at every step, though not always all of them
+        (TDANet's deepest fusion is never used, as in the reference), which
+        DDP then learns at the first step."""
+        fused = self._fused(model)
+        if self.remat and fused:
+            print_only("remat: nothing to recompute on the fused ConvTasNet path (the JAX Trainer's fused "
+                       "path bypasses its checkpoint too); the TCN chain's kernels keep their own state")
+        module = TrainForward(model, self._make_forward(model), self.seed, self.rank, self.remat and not fused)
+        if not dist.is_initialized():
+            return module
+        group = make_mesh(self.device).get_group("dp")
+        return DistributedDataParallel(module, device_ids=[self.device.index] if self.device.type == "cuda" else None,
+                                       process_group=group, static_graph=True)
 
     def _batch(self, np_batch):
         mix, sources, _keys = np_batch
         return (torch.from_numpy(np.asarray(mix)).to(self.device),
                 torch.from_numpy(np.asarray(sources)).to(self.device))
 
+    def _mean_over_ranks(self, total, count: int) -> float:
+        """Σ total / Σ count over every rank (one all-reduce of both; this
+        rank's alone without a process group); NaN when no rank saw an
+        item."""
+        both = torch.tensor([0.0 if total is None else float(total), float(count)], dtype=torch.float64,
+                            device=self.device)
+        if dist.is_initialized():
+            dist.all_reduce(both)
+        return float(both[0] / both[1]) if both[1] > 0 else float("nan")
+
     def _eval_epoch(self, forward, loss_func, loader) -> float:
-        """Batch-size-weighted mean loss over a loader (one host sync)."""
+        """Batch-size-weighted mean loss over a loader, each rank on its own
+        shard with no collective inside the loop, then reduced exactly
+        across the ranks however unequal their shards are."""
         tot, wsum = None, 0
         with torch.no_grad():
             for b in loader:
@@ -174,7 +245,7 @@ class Trainer:
                 loss = loss_func(forward(mix), sources) * len(mix)
                 tot = loss if tot is None else tot + loss
                 wsum += len(mix)
-        return float("nan") if tot is None else float(tot) / wsum
+        return self._mean_over_ranks(tot, wsum)
 
     def fit(self, system):
         """Train ``system`` (resuming from last.ckpt when there is one);
@@ -198,8 +269,10 @@ class Trainer:
         elif getattr(system, "warm_start", None) is not None:
             pretrained, merge_fn = system.warm_start
             merge_fn(model, pretrained)
-        forward = self._make_forward(model)
-        self.logger.log_hyperparams(getattr(system, "hparams", None) or {})
+        train_module = self.train_module(model)
+        forward = getattr(train_module, "module", train_module).forward_fn  # evaluation: outside DDP, no remat
+        if self.is_main:
+            self.logger.log_hyperparams(getattr(system, "hparams", None) or {})
 
         current_lr = getattr(scheduler, "lr", None)
         for epoch in range(start_epoch, self.epochs):
@@ -210,7 +283,7 @@ class Trainer:
             for np_batch in system.train_loader:
                 mix, sources = self._batch(np_batch)
                 opt.zero_grad()
-                loss = train_loss_fn(self._train_forward(forward, model, global_step)(mix), sources)
+                loss = train_loss_fn(train_module(mix, global_step), sources)
                 loss.backward()
                 opt.step()
                 global_step += 1
@@ -220,7 +293,7 @@ class Trainer:
                 loss = loss.detach() * len(mix)
                 loss_sum = loss if loss_sum is None else loss_sum + loss
                 nseen += len(mix)
-            train_loss = float(loss_sum) / nseen if loss_sum is not None else float("nan")
+            train_loss = self._mean_over_ranks(loss_sum, nseen)
 
             model.eval()
             val_loss = self._eval_epoch(forward, val_loss_fn, system.val_loader)
@@ -231,34 +304,39 @@ class Trainer:
             if scheduler is not None and not isinstance(scheduler, NoamLR):
                 current_lr = scheduler.step(val_loss)
                 set_learning_rate(opt, current_lr)
-            self.logger.log_scalar("train_loss", train_loss, epoch)
-            self.logger.log_scalar("val_loss", val_loss, epoch)
-            self.logger.log_scalar("val_pit_sisnr", -val_loss, epoch)
-            if test_loss is not None:
-                self.logger.log_scalar("test_loss", test_loss, epoch)
-                self.logger.log_scalar("test_pit_sisnr", -test_loss, epoch)
-            self.logger.log_scalar("learning_rate", get_learning_rate(opt), epoch)
-            print(f"epoch {epoch}: train_loss={train_loss:.4f} val_loss={val_loss:.4f}"
-                  + (f" test_loss={test_loss:.4f}" if test_loss is not None else "")
-                  + (f" lr={current_lr:.2e}" if current_lr is not None else "")
-                  + f" ({time.time() - t0:.1f}s)")
+            if self.is_main:
+                self.logger.log_scalar("train_loss", train_loss, epoch)
+                self.logger.log_scalar("val_loss", val_loss, epoch)
+                self.logger.log_scalar("val_pit_sisnr", -val_loss, epoch)
+                if test_loss is not None:
+                    self.logger.log_scalar("test_loss", test_loss, epoch)
+                    self.logger.log_scalar("test_pit_sisnr", -test_loss, epoch)
+                self.logger.log_scalar("learning_rate", get_learning_rate(opt), epoch)
+            print_only(f"epoch {epoch}: train_loss={train_loss:.4f} val_loss={val_loss:.4f}"
+                       + (f" test_loss={test_loss:.4f}" if test_loss is not None else "")
+                       + (f" lr={current_lr:.2e}" if current_lr is not None else "")
+                       + f" ({time.time() - t0:.1f}s)")
 
-            self.ckpt.save({
-                "model": {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()},
-                "optimizer": opt.state_dict(),
-                "scheduler": scheduler.state_dict() if scheduler else None,
-                "early_stop": self.early_stop.state_dict(),
-                "global_step": global_step,
-                "config": getattr(system, "config", None),
-            }, epoch, val_loss)
-            if self.early_stop.step(val_loss):
+            if self.is_main:
+                self.ckpt.save({
+                    "model": {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()},
+                    "optimizer": opt.state_dict(),
+                    "scheduler": scheduler.state_dict() if scheduler else None,
+                    "early_stop": self.early_stop.state_dict(),
+                    "global_step": global_step,
+                    "config": getattr(system, "config", None),
+                }, epoch, val_loss)
+            if self.early_stop.step(val_loss):  # the same decision on every rank: val_loss is reduced
                 break
 
-        # the portable best model (reference audio_train.py:139-148)
-        self.ckpt.write_best_k()
-        if self.ckpt.best_k:
-            best = self.ckpt.load()
-            save_serialized(serialize(model, state_dict=best["model"]),
-                            os.path.join(self.exp_dir, "best_model.pth"))
-        self.logger.close()
+        if self.is_main:
+            # the portable best model (reference audio_train.py:139-148)
+            self.ckpt.write_best_k()
+            if self.ckpt.best_k:
+                best = self.ckpt.load()
+                save_serialized(serialize(model, state_dict=best["model"]),
+                                os.path.join(self.exp_dir, "best_model.pth"))
+            self.logger.close()
+        if dist.is_initialized():
+            dist.barrier()  # every rank returns once rank 0's artifacts are written
         return model

@@ -22,12 +22,15 @@ versions); then the rest of the model zoo: Sandglasset (K4 in its 3-D and
 and group communication, served, through the eval CLI and in a train
 step; then the training-quality study, the main path's training with
 remat, lamb and a cosine schedule, the optimizers written after optax's
-rules, MixIT and the two-step entry.  In phases:
+rules, MixIT and the two-step entry; then data-parallel training, the WSJ0
+datamodule with the native wav reader, and chunked separation of a long
+recording.  In phases:
 
 0. the card's name and power limit (fails without a CUDA device);
 1. build the kernels from ``csrc/`` with nvcc;
 2. K1 against its plain PyTorch version on the card, at the LRS3 shape and
-   at an odd shape, each also against the f32 eager model;
+   at an odd shape (``check_k1_plain``), each also against the f32 eager
+   model;
 3. serve five utterances from a checkpoint through ``serve.serve`` with
    bf16, and check each against the f32 eager model and the launch count;
 4. time the K1 path, its plain bf16 version and the f32 eager module at
@@ -155,14 +158,34 @@ rules, MixIT and the two-step entry.  In phases:
     printed beside, ungated);
 36. ``audio_train.main`` on the LRS3 config (B=12 x 2 s) with
     ``fused_forward``, ``remat``, lamb and CosineAnnealingLR for three
-    steps and validation: 2 x 49 K2 and 170 K3 launches a step; one
+    steps and validation: 49 K2 and 170 K3 launches a step (remat
+    recomputes nothing on the fused path, as in the JAX Trainer); one
     step's gradients with remat bit-identical to one without; the step's
     time and peak device memory either way;
 37. the optimizers written after optax's rules, three steps each on the
     card against the CPU (1e-5 relative);
 38. MixIT on the card against the CPU (1e-5 relative);
 39. the two-step entry on TDANet (tdanet_lrs2 width): step 2's ``sm``
-    parameters are step 1's best_model.pth's after the warm start.
+    parameters are step 1's best_model.pth's after the warm start;
+40. data-parallel training on the card: one bf16 train step of
+    ConvTasNet-LRS3 with ``fused_forward`` (K2 + K3), global batch 12 x 2
+    s, as two DDP ranks over gloo on the one card (6 each, processes of
+    their own) and as one process: each arm's gradients under the 1.5x
+    rule against the f32 module, and the arms' gradients, losses and
+    parameters after one Adam step within the plain bf16 path's distance
+    from f32;
+41. ``audio_train.main`` under a process group of one rank over NCCL
+    (torchrun's environment set here) on the LRS3 config, fused_forward,
+    three steps, manifests read through the native wav reader built into
+    build/wavio: rank 0's artifacts, K2 and K3 launches, and a train step
+    with and without DDP timed in turns;
+42. ``WSJ0DataModule`` training: one DPRNN step (dprnn_wsj0 width) from
+    wsj0-layout manifests, K6 at the batch of 2 and K5 at the eval
+    batches of 1, and K5/K6 against their plain versions at those shapes;
+43. ``chunked_separate`` on a 20 s, 16 kHz mixture at convtasnet_lrs3
+    width (8 s windows, 1 s overlap: one K1 call over 3 windows) under the
+    1.5x rule against the plain bf16 path, K1 against its plain version on
+    the windows' frames (``check_k1_plain``), and the call's time.
 
 TF32 is off for matmuls and cuDNN, so the f32 references are full f32.
 
@@ -310,6 +333,18 @@ def random_jax_tree(cfg, seed: int):
     return {"params": p}
 
 
+def convtasnet_model(cfg, seed: int, dev):
+    """ConvTasNet of ``cfg`` on ``dev`` with ``random_jax_tree``'s seeded
+    weights, in eval mode."""
+    from audio_only_speech_separation_tpu_torch.models import ConvTasNet
+    from audio_only_speech_separation_tpu_torch.utils.jax_import import convtasnet_from_jax
+
+    m = ConvTasNet(**cfg, device=dev)
+    sd = convtasnet_from_jax(random_jax_tree(cfg, seed), cfg["R"], cfg["X"])
+    m.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    return m.eval()
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -322,6 +357,23 @@ def check_rule(label: str, kernel_err: float, plain_err: float) -> None:
     print(f"  {label}: kernel-vs-f32 {kernel_err:.6g}  plain-vs-f32 {plain_err:.6g}  bound {bound:.6g}")
     if not kernel_err <= bound:
         raise AssertionError(f"{label}: kernel error {kernel_err} exceeds {bound}")
+
+
+# K1 against its plain version on the same frames: the largest difference
+# within this share of the plain output's largest magnitude (the two bf16
+# chains round at different points over 24 blocks; about 1 % on an H100)
+K1_PLAIN_REL = 3e-2
+
+
+def check_k1_plain(label: str, got: torch.Tensor, plain: torch.Tensor) -> float:
+    """Raises unless K1's separator output ``got`` is within K1_PLAIN_REL of
+    its plain version's; returns the max abs difference."""
+    err, scale = max_err(got, plain), float(plain.float().abs().max())
+    print(f"  {label}: separator kernel-vs-plain max abs {err:.6g} (plain output scale {scale:.4g}, "
+          f"bound {K1_PLAIN_REL * scale:.6g})")
+    if not err <= K1_PLAIN_REL * scale:
+        raise AssertionError(f"{label}: K1 differs from its plain version by {err} > {K1_PLAIN_REL} x {scale}")
+    return err
 
 
 def rel_l2(ref: torch.Tensor, got: torch.Tensor) -> float:
@@ -1285,8 +1337,10 @@ def new_models_timing(dev, card, bsrnn, tdanet, afrcnn) -> dict:
 
     print(f"phase 24: timing, BSRNN at B=1 and 4 x 4 s x 8 kHz, TDANet and AFRCNN at B=1 x 2 s x 16 kHz, "
           f"on {card}")
+    t_phase = time.perf_counter()
     for batch in (1, 4):
         time_calls(dev, card, {"BSRNN": bsrnn}, batch, 4.0, TSR, 3, tasnet_counters()[1:])
+        print(f"  {time.perf_counter() - t_phase:.1f} s into phase 24")
     rand = rand_maker(37, dev)
     (T5, D5, B5, H5), (T6, B6, Din6, H6, D6) = bsrnn_shapes(1)
     xw, whh = lstm_kernel_inputs(rand, k5_shape=bsrnn_shapes(1)[0])
@@ -1318,6 +1372,7 @@ def new_models_timing(dev, card, bsrnn, tdanet, afrcnn) -> dict:
               + ("not timed" if d["library_ms"] is None else f"{d['library_ms']:.4f} ms")
               + f"; bound {d['bound_ms']:.5f} ms ({d['bound_by']}); {card}")
 
+    print(f"  {time.perf_counter() - t_phase:.1f} s into phase 24")
     module = copy.deepcopy(tdanet).to(torch.bfloat16)
     x = torch.from_numpy(np.random.default_rng(38).standard_normal((1, 2 * SR)).astype(np.float32)).to(dev)
     xb = x.to(torch.bfloat16)
@@ -1329,10 +1384,12 @@ def new_models_timing(dev, card, bsrnn, tdanet, afrcnn) -> dict:
         for name, v in ms.items():
             print(f"  B=1 x 2 s x 16 kHz, {name}: {v:.4f} ms/call, {2.0 / (v / 1000):.2f} audio-sec/s "
                   f"(median of 5, {card})")
+        # calls of 12000-15000 device operations: the device trace alone
         device_profile("B=1 x 2 s x 16 kHz, TDANet fast path", runs["TDANet fast path (bf16)"],
-                       ms["TDANet fast path (bf16)"], (), card)
+                       ms["TDANet fast path (bf16)"], (), card, cpu=False)
         device_profile("B=1 x 2 s x 16 kHz, TDANet module path", runs["TDANet module path (bf16, K4)"],
-                       ms["TDANet module path (bf16, K4)"], tasnet_counters()[:1], card)
+                       ms["TDANet module path (bf16, K4)"], tasnet_counters()[:1], card, cpu=False)
+    print(f"  {time.perf_counter() - t_phase:.1f} s into phase 24")
     time_calls(dev, card, {"AFRCNN": afrcnn}, 1, 2.0, SR, 3, ())
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return k5, k6
@@ -1668,7 +1725,7 @@ def train_timing(dev, card: str, root: str) -> None:
     """Phase 28: a train step of each family at its config's batch and
     segment (forward, PIT loss, backward, clipping and Adam, as
     ``Trainer.fit`` takes it) on the kernel path, the plain bf16 path and
-    the f32 module, timed in turns (CUDA events, median of 3 after a
+    the f32 module, timed in turns (CUDA events, median of 2 after a
     warm-up; the phase is host-paced and the script's longest), the
     kernel path's steps split into forward, backward and the
     optimizer; one kernel-path step under torch.profiler (device work by
@@ -1707,7 +1764,7 @@ def train_timing(dev, card: str, root: str) -> None:
 
         runs = {path: step(*cf, split=path == "kernel path")
                 for path, cf in train_paths(model, os.path.join(root, f"t_{family}"), dev).items()}
-        reps = 3
+        reps = 2
         for fn in runs.values():  # one warm-up each
             fn()
         torch.cuda.synchronize()
@@ -1877,10 +1934,12 @@ def kernels_at_shapes(dev, label: str, shapes, written=None) -> tuple:
     return tuple(max(errs, default=0.0) for errs in (k4, k5, k6))
 
 
-def zoo_checks(dev):
+def zoo_checks(dev, card: str):
     """Phases 29-31: Sandglasset, DPRNNTasNet and the other TasNet modules
     served at full width under ``served_model_checks``, and K4, K5 and K6
-    against their plain versions at every shape those calls gave them.
+    against their plain versions at every shape those calls gave them;
+    then K4, K5 and K6 timed at the grouped modules' shapes (``time_attention``,
+    ``time_lstm``).
     Returns (the models, the kernel paths' launches, the worst K4, K5, K6
     max abs errors)."""
     from audio_only_speech_separation_tpu_torch.models import DPRNNTasNet, Sandglasset, TasNet
@@ -1906,12 +1965,24 @@ def zoo_checks(dev):
           "B=8 x 2 s")
     wsj0 = {k: v for k, v in WSJ0_TASNET.items() if k not in ("sample_rate", "group_size")}
     modules = {}
+    grouped = {"K4": set(), "K5": set(), "K6": set()}
     for label, (G, want) in TASNET_MODULES.items():
         modules[label] = seeded_model(TasNet, dict(wsj0, module=label.split()[0], group_size=G), TSR, 94, dev)
         more, shapes = served_model_checks(dev, f"TasNet {label}", modules[label], [(8, want)])
         launched = [a + b for a, b in zip(launched, more)]
         errs.append(kernels_at_shapes(dev, f"TasNet {label}", shapes))
+        for g in grouped:
+            grouped[g] |= shapes[g]
     worst = tuple(max(e[i] for e in errs) for i in range(3))
+    print(f"  timing K4, K5 and K6 at every shape the grouped modules' calls gave them, on {card}")
+    rand = rand_maker(96, dev)
+    with torch.no_grad():
+        for shape in sorted(grouped["K4"]):
+            time_attention("K4 grouped DPTNet", shape, rand, card)
+        for g in ("K5", "K6"):
+            for shape in sorted(grouped[g]):
+                # K5's input width: a group's share of the bottleneck (K6's shape holds its own)
+                time_lstm(dev, f"{g} grouped TasNet", shape, WSJ0_TASNET["bn_dim"] // 2, rand, card)
     return {"Sandglasset": sandglasset, "DPRNNTasNet": dprnn_tasnet, **modules}, launched, worst
 
 
@@ -1942,11 +2013,52 @@ def zoo_timing(dev, card, zoo) -> None:
     SDPA and its bound, K6 at Sandglasset's intra shape and at
     DPRNNTasNet's B=8 rows and columns, and K5 at its B=1 rows and
     columns, each beside its plain version, bf16 ``nn.LSTM`` and its
-    bound."""
+    bound (``time_attention``, ``time_lstm``)."""
+    print(f"phase 33: timing, Sandglasset and DPRNNTasNet at B=8 and B=1 x 2 s x 8 kHz, on {card}")
+    models = {"Sandglasset": zoo["Sandglasset"], "DPRNNTasNet": zoo["DPRNNTasNet"]}
+    for batch in (8, 1):
+        time_calls(dev, card, models, batch, 2.0, TSR, 5, tasnet_counters())
+    rand = rand_maker(95, dev)
+    with torch.no_grad():
+        for side, shape in sandglasset_shapes(8)[0].items():
+            time_attention(f"K4 Sandglasset {side}", shape, rand, card)
+        lstm_cases = [("K6 Sandglasset intra", sandglasset_shapes(8)[1]),
+                      ("K6 DPRNNTasNet rows B=8", DPRNN_TASNET_K6[0]), ("K6 DPRNNTasNet columns B=8", DPRNN_TASNET_K6[1]),
+                      ("K5 DPRNNTasNet rows B=1", DPRNN_TASNET_K5[0]), ("K5 DPRNNTasNet columns B=1", DPRNN_TASNET_K5[1])]
+        for label, shape in lstm_cases:
+            # the rows' and columns' input width, where K5's pre-projected input does not show it
+            time_lstm(dev, label, shape, DPRNN_TASNET["feature_dim"], rand, card)
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def time_attention(label: str, shape, rand, card: str) -> None:
+    """K4 alone at [BH, dh, T]: CUDA-event ms a launch (back to back), the
+    device ms under torch.profiler, its plain version, SDPA on the same
+    heads ([BH / 8, 8, T, dh]) and its bound."""
     from audio_only_speech_separation_tpu_torch.ops.kernels.attention import (
         attention_bdt_reference,
         fused_attention_bdt,
     )
+
+    BH, dh, T = shape
+    q, k, v = (rand((BH, dh, T)) for _ in range(3))
+    qt, kt, vt = (a.transpose(1, 2).reshape(BH // 8, 8, T, dh).contiguous() for a in (q, k, v))
+    d = {"ms": back_to_back_ms(lambda: fused_attention_bdt(q, k, v)),
+         "device_ms": launch_ms(lambda: fused_attention_bdt(q, k, v), "attention_kernel", 20),
+         "plain_ms": back_to_back_ms(lambda: attention_bdt_reference(q, k, v), 5),
+         "library_ms": back_to_back_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))}
+    bound, by = least_time(4 * q.numel() * 2, 4 * BH * T * T * dh)
+    traced = "not traced" if d["device_ms"] is None else f"{d['device_ms']:.4f} ms"
+    print(f"  {label} [{BH}, {dh}, {T}]: kernel {d['ms']:.4f} ms a launch (CUDA events, back to back), {traced} on "
+          f"the device (torch.profiler); plain {d['plain_ms']:.4f} ms; SDPA on [{BH // 8}, 8, {T}, {dh}] "
+          f"{d['library_ms']:.4f} ms; bound {bound:.5f} ms ({by}); {card}")
+
+
+def time_lstm(dev, label: str, shape, Din: int, rand, card: str) -> None:
+    """K6 at (T, B, Din, H, D), or K5 at (T, D, B, H) whose input width is
+    ``Din``, alone: CUDA-event ms a launch (back to back), the device ms
+    under torch.profiler, its plain version, bf16 ``nn.LSTM(Din, H)`` on
+    [B, T, Din] and its bound."""
     from audio_only_speech_separation_tpu_torch.ops.kernels.lstm import (
         bilstm_reference,
         fused_bilstm,
@@ -1954,52 +2066,28 @@ def zoo_timing(dev, card, zoo) -> None:
         resident_bilstm_reference,
     )
 
-    print(f"phase 33: timing, Sandglasset and DPRNNTasNet at B=8 and B=1 x 2 s x 8 kHz, on {card}")
-    models = {"Sandglasset": zoo["Sandglasset"], "DPRNNTasNet": zoo["DPRNNTasNet"]}
-    for batch in (8, 1):
-        time_calls(dev, card, models, batch, 2.0, TSR, 5, tasnet_counters())
-    rand = rand_maker(95, dev)
-    with torch.no_grad():
-        for side, (BH, dh, T) in sandglasset_shapes(8)[0].items():
-            q, k, v = (rand((BH, dh, T)) for _ in range(3))
-            qt, kt, vt = (a.transpose(1, 2).reshape(BH // 8, 8, T, dh).contiguous() for a in (q, k, v))
-            d = {"ms": back_to_back_ms(lambda: fused_attention_bdt(q, k, v)),
-                 "device_ms": launch_ms(lambda: fused_attention_bdt(q, k, v), "attention_kernel", 20),
-                 "plain_ms": back_to_back_ms(lambda: attention_bdt_reference(q, k, v), 5),
-                 "library_ms": back_to_back_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))}
-            bound, by = least_time(4 * q.numel() * 2, 4 * BH * T * T * dh)
-            traced = "not traced" if d["device_ms"] is None else f"{d['device_ms']:.4f} ms"
-            print(f"  K4 Sandglasset {side} [{BH}, {dh}, {T}]: kernel {d['ms']:.4f} ms a launch (CUDA events, back "
-                  f"to back), {traced} on the device (torch.profiler); plain {d['plain_ms']:.4f} ms; SDPA on "
-                  f"[{BH // 8}, 8, {T}, {dh}] {d['library_ms']:.4f} ms; bound {bound:.5f} ms ({by}); {card}")
-        lstm_cases = [("K6 Sandglasset intra", sandglasset_shapes(8)[1]),
-                      ("K6 DPRNNTasNet rows B=8", DPRNN_TASNET_K6[0]), ("K6 DPRNNTasNet columns B=8", DPRNN_TASNET_K6[1]),
-                      ("K5 DPRNNTasNet rows B=1", DPRNN_TASNET_K5[0]), ("K5 DPRNNTasNet columns B=1", DPRNN_TASNET_K5[1])]
-        for label, shape in lstm_cases:
-            if label.startswith("K6"):
-                T, B, Din, H, D = shape
-                args = lstm_kernel_inputs(rand, k6_shape=shape)
-                kernel, plain, name = resident_bilstm, resident_bilstm_reference, "lstm_resident_kernel"
-                nbytes = (args[0].numel() + args[1].numel() + args[2].numel() + T * D * B * H) * 2 + args[3].numel() * 4
-                flops = 2 * T * D * B * (Din + H) * 4 * H
-            else:
-                T, D, B, H = shape
-                Din = DPRNN_TASNET["feature_dim"]  # the rows' and columns' input width
-                args = lstm_kernel_inputs(rand, k5_shape=shape)
-                kernel, plain, name = fused_bilstm, bilstm_reference, "lstm_recurrence_kernel"
-                nbytes = (args[0].numel() + args[0].numel() // 4 + args[1].numel()) * 2
-                flops = 2 * T * D * B * H * 4 * H
-            d = {"ms": back_to_back_ms(lambda: kernel(*args), 10),
-                 "device_ms": launch_ms(lambda: kernel(*args), name, 5),
-                 "plain_ms": back_to_back_ms(lambda: plain(*args), 1)}
-            lib = lstm_library_ms(dev, rand((B, T, Din), 0.5), Din, H)
-            bound, by = least_time(nbytes, flops)
-            traced = "not traced" if d["device_ms"] is None else f"{d['device_ms']:.4f} ms"
-            print(f"  {label} {shape}: kernel {d['ms']:.4f} ms a launch (CUDA events, back to back), {traced} on "
-                  f"the device (torch.profiler); plain {d['plain_ms']:.4f} ms; bf16 nn.LSTM({Din}, {H}) on "
-                  f"[{B}, {T}, {Din}] " + ("not timed" if lib is None else f"{lib:.4f} ms")
-                  + f"; bound {bound:.5f} ms ({by}); {card}")
-    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if label.startswith("K6"):
+        T, B, Din, H, D = shape
+        args = lstm_kernel_inputs(rand, k6_shape=shape)
+        kernel, plain, name = resident_bilstm, resident_bilstm_reference, "lstm_resident_kernel"
+        nbytes = (args[0].numel() + args[1].numel() + args[2].numel() + T * D * B * H) * 2 + args[3].numel() * 4
+        flops = 2 * T * D * B * (Din + H) * 4 * H
+    else:
+        T, D, B, H = shape
+        args = lstm_kernel_inputs(rand, k5_shape=shape)
+        kernel, plain, name = fused_bilstm, bilstm_reference, "lstm_recurrence_kernel"
+        nbytes = (args[0].numel() + args[0].numel() // 4 + args[1].numel()) * 2
+        flops = 2 * T * D * B * H * 4 * H
+    d = {"ms": back_to_back_ms(lambda: kernel(*args), 10),
+         "device_ms": launch_ms(lambda: kernel(*args), name, 5),
+         "plain_ms": back_to_back_ms(lambda: plain(*args), 1)}
+    lib = lstm_library_ms(dev, rand((B, T, Din), 0.5), Din, H)
+    bound, by = least_time(nbytes, flops)
+    traced = "not traced" if d["device_ms"] is None else f"{d['device_ms']:.4f} ms"
+    print(f"  {label} {shape}: kernel {d['ms']:.4f} ms a launch (CUDA events, back to back), {traced} on "
+          f"the device (torch.profiler); plain {d['plain_ms']:.4f} ms; bf16 nn.LSTM({Din}, {H}) on "
+          f"[{B}, {T}, {Din}] " + ("not timed" if lib is None else f"{lib:.4f} ms")
+          + f"; bound {bound:.5f} ms ({by}); {card}")
 
 
 # The optimizers written after optax's rules (phase 37) and the study's
@@ -2058,10 +2146,10 @@ def registry_training(dev, card: str, root: str, make_model) -> tuple:
     """Phase 36: the main path's training with the new registry:
     ``audio_train.main`` on the LRS3 config (B=12 x 2 s x 16 kHz) with
     ``fused_forward``, ``remat``, lamb and CosineAnnealingLR, three steps
-    and validation, K2 launched twice a step (forward and recomputation)
-    and K3 once; then one step's gradients with remat against one without
-    on the same model and batch (bit for bit: K2 and K3 are
-    deterministic), and the step's time and peak device memory either way.
+    and validation, K2 and K3 launched once a step (remat recomputes
+    nothing on the fused path, as in the JAX Trainer); then one step's
+    gradients with remat against one without on the same model and batch
+    (bit for bit), and the step's time and peak device memory either way.
     Returns (K2, K3) launches of the training run."""
     from audio_only_speech_separation_tpu_torch import audio_train
     from audio_only_speech_separation_tpu_torch.losses import PITLossWrapper, pairwise_neg_snr
@@ -2096,7 +2184,7 @@ def registry_training(dev, card: str, root: str, make_model) -> tuple:
         os.chdir(cwd)
     k2, k3 = fused_tcn_separator.launches, fused_tcn_backward.launches
     steps = 3
-    want_k2 = (2 * steps + 2) * tcn_separator_launches(24)  # forward and recompute a step; cv and tt
+    want_k2 = (steps + 2) * tcn_separator_launches(24)  # one forward a step (no recomputation); cv and tt
     want_k3 = steps * tcn_backward_launches(24)
     with open(os.path.join(work, "Experiments", "tensorboard_logs", "registry", "scalars.csv")) as f:
         scalars = {row.split(",")[1]: float(row.split(",")[2]) for row in f.read().splitlines()[1:]}
@@ -2117,33 +2205,39 @@ def registry_training(dev, card: str, root: str, make_model) -> tuple:
     mix = torch.from_numpy(rng.standard_normal((TRAIN_B, 2 * SR)).astype(np.float32)).to(dev)
     srcs = torch.from_numpy(rng.standard_normal((TRAIN_B, 3, 2 * SR)).astype(np.float32)).to(dev)
     loss_fn = PITLossWrapper(pairwise_neg_snr, pit_from="pw_mtx", threshold_byloss=True)
-    grads, times, peaks = {}, {}, {}
+    grads, steps, peaks = {}, {}, {}
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    opt = make_optimizer(model.parameters(), optim_name="lamb", lr=1e-3, grad_clip=5.0)
     for remat in (False, True):
         trainer = Trainer(os.path.join(root, f"remat{remat}"), precision="bfloat16", fused_forward=True,
-                          remat=remat, logger=CSVLogger(os.path.join(root, f"remat{remat}", "logs")))
-        forward = trainer._train_forward(trainer._make_forward(model), model, 0)
+                          remat=remat, device=dev, logger=CSVLogger(os.path.join(root, f"remat{remat}", "logs")))
+        module = trainer.train_module(model)
         model.zero_grad(set_to_none=True)
-        loss_fn(forward(mix), srcs).backward()
+        loss_fn(module(mix, 0), srcs).backward()
         grads[remat] = [p.grad.clone() for p in model.parameters()]
-        opt = make_optimizer(model.parameters(), optim_name="lamb", lr=1e-3, grad_clip=5.0)
-        state = {k: v.clone() for k, v in model.state_dict().items()}
 
-        def step():
+        def step(module=module):
             opt.zero_grad()
-            loss_fn(forward(mix), srcs).backward()
+            loss_fn(module(mix, 0), srcs).backward()
             opt.step()
 
+        steps[remat] = step
+    for remat, step in steps.items():
         step()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        times[remat] = cuda_time(step, reps=5, warmup=1)
+        step()
+        torch.cuda.synchronize()
         peaks[remat] = torch.cuda.max_memory_allocated() / 2**30
-        model.load_state_dict(state)
-        del opt
+    times = {False: [], True: []}
+    for remat in (False, True, True, False) * 2:  # in turns: on the fused path the two run the same code
+        times[remat].append(cuda_time(steps[remat], reps=3, warmup=0))
+    model.load_state_dict(state)
     same = all(torch.equal(a, b) for a, b in zip(grads[False], grads[True]))
     for remat in (False, True):
-        print(f"  train step (fused_forward, lamb) {'with' if remat else 'without'} remat: {times[remat]:.4f} ms "
-              f"(median of 5, CUDA events), peak device memory {peaks[remat]:.3f} GiB; {card}")
+        print(f"  train step (fused_forward, lamb) {'with' if remat else 'without'} remat: median "
+              f"{statistics.median(times[remat]):.4f} ms, runs {', '.join(f'{t:.4f}' for t in times[remat])} ms "
+              f"(CUDA events, median of 3 each, in turns), peak device memory {peaks[remat]:.3f} GiB; {card}")
     print(f"  one step's gradients with remat equal those without, bit for bit: {same}")
     if not same:
         raise AssertionError("remat changed the step's gradients")
@@ -2269,12 +2363,415 @@ def new_training_phases(dev, card: str, make_model) -> tuple:
     return launched
 
 
+# ---------------------------------------------------------------------------
+# Phases 40-43: data-parallel training, the WSJ0 datamodule, chunked separation
+# ---------------------------------------------------------------------------
+
+DDP_B = TRAIN_B  # phase 40's global batch: 12 x 2 s, 6 on each of two ranks
+
+
+def lrs3_model(seed: int, dev):
+    """ConvTasNet at configs/convtasnet_lrs3.yml's width with seeded weights,
+    in training mode."""
+    return convtasnet_model(LRS3, seed, dev).train()
+
+
+def ddp_batch(dev):
+    rng = np.random.default_rng(84)
+    mix = torch.from_numpy(rng.standard_normal((DDP_B, 2 * SR)).astype(np.float32)).to(dev)
+    srcs = torch.from_numpy(rng.standard_normal((DDP_B, 3, 2 * SR)).astype(np.float32)).to(dev)
+    return mix, srcs
+
+
+def lrs3_train_loss():
+    from audio_only_speech_separation_tpu_torch.losses import PITLossWrapper, pairwise_neg_snr
+
+    return PITLossWrapper(pairwise_neg_snr, pit_from="pw_mtx", threshold_byloss=True)
+
+
+def adam_step(model, forward, mix, srcs):
+    """One step of ``forward`` (est = forward(mix)) on ``model``: the loss,
+    its backward, Adam (lr 1e-3, the global-norm clip at 5.0).  Returns
+    (loss, the gradients, the updated parameters), on the CPU."""
+    from audio_only_speech_separation_tpu_torch.train import make_optimizer
+
+    opt = make_optimizer(model.parameters(), optim_name="adam", lr=1e-3, grad_clip=5.0)
+    model.zero_grad(set_to_none=True)
+    loss = lrs3_train_loss()(forward(mix), srcs)
+    loss.backward()
+    grads = [p.grad.detach().float().cpu().clone() for p in model.parameters()]
+    opt.step()
+    return loss.detach(), grads, [p.detach().cpu().clone() for p in model.parameters()]
+
+
+def ddp_rank(rank: int, world: int, port: int, out: str) -> None:
+    """Phase 40's rank process: joins a gloo group of ``world`` ranks on the
+    one card (NCCL refuses two ranks on one device), takes its 6 of the 12
+    utterances, and runs one step of ``Trainer``'s train forward under
+    DDP (bf16 through K2 + K3); rank 0 saves the loss over the global
+    batch, the gradients, the updated parameters and the launches."""
+    from audio_only_speech_separation_tpu_torch import parallel
+    from audio_only_speech_separation_tpu_torch.ops.kernels.convtasnet_backward import fused_tcn_backward
+    from audio_only_speech_separation_tpu_torch.ops.kernels.convtasnet_block import fused_tcn_separator
+    from audio_only_speech_separation_tpu_torch.train import CSVLogger, Trainer
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    parallel.init_distributed(device="cuda", backend="gloo")
+    model = lrs3_model(83, dev)
+    mix, srcs = ddp_batch(dev)
+    share = DDP_B // world
+    work = tempfile.mkdtemp(prefix=f"ddp_rank{rank}_")
+    trainer = Trainer(work, precision="bfloat16", fused_forward=True, device=dev,
+                      logger=CSVLogger(os.path.join(work, "logs")))
+    module = trainer.train_module(model)
+    fused_tcn_separator.launches = fused_tcn_backward.launches = 0
+    sl = slice(rank * share, (rank + 1) * share)
+    loss, grads, params = adam_step(model, lambda m: module(m, 0), mix[sl], srcs[sl])
+    torch.cuda.synchronize()
+    launched = (fused_tcn_separator.launches, fused_tcn_backward.launches)
+    loss = loss.float().reshape(1)
+    torch.distributed.all_reduce(loss)
+    if rank == 0:
+        torch.save({"loss": float(loss) / world, "grads": grads, "params": params, "launches": launched,
+                    "ddp": type(module).__name__}, out)
+    torch.distributed.destroy_process_group()
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def ddp_equality(dev, card: str, root: str) -> tuple:
+    """Phase 40: one bf16 train step of ConvTasNet-LRS3 at full width with
+    ``fused_forward`` (K2 + K3), global batch 12 x 2 s, as two DDP ranks
+    on the one card over gloo (6 each, processes of their own) and as one
+    process at 12; beside them the f32 module and the plain bf16 path (the
+    chain's plain versions) on the same model and batch.  Each arm's
+    gradients meet the 1.5x rule against f32 (PERF.md section 2); the two
+    arms' gradients, losses and parameters after one Adam step differ by no
+    more than the plain bf16 path's from f32.  Returns the (K2, K3)
+    launches of both arms."""
+    from audio_only_speech_separation_tpu_torch.ops.kernels.convtasnet_backward import (
+        fused_tcn_backward,
+        tcn_backward_launches,
+    )
+    from audio_only_speech_separation_tpu_torch.ops.kernels.convtasnet_block import (
+        fused_tcn_separator,
+        tcn_chain_reference,
+        tcn_separator_launches,
+    )
+    from audio_only_speech_separation_tpu_torch.train import CSVLogger, Trainer, bf16_forward
+
+    print(f"phase 40: DDP on the card, ConvTasNet-LRS3 bf16 + fused_forward, global batch {DDP_B} x 2 s: "
+          f"2 ranks over gloo ({DDP_B // 2} each) vs 1 process ({DDP_B})")
+    t0 = time.perf_counter()
+    port = free_port()
+    out = os.path.join(root, "ddp_rank0.pt")
+    procs = [subprocess.Popen([sys.executable, "-c", f"import chip_smoke; chip_smoke.ddp_rank({r}, 2, {port}, {out!r})"],
+                              cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    if any(p.returncode != 0 for p in procs):
+        raise RuntimeError("phase 40: a rank failed:\n" + "\n".join(f"--- rank {r}:\n{log[-3000:]}"
+                                                                     for r, log in enumerate(logs)))
+    ddp = torch.load(out)
+    ranks_s = time.perf_counter() - t0
+
+    model = lrs3_model(83, dev)
+    mix, srcs = ddp_batch(dev)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    arms = {}
+    trainer = Trainer(os.path.join(root, "single"), precision="bfloat16", fused_forward=True, device=dev,
+                      logger=CSVLogger(os.path.join(root, "single", "logs")))
+    single = trainer.train_module(model)
+    fused_tcn_separator.launches = fused_tcn_backward.launches = 0
+    arms["1 process"] = adam_step(model, lambda m: single(m, 0), mix, srcs)
+    torch.cuda.synchronize()
+    single_launched = (fused_tcn_separator.launches, fused_tcn_backward.launches)
+    for name, forward in (("plain bf16", bf16_forward(model, True, chain=tcn_chain_reference)),
+                          ("f32", model)):
+        model.load_state_dict(state)
+        arms[name] = adam_step(model, forward, mix, srcs)
+    arms["2 ranks"] = (torch.tensor(ddp["loss"]), ddp["grads"], ddp["params"])
+
+    def flat(ts):
+        return torch.cat([t.flatten().float() for t in ts])
+
+    g = {k: flat(v[1]) for k, v in arms.items()}
+    p = {k: flat(v[2]) for k, v in arms.items()}
+    loss = {k: float(v[0]) for k, v in arms.items()}
+    e_plain, n_f32 = float((g["plain bf16"] - g["f32"]).norm()), float(g["f32"].norm())
+    bound = 1.5 * e_plain + 1e-3 * n_f32
+    want = (tcn_separator_launches(24), tcn_backward_launches(24))
+    print(f"  ranks: {ranks_s:.1f} s (spawn included), DDP module {ddp['ddp']}, rank 0's K2, K3 launches "
+          f"{ddp['launches']}, the one process's {single_launched} (want {want} each); {card}")
+    print(f"  loss over the global batch: 2 ranks {loss['2 ranks']:.7g}, 1 process {loss['1 process']:.7g}, "
+          f"plain bf16 {loss['plain bf16']:.7g}, f32 {loss['f32']:.7g}")
+    for arm in ("2 ranks", "1 process"):
+        e = float((g[arm] - g["f32"]).norm())
+        print(f"  gradients, {arm}: |arm - f32| {e:.6g}, |plain - f32| {e_plain:.6g}, |f32| {n_f32:.6g}, "
+              f"bound {bound:.6g}")
+        if not e <= bound:
+            raise AssertionError(f"phase 40 {arm}: gradient error {e} > {bound}")
+    gaps = {"gradients": (float((g["2 ranks"] - g["1 process"]).norm()), e_plain),
+            "loss": (abs(loss["2 ranks"] - loss["1 process"]), abs(loss["plain bf16"] - loss["f32"])),
+            "parameters after one Adam step": (float((p["2 ranks"] - p["1 process"]).norm()),
+                                               float((p["plain bf16"] - p["f32"]).norm()))}
+    for what, (gap, margin) in gaps.items():
+        print(f"  {what}: |2 ranks - 1 process| {gap:.6g}, margin |plain bf16 - f32| {margin:.6g}")
+        if not gap <= margin:
+            raise AssertionError(f"phase 40: the two arms' {what} differ by {gap} > {margin}")
+    if ddp["ddp"] != "DistributedDataParallel" or ddp["launches"] != want or single_launched != want:
+        raise AssertionError("phase 40: an arm did not run under DDP through K2 and K3 as counted")
+    return tuple(a + b for a, b in zip(ddp["launches"], single_launched))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def ddp_train_cli(dev, card: str, root: str) -> tuple:
+    """Phase 41: ``audio_train.main`` under a process group of one rank over
+    NCCL (torchrun's environment set here) on the LRS3 config at full width
+    with ``fused_forward``, three steps and validation, its manifests read
+    through the native wav reader built into build/wavio: rank 0's
+    artifacts, the K2 and K3 launches; then a train step with and without
+    DDP in turns (CUDA events).  Returns the (K2, K3) launches."""
+    from audio_only_speech_separation_tpu_torch import audio_train, parallel
+    from audio_only_speech_separation_tpu_torch.data import native
+    from audio_only_speech_separation_tpu_torch.ops.kernels.convtasnet_backward import (
+        fused_tcn_backward,
+        tcn_backward_launches,
+    )
+    from audio_only_speech_separation_tpu_torch.ops.kernels.convtasnet_block import (
+        fused_tcn_separator,
+        tcn_separator_launches,
+    )
+    from audio_only_speech_separation_tpu_torch.train import CSVLogger, Trainer, make_optimizer
+    from audio_only_speech_separation_tpu_torch.train.trainer import TrainForward
+
+    print("phase 41: audio_train.main under a process group (world size 1, NCCL), LRS3 full width, "
+          "fused_forward, 3 steps, manifests through the native reader")
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    work = tempfile.mkdtemp(prefix="ddp_cli_", dir=root)
+    data = os.path.join(work, "data")
+    write_manifests(data, {"tr": [2 * SR] * 3 * TRAIN_B, "cv": [2 * SR] * TRAIN_B, "tt": [2 * SR] * TRAIN_B}, 86)
+    reads = [0]
+    cwd = os.getcwd()
+    try:
+        rank, world = parallel.init_distributed(device=dev)
+        backend = torch.distributed.get_backend()
+        fused_tcn_separator.launches = fused_tcn_backward.launches = 0
+        os.chdir(work)
+        with noting_calls([(native, "read_window", lambda *a: reads.__setitem__(0, reads[0] + 1))]):
+            t0 = time.perf_counter()
+            exp_dir = audio_train.main(lrs3_train_config(data, epochs=1), device=dev)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        os.chdir(cwd)
+        k2, k3 = fused_tcn_separator.launches, fused_tcn_backward.launches
+        steps = 3
+        want = ((steps + 2) * tcn_separator_launches(24), steps * tcn_backward_launches(24))
+        lib = native.library_path()
+        files = set(os.listdir(exp_dir))
+        print(f"  rank {rank} of {world} over {backend}: {run_s:.1f} s; K2, K3 launches {(k2, k3)} (want {want}); "
+              f"{reads[0]} windows read through {os.path.relpath(lib)} (built: {lib.exists()}); artifacts "
+              f"{sorted(files)}")
+        if (k2, k3) != want or backend != "nccl":
+            raise AssertionError("phase 41: the run did not train through K2 and K3 under NCCL as counted")
+        if not (reads[0] > 0 and lib.exists() and lib.parent.name == "wavio"):
+            raise AssertionError("phase 41: the manifests were not read through the native reader")
+        if not {"conf.yml", "last.ckpt", "best_k_models.json", "best_model.pth"} <= files:
+            raise AssertionError(f"phase 41: rank 0 did not write its artifacts: {files}")
+
+        # a step under DDP against the same module unwrapped (the path without a process group), in turns
+        model = lrs3_model(87, dev)
+        mix, srcs = ddp_batch(dev)
+        trainer = Trainer(os.path.join(work, "t"), precision="bfloat16", fused_forward=True, device=dev,
+                          logger=CSVLogger(os.path.join(work, "t", "logs")))
+        modules = {"with DDP": trainer.train_module(model),
+                   "without DDP": TrainForward(model, trainer._make_forward(model), 42, 0, False)}
+        opt = make_optimizer(model.parameters(), optim_name="adam", lr=1e-3, grad_clip=5.0)
+        loss_fn = lrs3_train_loss()
+
+        def step(module):
+            def run():
+                opt.zero_grad()
+                loss_fn(module(mix, 0), srcs).backward()
+                opt.step()
+            return run
+
+        times = {k: [] for k in modules}
+        for name in ("with DDP", "without DDP"):
+            cuda_time(step(modules[name]), reps=1, warmup=2)
+        for name in ["with DDP", "without DDP", "without DDP", "with DDP"] * 2:
+            times[name].append(cuda_time(step(modules[name]), reps=3, warmup=0))
+        for name, ts in times.items():
+            print(f"  train step {name} (world size 1, NCCL): median {statistics.median(ts):.4f} ms, runs "
+                  f"{', '.join(f'{t:.4f}' for t in ts)} ms (CUDA events, median of 3 each, in turns); {card}")
+        print(f"  DDP / without: {statistics.median(times['with DDP']) / statistics.median(times['without DDP']):.4f}")
+    finally:
+        os.chdir(cwd)
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(work, ignore_errors=True)
+    return k2, k3
+
+
+def wsj0_training(dev, card: str, root: str) -> tuple:
+    """Phase 42: one DPRNN step (configs/dprnn_wsj0.yml: full width, batch
+    2 x 4 s x 8 kHz) through ``audio_train.main`` from ``WSJ0DataModule``
+    manifests, 3 validation and 1 test utterance: K6 at the batch of 2 (the
+    step and a validation batch), K5 at the batches of 1, launches exact;
+    K5 and K6 against their plain versions at the shapes the run gave
+    them.  Returns (K5, K6 launches, their worst max abs errors)."""
+    from audio_only_speech_separation_tpu_torch import audio_train
+
+    print("phase 42: WSJ0DataModule training, DPRNN (dprnn_wsj0 width), 1 step, 3 + 1 eval utterances")
+    sr, batch, secs = TRAIN_FAMILIES["DPRNN"][2:5]
+    n = int(secs * sr)
+    work = tempfile.mkdtemp(prefix="wsj0_", dir=root)
+    data = os.path.join(work, "data")
+    write_manifests(data, {"tr": [n] * batch, "cv": [n] * 3, "tt": [n]}, 88, mix="mix", n_src=2, sr=sr)
+    config = train_config("DPRNN", data, "wsj0")
+    config["datamodule"]["data_name"] = "WSJ0DataModule"
+    counters = tasnet_counters()
+    for _, c, _ in counters:
+        c.launches = 0
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        with recording_kernel_shapes() as shapes:
+            t0 = time.perf_counter()
+            audio_train.main(config, device=dev)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    launched = tuple(c.launches for _, c, _ in counters)
+    with open(os.path.join(work, "Experiments", "tensorboard_logs", "wsj0", "scalars.csv")) as f:
+        scalars = {row.split(",")[1]: float(row.split(",")[2]) for row in f.read().splitlines()[1:]}
+    per_forward = 2 * WSJ0_TASNET["layer"]  # a row and a column LSTM a layer
+    want = (0, 2 * per_forward, 2 * per_forward)  # K6: the step, cv's batch of 2; K5: cv's and tt's batches of 1
+    print(f"  {run_s:.1f} s; train_loss {scalars.get('train_loss')}, val_loss {scalars.get('val_loss')}, "
+          f"test_loss {scalars.get('test_loss')}; K4, K5, K6 launches {launched} (want {want}); {card}")
+    if launched != want:
+        raise AssertionError(f"phase 42: launches {launched}, want {want}")
+    if not all(np.isfinite(scalars.get(k, float("nan"))) for k in ("train_loss", "val_loss", "test_loss")):
+        raise AssertionError(f"phase 42: non-finite losses {scalars}")
+    shutil.rmtree(work, ignore_errors=True)
+    _, k5_err, k6_err = kernels_at_shapes(dev, "the WSJ0 DPRNN run", shapes)
+    return launched[1], launched[2], k5_err, k6_err
+
+
+@contextlib.contextmanager
+def plain_separator():
+    """Inside the block ``serve``'s "fused" forward runs K1's plain version."""
+    import functools
+
+    from audio_only_speech_separation_tpu_torch import serve as serve_module
+    from audio_only_speech_separation_tpu_torch.ops.kernels.convtasnet_block import convtasnet_separator_reference
+
+    real = serve_module.fused_inference_forward
+    serve_module.fused_inference_forward = functools.partial(real, separator=convtasnet_separator_reference)
+    try:
+        yield
+    finally:
+        serve_module.fused_inference_forward = real
+
+
+def chunked_checks(dev, card: str) -> tuple:
+    """Phase 43: ``chunked_separate`` on a 20 s, 16 kHz mixture at
+    convtasnet_lrs3 width, 8 s windows with a 1 s overlap (3 windows in one
+    forward): with bf16 on the card through K1 ("fused", one call of 50
+    launches), the plain bf16 path (K1's plain version) and the f32 module,
+    under the 1.5x rule; K1 against its plain version on the windows'
+    frames; the call's time.  Returns (K1 launches, its max abs error)."""
+    from audio_only_speech_separation_tpu_torch.models.convtasnet import inference_frames
+    from audio_only_speech_separation_tpu_torch.ops.kernels.convtasnet_block import (
+        convtasnet_separator_launches,
+        convtasnet_separator_reference,
+        fused_convtasnet_separator,
+        pack_convtasnet_full_params,
+    )
+    from audio_only_speech_separation_tpu_torch.utils.chunked_inference import chunked_separate
+
+    print("phase 43: chunked separation, 20 s x 16 kHz, 8 s windows, 1 s overlap, convtasnet_lrs3 width")
+    model = lrs3_model(89, dev).eval()
+    wav = (0.3 * np.random.default_rng(89).standard_normal(20 * SR)).astype(np.float32)
+    kw = dict(window_seconds=8.0, overlap_seconds=1.0, sample_rate=SR, device=dev)
+    fused_convtasnet_separator.launches = 0
+    got = chunked_separate(model, wav, use_bf16=True, **kw)
+    launched = fused_convtasnet_separator.launches
+    ref = chunked_separate(model, wav, use_bf16=False, **kw)
+    with plain_separator():
+        plain = chunked_separate(model, wav, use_bf16=True, **kw)
+    want = convtasnet_separator_launches(24)
+    print(f"  K1 launches {launched} (want {want}: one forward of the 3 windows); output {got.shape}, "
+          f"scale {float(np.abs(ref).max()):.4g}")
+    if launched != want or got.shape != (3, len(wav)) or not np.isfinite(got).all():
+        raise AssertionError(f"phase 43: launches {launched}, output {got.shape}")
+    check_rule("chunked 20 s", float(np.abs(got - ref).max()), float(np.abs(plain - ref).max()))
+    # K1 against its plain version on the frames of the call's window batch
+    hop = 7 * SR
+    windows = np.stack([np.pad(wav, (0, 2 * hop + 8 * SR - len(wav)))[k * hop : k * hop + 8 * SR] for k in range(3)])
+    x = torch.from_numpy(windows).to(dev)
+    *w, dils = pack_convtasnet_full_params(model.state_dict(), model.R, model.X, model.num_spks, device=dev)
+    with torch.no_grad():
+        frames = inference_frames(model, x)
+        sep_k = fused_convtasnet_separator(frames, *w, dilations=dils, nspk=model.num_spks)
+        sep_p = convtasnet_separator_reference(frames, *w, dilations=dils, nspk=model.num_spks)
+    err = check_k1_plain(f"the windows' frames {tuple(frames.shape)}", sep_k, sep_p)
+    times = {"kernel path": [], "f32 module": []}
+    for name, bf16 in [("kernel path", True), ("f32 module", False)] * 3:
+        t0 = time.perf_counter()
+        chunked_separate(model, wav, use_bf16=bf16, **kw)
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3)
+    for name, ts in times.items():
+        print(f"  chunked_separate, {name}: {', '.join(f'{t:.2f}' for t in ts)} ms a call (host clock, in turns; "
+              f"{20 / (statistics.median(ts) / 1e3):.1f} audio-sec/s); {card}")
+    return launched, err
+
+
+def parallel_phases(dev, card: str) -> dict:
+    """Phases 40-43; returns {K1, K2, K3, K5, K6: launches} and the K1, K5,
+    K6 worst errors of their checks."""
+    scratch = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    k2, k3 = ddp_equality(dev, card, scratch.name)
+    cli_k2, cli_k3 = ddp_train_cli(dev, card, scratch.name)
+    k5, k6, k5_err, k6_err = wsj0_training(dev, card, scratch.name)
+    k1, k1_err = chunked_checks(dev, card)
+    scratch.cleanup()
+    return {"K1": k1, "K2": k2 + cli_k2, "K3": k3 + cli_k3, "K5": k5, "K6": k6, "errs": (k1_err, k5_err, k6_err)}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels need one")
     from audio_only_speech_separation_tpu_torch import audio_train
     from audio_only_speech_separation_tpu_torch.losses import PITLossWrapper, pairwise_neg_snr
-    from audio_only_speech_separation_tpu_torch.models import ConvTasNet, from_pretrain, save_serialized
+    from audio_only_speech_separation_tpu_torch.models import from_pretrain, save_serialized
     from audio_only_speech_separation_tpu_torch.models.convtasnet import (
         fused_inference_forward,
         inference_frames,
@@ -2297,7 +2794,6 @@ def main() -> None:
         tcn_separator_reference,
     )
     from audio_only_speech_separation_tpu_torch.serve import serve
-    from audio_only_speech_separation_tpu_torch.utils.jax_import import convtasnet_from_jax
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2316,10 +2812,7 @@ def main() -> None:
             print("  " + line.strip())
 
     def model_for(cfg, seed):
-        m = ConvTasNet(**cfg, device=dev)
-        sd = convtasnet_from_jax(random_jax_tree(cfg, seed), cfg["R"], cfg["X"])
-        m.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
-        return m.eval()
+        return convtasnet_model(cfg, seed, dev)
 
     # ---- phase 2: kernel vs plain version, and both vs the f32 model
     print("phase 2: kernel vs plain version on the card")
@@ -2346,9 +2839,7 @@ def main() -> None:
         for out in (got, plain):
             if out.shape != ref.shape or not torch.isfinite(out.float()).all():
                 raise AssertionError(f"{name}: bad output {tuple(out.shape)}")
-        errs[name] = max_err(sep_k, sep_p)
-        print(f"  {name}: T={T} spk={cfg['num_spks']} {cfg['activate']}: separator kernel-vs-plain "
-              f"max abs {errs[name]:.6g} (frames scale {float(sep_p.float().abs().max()):.4g})")
+        errs[name] = check_k1_plain(f"{name}: T={T} spk={cfg['num_spks']} {cfg['activate']}", sep_k, sep_p)
         check_rule(name, max_err(got, ref), max_err(plain, ref))
 
     # ---- phase 3: serve a few requests from a checkpoint
@@ -2723,7 +3214,7 @@ def main() -> None:
     scratch.cleanup()
     print(f"  {time.perf_counter() - t_start:.1f} s since the start")
 
-    zoo, zoo_launched, zoo_errs = zoo_checks(dev)
+    zoo, zoo_launched, zoo_errs = zoo_checks(dev, card)
     k4_err, k5_err, k6_err = (max(a, b) for a, b in zip((k4_err, k5_err, k6_err), zoo_errs))
     print(f"  {time.perf_counter() - t_start:.1f} s since the start")
     cli_launched = zoo_eval_cli(dev, zoo)
@@ -2743,6 +3234,13 @@ def main() -> None:
     k2_remat, k3_remat = new_training_phases(dev, card, lambda: model_for(LRS3, seed=82))
     k2_launches, k3_launches = k2_launches + k2_remat, k3_launches + k3_remat
     print(f"  {time.perf_counter() - t_start:.1f} s since the start")
+    launched = parallel_phases(dev, card)
+    k1_launches += launched["K1"]
+    k2_launches, k3_launches = k2_launches + launched["K2"], k3_launches + launched["K3"]
+    k5_launches, k6_launches = k5_launches + launched["K5"], k6_launches + launched["K6"]
+    k1_err = max(*errs.values(), launched["errs"][0])
+    k5_err, k6_err = max(k5_err, launched["errs"][1]), max(k6_err, launched["errs"][2])
+    print(f"  {time.perf_counter() - t_start:.1f} s since the start")
 
     k1_b, k1_by = least_time(*separator_work(8, frames_bench))
     k2_b, k2_by = least_time(*chain_work(batch, T_train))
@@ -2751,7 +3249,7 @@ def main() -> None:
     print(json.dumps({"kernels": [
         {"name": "convtasnet_separator", "route": "cuda", "source": CSRC + "convtasnet_separator.cu",
          "replaces": PALLAS + "convtasnet_block.py:74", "launches": k1_launches,
-         "max_abs_err": errs["lrs3"], "ms": ms["separator kernel"], "plain_ms": ms["separator plain"],
+         "max_abs_err": k1_err, "ms": ms["separator kernel"], "plain_ms": ms["separator plain"],
          "bound_ms": k1_b, "bound_by": k1_by, "library_ms": None},
         {"name": "tcn_separator", "route": "cuda", "source": CSRC + "convtasnet_separator.cu",
          "replaces": PALLAS + "convtasnet_block.py:801", "launches": k2_launches,

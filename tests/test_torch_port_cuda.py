@@ -827,8 +827,8 @@ def test_mixit_on_the_card(cuda, generalized):
 
 def test_remat_through_k2_and_k3_on_the_card(cuda, tmp_path):
     """A bf16 ConvTasNet step through the TCN chain's kernels with and
-    without remat: bit-identical loss and gradients, K2 launched twice
-    under remat (forward and recomputation) and K3 once either way."""
+    without remat: bit-identical loss and gradients, K2 and K3 launched
+    once either way (remat recomputes nothing on the fused path)."""
     from audio_only_speech_separation_tpu_torch.losses import PITLossWrapper, pairwise_neg_snr
     from audio_only_speech_separation_tpu_torch.train import CSVLogger, Trainer
 
@@ -841,10 +841,10 @@ def test_remat_through_k2_and_k3_on_the_card(cuda, tmp_path):
     for remat in (False, True):
         trainer = Trainer(str(tmp_path / f"e{remat}"), precision="bfloat16", fused_forward=True, remat=remat,
                           logger=CSVLogger(str(tmp_path / "logs")))
-        forward = trainer._train_forward(trainer._make_forward(model), model, 0)
+        forward = trainer.train_module(model)
         model.zero_grad(set_to_none=True)
         k2, k3 = fused_tcn_separator.launches, fused_tcn_backward.launches
-        loss = loss_fn(forward(mix), srcs)
+        loss = loss_fn(forward(mix, 0), srcs)
         loss.backward()
         torch.cuda.synchronize()
         got[remat] = (loss.detach(), [p.grad.clone() for p in model.parameters()],
@@ -852,8 +852,7 @@ def test_remat_through_k2_and_k3_on_the_card(cuda, tmp_path):
     nb = model.R * model.X
     assert torch.equal(got[False][0], got[True][0])
     assert all(torch.equal(a, b) for a, b in zip(got[False][1], got[True][1]))
-    assert got[False][2:] == (tcn_separator_launches(nb), tcn_backward_launches(nb))
-    assert got[True][2:] == (2 * tcn_separator_launches(nb), tcn_backward_launches(nb))
+    assert got[False][2:] == got[True][2:] == (tcn_separator_launches(nb), tcn_backward_launches(nb))
 
 
 # K5 and K6 inside a (bi)LSTM layer trained on bf16 casts of its f32
@@ -985,3 +984,118 @@ def test_tasnet_modules_meet_the_validator_rule(cuda, module, group_size, launch
                block_size=50, sample_rate=8000, generator=torch.Generator().manual_seed(22)).to(cuda).eval()
     counters = (fused_attention_bdt, fused_bilstm, resident_bilstm)
     assert _validator_rule(m, _waves(cuda, 23, 4, 8000), counters) == launched
+
+
+# ---------------------------------------------------------------------------
+# Data-parallel training and chunked separation on the card
+# ---------------------------------------------------------------------------
+
+
+def test_two_gloo_ranks_on_one_card_match_one_process(cuda, tmp_path):
+    """Two ranks on the one card over gloo, half the batch each, against one
+    process with all of it, on a ConvTasNet inside K2's envelope: in f32 the
+    loss within 1e-5 and the gradients (DDP's mean) and updated parameters
+    within rtol 2e-4 / atol 2e-5 (JAX's tolerance for a sharded step); in
+    bf16 through K2 + K3 the loss within 1e-3 relative, and the two arms'
+    gradients and updated parameters no further apart than the plain bf16
+    path's (the chain's plain versions) from f32's, as phase 40 of
+    chip_smoke.py holds them (each rank's weight gradients are rounded to
+    bf16 before the mean)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch_port_ddp import card_steps, launch
+
+    (ranks, _), _ = launch("card", str(tmp_path), one_card=True, timeout=300)
+    one = card_steps(str(tmp_path))
+    (l2, p2, g2), (l1, p1, g1) = ranks["float32"], one["float32"]
+    assert abs(l2 - l1) <= 1e-5 * max(1.0, abs(l1))
+    for k, v in g1.items():
+        np.testing.assert_allclose(g2[k], v, rtol=2e-4, atol=2e-5, err_msg=f"float32 gradient {k}")
+    for k, v in p1.items():
+        np.testing.assert_allclose(p2[k], v, rtol=2e-4, atol=2e-5, err_msg=f"float32 {k}")
+
+    def flat(tree):
+        return np.concatenate([tree[k].ravel() for k in sorted(g1)])
+
+    two_bf16, one_bf16, plain, f32 = ranks["bfloat16"], one["bfloat16"], one["plain bf16"], one["float32"]
+    assert abs(two_bf16[0] - one_bf16[0]) <= 1e-3 * max(1.0, abs(one_bf16[0]))
+    for what, i in (("gradients", 2), ("parameters after one Adam step", 1)):
+        gap = np.linalg.norm(flat(two_bf16[i]) - flat(one_bf16[i]))
+        margin = np.linalg.norm(flat(plain[i]) - flat(f32[i]))
+        print(f"bf16 {what}: |2 ranks - 1 process| {gap:.6g}, |plain bf16 - f32| {margin:.6g}")
+        assert 0 < margin and gap <= margin, (what, gap, margin)
+
+
+def test_world_one_nccl_step_is_the_unwrapped_step(cuda, tmp_path, monkeypatch):
+    """Under a process group of one rank over NCCL, ``Trainer``'s train
+    module is DistributedDataParallel, and a bf16 step through K2 + K3 gives
+    the unwrapped module's loss and gradients bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from audio_only_speech_separation_tpu_torch import parallel
+    from audio_only_speech_separation_tpu_torch.losses import PITLossWrapper, pairwise_neg_snr
+    from audio_only_speech_separation_tpu_torch.train import CSVLogger, Trainer
+    from audio_only_speech_separation_tpu_torch.train.trainer import TrainForward
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost", MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    model = _model(cuda).train()
+    rng = np.random.default_rng(11)
+    mix = torch.from_numpy(rng.standard_normal((2, 8000)).astype(np.float32)).to(cuda)
+    srcs = torch.from_numpy(rng.standard_normal((2, 2, 8000)).astype(np.float32)).to(cuda)
+    loss_fn = PITLossWrapper(pairwise_neg_snr)
+    assert parallel.init_distributed() == (0, 1)
+    try:
+        assert dist.get_backend() == "nccl"
+        trainer = Trainer(str(tmp_path), precision="bfloat16", fused_forward=True,
+                          logger=CSVLogger(str(tmp_path / "logs")))
+        modules = [trainer.train_module(model), TrainForward(model, trainer._make_forward(model), 42, 0, False)]
+        assert type(modules[0]).__name__ == "DistributedDataParallel"
+        got = []
+        for module in modules:
+            model.zero_grad(set_to_none=True)
+            before = fused_tcn_separator.launches, fused_tcn_backward.launches
+            loss = loss_fn(module(mix, 0), srcs)
+            loss.backward()
+            torch.cuda.synchronize()
+            got.append((loss.detach(), [p.grad.clone() for p in model.parameters()],
+                        fused_tcn_separator.launches - before[0], fused_tcn_backward.launches - before[1]))
+    finally:
+        dist.destroy_process_group()
+    nb = model.R * model.X
+    assert torch.equal(got[0][0], got[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(got[0][1], got[1][1]))
+    assert got[0][2:] == got[1][2:] == (tcn_separator_launches(nb), tcn_backward_launches(nb))
+
+
+def test_chunked_separation_through_k1(cuda, monkeypatch):
+    """``chunked_separate`` with bf16 on the card separates the windows in
+    one K1 call and stays within the 1.5x rule of the f32 module against the
+    plain bf16 path (K1's plain version); a recording no longer than a
+    window is one call too."""
+    import functools
+
+    from audio_only_speech_separation_tpu_torch import serve as serve_module
+    from audio_only_speech_separation_tpu_torch.utils.chunked_inference import chunked_separate
+
+    m = _model(cuda)
+    kw = dict(window_seconds=1.0, overlap_seconds=0.25, sample_rate=8000, device=cuda)
+    for T in (20000, 7000):
+        wav = (0.3 * np.random.default_rng(T).standard_normal(T)).astype(np.float32)
+        before = fused_convtasnet_separator.launches
+        got = chunked_separate(m, wav, use_bf16=True, **kw)
+        assert fused_convtasnet_separator.launches - before == convtasnet_separator_launches(m.R * m.X)
+        ref = chunked_separate(m, wav, use_bf16=False, **kw)
+        with monkeypatch.context() as mp:
+            mp.setattr(serve_module, "fused_inference_forward", functools.partial(
+                serve_module.fused_inference_forward, separator=convtasnet_separator_reference))
+            plain = chunked_separate(m, wav, use_bf16=True, **kw)
+        assert got.shape == ref.shape == (2, T) and np.isfinite(got).all()
+        assert np.abs(got - ref).max() <= 1.5 * np.abs(plain - ref).max() + 1e-3

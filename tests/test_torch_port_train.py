@@ -288,26 +288,26 @@ def test_trainer_fit_other_precisions_and_resume_restores_weights(manifests, tmp
 def test_data_layer_matches_jax(manifests):
     """The port's data layer, built on the same manifests as the JAX
     package's, yields the same train, val and test batches: the same random
-    crops, order and keys."""
+    crops, order and keys, for two epochs; ``WSJ0DataModule`` (the same
+    mix.json/s1/s2 layout) too."""
     import audio_only_speech_separation_tpu.data as jdatas
     from audio_only_speech_separation_tpu_torch import data as datas
 
     kw = dict(train_dir=str(manifests / "tr"), valid_dir=str(manifests / "cv"),
               test_dir=str(manifests / "tt"), n_src=2, sample_rate=SR, segment=0.25,
               batch_size=2, num_workers=2)
-    ours, theirs = datas.get("LRS2DataModule")(**kw), jdatas.get("LRS2DataModule")(**kw)
-    ours.setup()
-    theirs.setup()
-    for epoch in (0, 1):
-        for a, b in zip(ours.make_loader, theirs.make_loader):
-            a.set_epoch(epoch)
-            b.set_epoch(epoch)
-            got, want = list(a), list(b)
-            assert len(got) == len(want) > 0
-            for (m1, s1, k1), (m2, s2, k2) in zip(got, want):
-                assert np.array_equal(m1, m2) and np.array_equal(s1, s2) and k1 == k2
-    with pytest.raises(ValueError):
-        datas.get("WSJ0DataModule")  # not ported yet
+    for name in ("LRS2DataModule", "WSJ0DataModule"):
+        ours, theirs = datas.get(name)(**kw), jdatas.get(name)(**kw)
+        ours.setup()
+        theirs.setup()
+        for epoch in (0, 1):
+            for a, b in zip(ours.make_loader, theirs.make_loader):
+                a.set_epoch(epoch)
+                b.set_epoch(epoch)
+                got, want = list(a), list(b)
+                assert len(got) == len(want) > 0
+                for (m1, s1, k1), (m2, s2, k2) in zip(got, want):
+                    assert np.array_equal(m1, m2) and np.array_equal(s1, s2) and k1 == k2
 
 
 def test_trainer_and_main_default_to_the_card(manifests, tmp_path, monkeypatch):

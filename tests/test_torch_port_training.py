@@ -475,10 +475,10 @@ def test_remat_gives_the_steps_loss_and_gradients(rate, tmp_path):
     for remat in (False, True):
         trainer = Trainer(str(tmp_path / f"exp{remat}"), device="cpu", remat=remat, seed=7,
                           logger=loggers.CSVLogger(str(tmp_path / "logs")))
-        forward = trainer._train_forward(trainer._make_forward(model), model, step=5)
+        forward = trainer.train_module(model)
         model.zero_grad(set_to_none=True)
         calls.clear()
-        loss = loss_fn(forward(mix), sources)
+        loss = loss_fn(forward(mix, 5), sources)
         loss.backward()
         got[remat] = (loss.detach(), [p.grad.clone() for p in model.parameters()], len(calls))
     assert torch.equal(got[False][0], got[True][0])
@@ -486,11 +486,13 @@ def test_remat_gives_the_steps_loss_and_gradients(rate, tmp_path):
     assert (got[False][2], got[True][2]) == (1, 2)
 
 
-def test_remat_through_the_tcn_chain(tmp_path):
+def test_remat_through_the_tcn_chain(tmp_path, capsys):
     """The bf16 ConvTasNet step through ``make_kernel_train_apply`` (the
     chain's plain versions on the CPU) with and without ``remat``: the same
-    loss and gradients, bit for bit; the chain's forward runs twice under
-    remat."""
+    loss and gradients, bit for bit; the chain's forward runs once either
+    way, since remat recomputes nothing on the fused path (as the JAX
+    Trainer's fused path bypasses its checkpoint), and the Trainer says so
+    once."""
     from audio_only_speech_separation_tpu_torch.ops.kernels import convtasnet_backward
 
     model = models.ConvTasNet(N=128, L=16, B=128, H=128, P=3, X=2, R=1, num_spks=2, sample_rate=SR8,
@@ -510,15 +512,17 @@ def test_remat_through_the_tcn_chain(tmp_path):
         for remat in (False, True):
             trainer = Trainer(str(tmp_path / f"exp{remat}"), device="cpu", precision="bfloat16",
                               fused_forward=True, remat=remat, logger=loggers.CSVLogger(str(tmp_path / "logs")))
-            forward = trainer._train_forward(trainer._make_forward(model), model, step=0)
+            forward = trainer.train_module(model)
+            said = capsys.readouterr().out
+            assert said.count("remat: nothing to recompute on the fused ConvTasNet path") == int(remat)
             model.zero_grad(set_to_none=True)
             chain_forwards.clear()
-            loss = loss_fn(forward(mix), sources)
+            loss = loss_fn(forward(mix, 0), sources)
             loss.backward()
             got[remat] = (loss.detach(), [p.grad.clone() for p in model.parameters()], len(chain_forwards))
     assert torch.equal(got[False][0], got[True][0])
     assert all(torch.equal(a, b) for a, b in zip(got[False][1], got[True][1]))
-    assert (got[False][2], got[True][2]) == (1, 2)
+    assert (got[False][2], got[True][2]) == (1, 1)
 
 
 def test_audio_train_reads_remat(tmp_path, monkeypatch, no_tensorboard):
