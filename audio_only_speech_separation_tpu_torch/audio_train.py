@@ -12,6 +12,8 @@ group that torchrun describes):
 
     torchrun --nproc_per_node=N -m audio_only_speech_separation_tpu_torch.audio_train \
         --conf-dir=configs/convtasnet_lrs3.yml
+    torchrun --nproc_per_node=4 -m audio_only_speech_separation_tpu_torch.audio_train \
+        --conf-dir=configs/dprnn_wsj0.yml --training.sp 2
 
 The config's ``batch_size`` is per card (the reference's per-GPU batch
 under DDP, as the JAX package reads it), each rank loads its own shard of
@@ -19,7 +21,9 @@ the data, and rank 0 writes the artifacts and prints.  Every YAML leaf is a CLI
 flag (``utils/parser_utils``), and ``--<group>.<leaf> value`` sets any
 key (``training.precision``, ``training.seed``: the dropout masks' seed,
 42 by default, as in the JAX package; ``training.remat``: recompute the
-train forward's activations in the backward).  Artifacts land in
+train forward's activations in the backward; ``training.sp``: ranks that
+share each sample's chunks, sequence parallel on a (world / sp, sp) mesh,
+1 by default).  Artifacts land in
 ``Experiments/checkpoint/<exp_name>/`` under the working directory
 (conf.yml, top-5 and last checkpoints, best_k_models.json,
 best_model.pth), logs in ``Experiments/tensorboard_logs/<exp_name>``.
@@ -39,7 +43,7 @@ import torch
 
 from . import data as datas
 from . import losses, models
-from .parallel import init_distributed, local_shard_info
+from .parallel import dp_shard_info, init_distributed, local_shard_info
 from .train import AudioSystem, Trainer, make_optimizer, make_scheduler
 from .utils.console import print_only
 
@@ -62,10 +66,12 @@ def main(config: dict, device="cuda") -> str:
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("audio_train: no CUDA device; pass device=\"cpu\" to train on the CPU")
     print_only("Instantiating datamodule <{}>".format(config["datamodule"]["data_name"]))
-    rank, world_size = local_shard_info()
+    sp = int(config["training"].get("sp", 1))
+    rank = local_shard_info()[0]
+    shard_id, num_shards = dp_shard_info(sp)  # the ranks of one sp group read the same shard
     # batch_size is per card: one process a card loads that many items a step
     datamodule = datas.get(config["datamodule"]["data_name"])(**config["datamodule"]["data_config"],
-                                                              shard_id=rank, num_shards=world_size)
+                                                              shard_id=shard_id, num_shards=num_shards)
     datamodule.setup()
     train_loader, val_loader, test_loader = datamodule.make_loader
 
@@ -116,6 +122,7 @@ def main(config: dict, device="cuda") -> str:
         seed=config["training"].get("seed", 42),
         fused_forward=bool(config["training"].get("fused_forward", False)),
         remat=bool(config["training"].get("remat", False)),
+        sp=sp,
         device=device,
     )
     trainer.fit(system)

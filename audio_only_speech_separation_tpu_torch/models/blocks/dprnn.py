@@ -27,6 +27,7 @@ from torch import nn
 from ...ops.activations import PReLU
 from ...ops.norms import GlobalLayerNorm
 from ...ops.rnn import ProjRNN
+from ...parallel import sequence
 from .tac import TAC
 
 
@@ -103,17 +104,20 @@ class DPRNNCore(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         G = self.num_group
         B, n, K, S = x.shape[0] * G, x.shape[1] // G, x.shape[2], x.shape[3]  # each group a batch row
-        cur = x.reshape(B, n, K, S).permute(0, 3, 2, 1)  # [B*G, S, K, n]: rows
+        group = sequence.sp_group()
+        # rows on this rank's chunks S (all of them off an sp mesh)
+        cur = sequence.shard(x.reshape(B, n, K, S).permute(0, 3, 2, 1), 1)  # [B*G, S, K, n]: rows
         for i in range(self.num_layers):
             j = 0 if self.unfold else i
             if G > 1:
                 cur = group_exchange(self.TAC[i], cur, G)
-            row_out = self.row_rnn[j](cur.reshape(B * S, K, n)).reshape(B, S, K, n)
-            cur = (cur + self.row_norm[j](row_out)).transpose(1, 2)  # [B, K, S, n]: columns
-            col_out = self.col_rnn[j](cur.reshape(B * K, S, n)).reshape(B, K, S, n)
-            cur = cur + self.col_norm[j](col_out)
+            row_out = self.row_rnn[j](cur.reshape(-1, K, n)).reshape(cur.shape)
+            cur = (cur + self.row_norm[j](row_out, group)).transpose(1, 2)  # [B, K, S, n]
+            cur = sequence.exchange(cur, 1, 2, S)  # columns on this rank's positions K
+            col_out = self.col_rnn[j](cur.reshape(-1, S, n)).reshape(cur.shape)
+            cur = cur + self.col_norm[j](col_out, group)
             if self.unfold:
                 cur = self.concat_block(cur)
             if i + 1 < self.num_layers:
-                cur = cur.transpose(1, 2)
-        return core_output(cur, self.output, self.num_spk, G)
+                cur = sequence.exchange(cur, 2, 1, K).transpose(1, 2)
+        return core_output(sequence.gather(cur, 1, K), self.output, self.num_spk, G)

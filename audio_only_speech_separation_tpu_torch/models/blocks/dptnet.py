@@ -10,6 +10,8 @@ BiLSTM(d -> 2d) with relu and Linear(4d -> d) as the feed-forward
 ``norm2.*``; ``unfold`` shares layer 0 and adds ``concat_block``.  With
 ``num_group`` G > 1 the layers are N/G wide on B*G rows and a TAC
 (``TAC.{i}``) runs before each layer's row pass, as in ``DPRNNCore``.
+Under an ``sp`` mesh the rows run on this rank's chunks and the columns on
+its positions, as in ``DPRNNCore``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from torch import nn
 
 from ...ops.attention import MultiheadAttention
 from ...ops.rnn import BiLSTM
+from ...parallel import sequence
 from .dprnn import TAC, DepthwiseGate, _layers, core_output, group_exchange
 
 
@@ -74,17 +77,18 @@ class DPTNetCore(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         G = self.num_group
         B, n, K, S = x.shape[0] * G, x.shape[1] // G, x.shape[2], x.shape[3]  # each group a batch row
-        cur = x.reshape(B, n, K, S).permute(0, 3, 2, 1)  # [B*G, S, K, n]: rows
+        # rows on this rank's chunks S (all of them off an sp mesh)
+        cur = sequence.shard(x.reshape(B, n, K, S).permute(0, 3, 2, 1), 1)  # [B*G, S, K, n]: rows
         for i in range(self.num_layers):
             j = 0 if self.unfold else i
             if G > 1:
                 cur = group_exchange(self.TAC[i], cur, G)
-            row = self.row_xfmr[j](cur.reshape(B * S, K, n)).reshape(B, S, K, n)
-            cur = (cur + row).transpose(1, 2)  # [B, K, S, n]: columns
-            col = self.col_xfmr[j](cur.reshape(B * K, S, n)).reshape(B, K, S, n)
+            row = self.row_xfmr[j](cur.reshape(-1, K, n)).reshape(cur.shape)
+            cur = sequence.exchange((cur + row).transpose(1, 2), 1, 2, S)  # [B, K, S, n]: columns
+            col = self.col_xfmr[j](cur.reshape(-1, S, n)).reshape(cur.shape)
             cur = cur + col
             if self.unfold:
                 cur = self.concat_block(cur)
             if i + 1 < self.num_layers:
-                cur = cur.transpose(1, 2)
-        return core_output(cur, self.output, self.num_spk, G)
+                cur = sequence.exchange(cur, 2, 1, K).transpose(1, 2)
+        return core_output(sequence.gather(cur, 1, K), self.output, self.num_spk, G)

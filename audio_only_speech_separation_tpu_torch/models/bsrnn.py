@@ -25,8 +25,10 @@ band-comm RNN (B*T sequences of nband bands) the resident kernel K6.
 The ``state_dict`` uses look2hear's keys: ``BN.{i}.{0,1}``,
 ``separator.{r}.band_rnn.{j}.{norm,rnn,proj}``,
 ``separator.{r}.band_comm.{norm,rnn,proj}`` and ``mask.{i}.{0,1,3,5,6,7}``.
-The band-major layout of the JAX package under a sequence-parallel mesh is
-not ported (there is no mesh).
+Under a mesh with an ``sp`` axis (``parallel/sequence.py``; the JAX
+package's band-axis ``shard_chunks``) each rank runs the band RNNs on its
+share of the bands and the band-comm RNN on its share of the frames, with
+an exchange between them, and one gather after the separator.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from ..ops.dropout import Dropout
 from ..ops.norms import GlobalLayerNorm
 from ..ops.rnn import BiLSTM, LSTM
 from ..ops.stft import hann_window, istft, stft
+from ..parallel import sequence
 from . import register_model
 from .base import BaseModel, normalize_input, restore_output, seeded_init_
 
@@ -117,15 +120,19 @@ class BSNet(nn.Module):
         self.band_comm = ResRNN(N, 2 * N, bidirectional=bi_comm, dropout=dropout, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, nb * N, T] -> the same: every band, or under an ``sp`` mesh
+        this rank's share of the bands."""
         B, _, T = x.shape
         N, nband = self.feature_dim, self.nband
-        h = x.reshape(B * nband, N, T)
+        h = x.reshape(-1, N, T)  # [B * nb, N, T]
         for layer in self.band_rnn:
             h = layer(h)
-        # band comm: sequences along the band axis, batched over B*T
-        h = h.reshape(B, nband, N, T).permute(0, 3, 2, 1).reshape(B * T, N, nband)
-        h = self.band_comm(h)
-        return h.reshape(B, T, N, nband).permute(0, 3, 2, 1).reshape(B, nband * N, T)
+        # band comm: sequences along the band axis, batched over B*T (this rank's frames under sp)
+        h = sequence.exchange(h.reshape(B, -1, N, T), 3, 1, nband)  # [B, nband, N, T_r]
+        T_r = h.shape[3]
+        h = self.band_comm(h.permute(0, 3, 2, 1).reshape(B * T_r, N, nband))
+        h = sequence.exchange(h.reshape(B, T_r, N, nband).permute(0, 3, 2, 1), 1, 3, T)
+        return h.reshape(B, -1, T)
 
 
 def _pad_rows(p: torch.Tensor, bwi: int, bw_max: int) -> torch.Tensor:
@@ -261,11 +268,11 @@ class BSRNN(BaseModel):
         norm = ((f32 - mean[..., None, None]) / torch.sqrt(var + _F32_EPS)[..., None, None]).to(flat.dtype)
         # the padded gamma rows are zero, so the padded rows of h are zero
         h = norm * gamma[None, :, :, None].to(flat.dtype) + beta[None, :, :, None].to(flat.dtype)
-        sep = _band_conv(h, kern, bias).reshape(B, nband * N, T)
+        sep = sequence.shard(_band_conv(h, kern, bias), 1).reshape(B, -1, T)  # this rank's bands under sp
 
         for bsnet in self.separator:
             sep = bsnet(sep)
-        sep = sep.reshape(B, nband, N, T)
+        sep = sequence.gather(sep.reshape(B, -1, N, T), 1, nband)
 
         # band-batched gated complex mask heads
         p = self._mask_params()

@@ -26,8 +26,13 @@ The ``state_dict`` uses look2hear's keys (the JAX package's
 norm1, norm2, pos_ffn.ffn.0, pos_ffn.ffn.3}``, ``...{side}_mdl.mdl.norm``,
 ``masknet.dual_mdl.{i}.{side}_norm``, ``masknet.prelu``, ``masknet.conv2d``,
 ``masknet.output.0``, ``masknet.output_gate.0``, ``masknet.end_conv1x1``
-and ``decoder.weight`` [N, 1, k].  The JAX package's sequence sharding
-(``shard_chunks``) is dropped: there is no mesh.
+and ``decoder.weight`` [N, 1, k].
+
+Under a mesh with an ``sp`` axis (``parallel/sequence.py``; the JAX
+package's ``shard_chunks``) each dual block runs its intra stack on this
+rank's chunks S and its inter stack on its positions K, with the gLNs over
+the whole sample, an exchange between, and one gather after the last
+block.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from ..ops.chunk import merge_feature, split_feature
 from ..ops.conv import frame_signal, overlap_add
 from ..ops.dropout import Dropout
 from ..ops.norms import GlobalLayerNorm
+from ..parallel import sequence
 from . import register_model
 from .base import BaseModel, _arg_names, normalize_input, restore_output
 
@@ -148,14 +154,19 @@ class DualComputationBlock(nn.Module):
         self.intra_norm = GlobalLayerNorm(out_channels, eps=1e-8, device=device)
         self.inter_norm = GlobalLayerNorm(out_channels, eps=1e-8, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, N, K, S = x.shape
-        intra = self.intra_mdl(x.permute(0, 3, 2, 1).reshape(B * S, K, N))
-        intra = intra.reshape(B, S, K, N).permute(0, 3, 2, 1)
-        intra = self.intra_norm(intra) + x
-        inter = self.inter_mdl(intra.permute(0, 2, 3, 1).reshape(B * K, S, N))
-        inter = inter.reshape(B, K, S, N).permute(0, 3, 1, 2)
-        return self.inter_norm(inter) + intra
+    def forward(self, x: torch.Tensor, S: int | None = None) -> torch.Tensor:
+        """x [B, N, K, S] -> [B, N, K, S]; under an ``sp`` mesh x holds this
+        rank's chunks of the S (given) and the result its positions of K."""
+        B, N, K, S_r = x.shape
+        S = S_r if S is None else S
+        group = sequence.sp_group()
+        intra = self.intra_mdl(x.permute(0, 3, 2, 1).reshape(B * S_r, K, N))
+        intra = intra.reshape(B, S_r, K, N).permute(0, 3, 2, 1)
+        intra = sequence.exchange(self.intra_norm(intra, group) + x, 2, 3, S)  # [B, N, K_r, S]
+        K_r = intra.shape[2]
+        inter = self.inter_mdl(intra.permute(0, 2, 3, 1).reshape(B * K_r, S, N))
+        inter = inter.reshape(B, K_r, S, N).permute(0, 3, 1, 2)
+        return self.inter_norm(inter, group) + intra
 
 
 class _Encoder(nn.Module):
@@ -249,9 +260,13 @@ class Sepformer(BaseModel):
 
         h = _pointwise(mnet.conv1d, mnet.norm(mix_w))
         chunks, gap = split_feature(h, K)  # [B, N, K, S]
-        for block in mnet.dual_mdl:
-            chunks = block(chunks)
-        h = mnet.prelu(chunks)
+        S = chunks.shape[-1]
+        chunks = sequence.shard(chunks, 3)  # this rank's chunks (all of them off an sp mesh)
+        for i, block in enumerate(mnet.dual_mdl):
+            if i:
+                chunks = sequence.exchange(chunks, 3, 2, K)
+            chunks = block(chunks, S)
+        h = mnet.prelu(sequence.gather(chunks, 2, K))
         S = h.shape[-1]
         w2 = mnet.conv2d.weight[:, :, 0, 0].to(h.dtype)  # [N * spks, N]
         h = torch.matmul(w2, h.reshape(B, N, K * S)) + mnet.conv2d.bias.to(h.dtype)[:, None]

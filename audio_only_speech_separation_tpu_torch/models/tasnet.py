@@ -23,8 +23,10 @@ The ``state_dict`` uses look2hear's keys: ``encoder.weight`` [enc, 1, win],
 ``context_{enc,dec}.*`` (G > 1), the separator under
 ``seq_model.seq_model`` (DPRNN, DPTNet), ``seq_model.tcn`` (TCN, GC_TCN)
 or ``seq_model.sudo_rmrf_layers.{i}`` (SudoRMRF, GC_SudoRMRF),
-``mask.0.{weight,bias}`` and ``decoder.weight`` [enc, 1, win].  The
-sequence sharding of the JAX package is still to port (ROADMAP Queue 1).
+``mask.0.{weight,bias}`` and ``decoder.weight`` [enc, 1, win].  Under a
+mesh with an ``sp`` axis the DPRNN and DPTNet cores share each sample's
+chunks across the ``sp`` group (``parallel/sequence.py``); the rest runs
+whole on every rank.
 """
 
 from __future__ import annotations

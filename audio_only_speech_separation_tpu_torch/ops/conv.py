@@ -129,3 +129,23 @@ def conv1d_channels_last(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
         y = F.conv1d(x.transpose(1, 2), w, b, conv.stride, conv.padding, conv.dilation, conv.groups)
         return y.transpose(1, 2)
     return y if b is None else y + b
+
+
+def depthwise_conv_channels_last(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
+    """A depthwise ``conv`` (groups == channels, stride 1; any kernel size,
+    dilation and padding) on a channels-last [B, T, C] input, in x's dtype,
+    as a sum of shifted taps with no transpose: ``y[t] = bias + sum_j w_j *
+    x_padded[t + j * dilation]`` -> [B, T', C] (the JAX package's
+    channels-last depthwise ``Conv1d``)."""
+    if conv.groups != conv.in_channels or conv.in_channels != conv.out_channels or conv.stride != (1,):
+        raise ValueError("depthwise_conv_channels_last takes a depthwise conv of stride 1")
+    (k,), (d,), (p,) = conv.kernel_size, conv.dilation, conv.padding
+    w = conv.weight[:, 0, :].to(x.dtype)  # [C, k]
+    xp = F.pad(x, (0, 0, p, p))
+    T = xp.shape[1] - d * (k - 1)
+    y = None
+    for j in range(k):
+        tap = xp[:, j * d: j * d + T] * w[:, j]
+        y = tap if y is None else y + tap
+    return y if conv.bias is None else y + conv.bias.to(x.dtype)
+

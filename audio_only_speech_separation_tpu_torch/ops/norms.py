@@ -11,20 +11,28 @@ import torch
 from torch import nn
 
 
-def global_moments(x: torch.Tensor):
+def global_moments(x: torch.Tensor, group=None):
     """Per-sample mean and variance over every axis but 0, in float32.
 
     Shifted-data single pass, as the JAX package does it: with c one
     element of each sample, var = E[(x-c)^2] - (E[x-c])^2, which keeps the
     cancellation small whatever the data's offset.  The variance is clamped
-    at 0."""
+    at 0.  Under ``group`` (sequence parallelism: each rank of the group
+    holds a share of every sample) each rank's moments, shifted by its own
+    first element, are combined across the group
+    (``parallel.sequence.combine_moments``), so every rank gets the whole
+    sample's."""
     x32 = x.float()
     axes = tuple(range(1, x.ndim))
     c = x32[(slice(None),) + (slice(0, 1),) * (x.ndim - 1)]
     xc = x32 - c
     mean_c = xc.mean(dim=axes, keepdim=True)
     var = torch.clamp(xc.square().mean(dim=axes, keepdim=True) - mean_c.square(), min=0.0)
-    return mean_c + c, var
+    if group is None:
+        return mean_c + c, var
+    from ..parallel.sequence import combine_moments
+
+    return combine_moments(mean_c + c, var, x[0].numel(), group)
 
 
 class GlobalLayerNorm(nn.Module):
@@ -33,7 +41,9 @@ class GlobalLayerNorm(nn.Module):
 
     Same as ``nn.GroupNorm(1, C)``; eps 1e-8.  The channels are axis 1
     ([B, C, *spatial]), or the last axis with ``channels_last`` ([B,
-    *spatial, C], the dual-path row and column norms)."""
+    *spatial, C], the dual-path row and column norms).  ``group``: the
+    statistics of a sample sharded across a sequence-parallel group
+    (``global_moments``)."""
 
     def __init__(self, channels: int, eps: float = 1e-8, channels_last: bool = False, device=None):
         super().__init__()
@@ -42,8 +52,8 @@ class GlobalLayerNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels, device=device))
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean, var = global_moments(x)
+    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
+        mean, var = global_moments(x, group)
         y = ((x.float() - mean) / torch.sqrt(var + self.eps)).to(x.dtype)
         shape = (-1,) if self.channels_last else (-1,) + (1,) * (x.ndim - 2)
         return y * self.weight.to(y.dtype).reshape(shape) + self.bias.to(y.dtype).reshape(shape)

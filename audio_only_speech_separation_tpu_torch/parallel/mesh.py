@@ -9,12 +9,15 @@ by ``torchrun``: ``init_distributed`` joins the process group that
 torchrun's environment describes, each process loads its own shard of the
 data, and ``train.Trainer`` runs its train forward under
 ``DistributedDataParallel``, whose backward averages the gradients over
-the ``dp`` group.  Only the ``dp`` axis is ported (the JAX package's ``sp``
-axis, ``parallel/sequence.py``, is not).
+the ``dp`` group.  A second axis, ``sp`` (``make_mesh(axis_names=("dp",
+"sp"), shape=(dp, sp))``), shares each sample's chunks among ``sp`` ranks
+(``sequence.py``): the data are then sharded by the ``dp`` coordinate
+(``dp_shard_info``), so the ranks of one ``sp`` group read the same batch.
 """
 
 from __future__ import annotations
 
+import math
 import os
 from datetime import timedelta
 from typing import Sequence
@@ -56,14 +59,32 @@ def local_shard_info() -> tuple[int, int]:
     return 0, 1
 
 
-def make_mesh(device="cuda", axis_names: Sequence[str] = ("dp",)):
-    """A 1-D ``DeviceMesh`` over every rank of the process group, axis
-    ``dp`` (the JAX package's data-parallel mesh)."""
+def make_mesh(device="cuda", axis_names: Sequence[str] = ("dp",), shape: Sequence[int] | None = None):
+    """A ``DeviceMesh`` over every rank of the process group: 1-D with axis
+    ``dp`` (the JAX package's data-parallel mesh), or 2-D with axes ``("dp",
+    "sp")`` and ``shape`` (dp, sp), whose product is the world size; rank r
+    sits at (r // sp, r % sp), so an ``sp`` group is sp consecutive
+    ranks."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    if tuple(axis_names) != ("dp",):
-        raise NotImplementedError(f"only the data-parallel axis 'dp' is ported, not {tuple(axis_names)}")
-    return init_device_mesh(torch.device(device).type, (local_shard_info()[1],), mesh_dim_names=("dp",))
+    axis_names = tuple(axis_names)
+    world = local_shard_info()[1]
+    if axis_names not in (("dp",), ("dp", "sp")):
+        raise NotImplementedError(f"the mesh axes are ('dp',) or ('dp', 'sp'), not {axis_names}")
+    shape = tuple(shape) if shape is not None else (world,) + (1,) * (len(axis_names) - 1)
+    if len(shape) != len(axis_names) or math.prod(shape) != world:
+        raise ValueError(f"mesh shape {shape} for axes {axis_names} does not cover the {world} ranks")
+    return init_device_mesh(torch.device(device).type, shape, mesh_dim_names=axis_names)
+
+
+def dp_shard_info(sp: int = 1) -> tuple[int, int]:
+    """(dp coordinate, dp size) of this rank on a (dp, ``sp``) mesh: the
+    shard of the data it loads and the number of shards.  The ranks of one
+    ``sp`` group load the same shard; ``local_shard_info()`` for sp 1."""
+    rank, world = local_shard_info()
+    if sp < 1 or world % sp:
+        raise ValueError(f"sp {sp} does not divide the world size {world}")
+    return rank // sp, world // sp
 
 
 def local_mesh(device="cuda") -> torch.device:

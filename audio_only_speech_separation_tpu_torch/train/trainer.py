@@ -26,8 +26,19 @@ for the reference, written out.
   decisions.  Rank 0 alone writes checkpoints, best_k_models.json,
   best_model.pth, the logs and the epoch lines; every rank resumes from
   the same last.ckpt.
+- Sequence parallel: with ``sp`` > 1 the ranks form a (dp, sp) mesh
+  (``parallel.make_mesh``), the ranks of one ``sp`` group train on the same
+  shard of the data (the ``dp`` coordinate's) and share each sample's
+  chunks in the dual-path models and BSRNN (``parallel/sequence.py``).
+  Each rank's gradients are then partial (the train forward gives each
+  rank 1 / sp of its replicated output's gradient), and DDP runs over every
+  rank with a reduction that sums them over ``sp`` and averages over
+  ``dp``, so the update is the one process's on the ``dp`` shards.
+  Evaluation runs the whole model on each rank's ``dp`` shard, as without
+  ``sp``; the reduced means count each shard ``sp`` times above and below.
 - Dropout and DropPath draw from their own generators, seeded from
-  (``seed``, global step, rank) at the start of every step's forward
+  (``seed``, global step, ``dp`` coordinate: the rank without ``sp``) at
+  the start of every step's forward
   (``ops.dropout.seed_generators``), as the JAX Trainer folds the step into
   its key: a run resumed from last.ckpt (which keeps the global step)
   draws the masks of the uninterrupted run.
@@ -67,7 +78,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..models import save_serialized, serialize
 from ..ops.dropout import seed_generators
-from ..parallel import local_mesh, local_shard_info, make_mesh
+from ..parallel import dp_shard_info, local_mesh, local_shard_info, make_mesh, sequence
 from ..utils.console import print_only
 from .checkpoints import CheckpointManager
 from .loggers import BaseLogger, make_default_logger
@@ -77,16 +88,17 @@ from .schedulers import NoamLR
 TEST_EVERY = 10  # epochs between runs of the test loader
 
 
-def bf16_forward(model, fused: bool = False, **kernel_apply):
+def bf16_forward(model, fused: bool = False, apply_fn=None, **kernel_apply):
     """The JAX Trainer's mixed-precision forward: est = forward(mix) in f32
     from bf16 casts of ``model``'s f32 parameters and of the mix (the
     gradients reach the f32 parameters through the casts).  With ``fused``
     (a ConvTasNet) ``make_kernel_train_apply`` runs on the casts (the TCN
     chain through its forward and backward kernels; ``kernel_apply`` is
-    passed to it), without it ``torch.func.functional_call``."""
+    passed to it), with ``apply_fn`` (``apply_fn(params, mix)``, e.g. one of
+    ConvTasNet's other train forms) that function, otherwise
+    ``torch.func.functional_call``."""
     bf = torch.bfloat16
     params = dict(model.named_parameters())
-    apply_fn = None
     if fused:
         from ..models.convtasnet import make_kernel_train_apply
 
@@ -101,25 +113,42 @@ def bf16_forward(model, fused: bool = False, **kernel_apply):
     return forward
 
 
+def _sum_over_sp_mean_over_dp(dp: int):
+    """DDP's gradient reduction under a (dp, sp) mesh: each rank's partial
+    gradients summed over every rank and divided by ``dp`` (DDP's own
+    divides by the world size, which would shrink them by sp)."""
+
+    def hook(group, bucket):
+        fut = dist.all_reduce(bucket.buffer().div_(dp), group=group, async_op=True).get_future()
+        return fut.then(lambda f: f.value()[0])
+
+    return hook
+
+
 class TrainForward(nn.Module):
     """The whole train forward as one module: ``self(mix, step)`` seeds the
-    dropout generators from (seed, ``step``, rank), runs ``forward_fn`` (the
+    dropout generators from (seed, ``step``, ``rank``: the dp coordinate
+    under sp), runs ``forward_fn`` (the
     module, or ``bf16_forward``'s casts and fused path) and returns the f32
     estimate, inside one checkpointed region under ``remat`` so that the
-    recomputation draws the same masks.  ``DistributedDataParallel`` arms
+    recomputation draws the same masks; under ``mesh`` (with an ``sp``
+    axis) the forward runs sequence parallel and each rank keeps 1 / sp of
+    the estimate's gradient.  ``DistributedDataParallel`` arms
     its gradient reduction only inside its own forward, so wrapping this
     module (and not the model, which ``bf16_forward`` calls around DDP)
     lets it see every path."""
 
-    def __init__(self, model: nn.Module, forward, seed: int, rank: int, remat: bool):
+    def __init__(self, model: nn.Module, forward, seed: int, rank: int, remat: bool, mesh=None):
         super().__init__()
         self.model = model
         self.forward_fn = forward
         self.seed, self.rank, self.remat = seed, rank, remat
+        self.mesh = mesh  # a (dp, sp) mesh: the forward shares each sample across the sp group
 
     def _run(self, mix, step: int):
         seed_generators(self.model, self.seed, step, self.rank)
-        return self.forward_fn(mix)
+        with sequence.use_mesh(self.mesh):  # inside the checkpointed region: a recomputation shards too
+            return sequence.share_replicated(self.forward_fn(mix))
 
     def forward(self, mix, step: int):
         if self.remat:
@@ -160,7 +189,7 @@ class Trainer:
                  logger_dir: Optional[str] = None, checkpoint: Optional[dict] = None,
                  precision: str = "float32", seed: int = 42,
                  logger: Optional[BaseLogger] = None, fused_forward: bool = False, remat: bool = False,
-                 device="cuda"):
+                 sp: int = 1, device="cuda"):
         if precision not in ("float32", "bfloat16"):
             raise ValueError(f"precision must be float32 or bfloat16, got {precision!r}")
         self.exp_dir = exp_dir
@@ -173,7 +202,9 @@ class Trainer:
         if torch.device(device).type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer: no CUDA device; pass device=\"cpu\" to train on the CPU")
         self.device = local_mesh(device)
+        self.sp = sp  # ranks that share each sample (sequence parallel); the data go by the dp coordinate
         self.rank = local_shard_info()[0]
+        self.dp_rank = dp_shard_info(sp)[0]
         self.is_main = self.rank == 0  # owns the checkpoints, the logs and the epoch lines
         es = dict(early_stop or {})
         es.setdefault("monitor", "val_loss/dataloader_idx_0")
@@ -212,12 +243,22 @@ class Trainer:
         if self.remat and fused:
             print_only("remat: nothing to recompute on the fused ConvTasNet path (the JAX Trainer's fused "
                        "path bypasses its checkpoint too); the TCN chain's kernels keep their own state")
-        module = TrainForward(model, self._make_forward(model), self.seed, self.rank, self.remat and not fused)
+        mesh = None
+        if self.sp > 1:
+            if not dist.is_initialized():
+                raise RuntimeError(f"Trainer: sp={self.sp} needs a process group (parallel.init_distributed)")
+            mesh = make_mesh(self.device, ("dp", "sp"), (dist.get_world_size() // self.sp, self.sp))
+        module = TrainForward(model, self._make_forward(model), self.seed, self.dp_rank,
+                              self.remat and not fused, mesh)
         if not dist.is_initialized():
             return module
-        group = make_mesh(self.device).get_group("dp")
-        return DistributedDataParallel(module, device_ids=[self.device.index] if self.device.type == "cuda" else None,
-                                       process_group=group, static_graph=True)
+        device_ids = [self.device.index] if self.device.type == "cuda" else None
+        if mesh is None:
+            return DistributedDataParallel(module, device_ids=device_ids,
+                                           process_group=make_mesh(self.device).get_group("dp"), static_graph=True)
+        ddp = DistributedDataParallel(module, device_ids=device_ids, static_graph=True)  # over every rank
+        ddp.register_comm_hook(None, _sum_over_sp_mean_over_dp(dist.get_world_size() // self.sp))
+        return ddp
 
     def _batch(self, np_batch):
         mix, sources, _keys = np_batch

@@ -24,7 +24,8 @@ step; then the training-quality study, the main path's training with
 remat, lamb and a cosine schedule, the optimizers written after optax's
 rules, MixIT and the two-step entry; then data-parallel training, the WSJ0
 datamodule with the native wav reader, and chunked separation of a long
-recording.  In phases:
+recording; then the port's bench and ``bench_train``, ConvTasNet's train
+forms, and sequence parallelism.  In phases:
 
 0. the card's name and power limit (fails without a CUDA device);
 1. build the kernels from ``csrc/`` with nvcc;
@@ -148,8 +149,8 @@ recording.  In phases:
 34. one bf16 train step of Sandglasset and DPRNNTasNet (B=2 x 2 s) three
     ways as in phase 26, exact forward launches, none in the backward;
 35. the training-quality study (``validate.py``, the JAX script's
-    ``kernel_train_quality``, through its command line in a process of
-    its own) at full width: 300 Adam steps a run, f32
+    ``kernel_train_quality``, through its command line in two processes
+    at once, seeds 0-2 and 3-5) at full width: 300 Adam steps a run, f32
     from seed 0, bf16 and bf16 through K2 + K3 from six seeds, each run's
     SI-SDRi after the last step and over the last 50 steps' models, final
     loss and seconds, and the script's two thresholds as gates (the
@@ -185,7 +186,28 @@ recording.  In phases:
 43. ``chunked_separate`` on a 20 s, 16 kHz mixture at convtasnet_lrs3
     width (8 s windows, 1 s overlap: one K1 call over 3 windows) under the
     1.5x rule against the plain bf16 path, K1 against its plain version on
-    the windows' frames (``check_k1_plain``), and the call's time.
+    the windows' frames (``check_k1_plain``), and the call's time;
+44. the port's bench (``bench.main()``): K1 against its plain version on
+    the bench's frames, then 100 calls of ConvTasNet-LRS3 at B=8 x 2 s
+    between CUDA events; its JSON line printed where it runs, never last;
+45. ``bench_train --only ConvTasNet --iters 5``: every ConvTasNet case
+    (f32, bf16, +fused, +CL, +delayed, +kernelbwd, f32+CL, B=16), none
+    failing, K1/K2/K3 launches exact;
+46. ConvTasNet's train forms at convtasnet_lrs3 width, B=4 x 2 s: the fused
+    form (K1 as the primal, one call of 50 launches; the backward through
+    the plain bf16 module), the delayed form and the channels-last module,
+    outputs and gradients under the 1.5x rule against f32 with the plain
+    bf16 module as the margin; K1 against its plain version on the fused
+    form's frames, and timed there beside its bound;
+47. sequence parallelism, ``sp`` = 2 as two gloo ranks on the one card
+    (processes of their own) against one process: TasNet-DPRNN
+    (dprnn_wsj0, B=2 x 4 s) forward and a train step, Sepformer
+    (sepformer_base, B=1 x 2 s x 16 kHz) forward, BSRNN (bsrnn_wsj0, B=1 x
+    4 s) forward and a train step, each under the 1.5x rule against f32;
+    each rank's K4-K6 launches and shapes; K4-K6 against their plain
+    versions at every shard shape and timed there beside SDPA or
+    ``nn.LSTM`` and their bounds; and K4 at TDANet's [1008, 64, 1], K5 and
+    K6 at BSRNN's B=4 shapes timed with their bounds.
 
 TF32 is off for matmuls and cuDNN, so the f32 references are full f32.
 
@@ -2101,45 +2123,64 @@ def quality_study(card: str) -> None:
     """Phase 35: the training-quality study (``validate.py``, the JAX
     script's ``kernel_train_quality``) at full width on the card, run as
     its command line (``python -m audio_only_speech_separation_tpu_torch.validate``)
-    in a process of its own, which the earlier phases' state does not slow:
-    300 Adam steps a run, f32 from seed 0 and bf16 plain and bf16 through
-    K2 + K3 from each of six seeds; each run's SI-SDRi after the last step
-    (the script's reading) and averaged over the last 50 steps' models,
-    final loss and seconds; both gates (|bf16 plain - bf16 kernel| < 0.3 dB
-    on the mean over the seeds of the tail averages' difference, printed
-    with its standard error; the f32 arm's model served through K1 within
-    0.1 dB of its f32 forward) and the script's reading at seed 0, which no
-    gate reads."""
+    in processes of their own, which the earlier phases' state does not
+    slow: seeds 0-2 and 3-5 in two processes at once (each run is paced by
+    the host and leaves the card mostly idle, and a seed's runs do not
+    depend on the other process); 300 Adam steps a run, f32 from the first
+    seed of each process and bf16 plain and bf16 through K2 + K3 from each
+    of the six seeds; each run's SI-SDRi after the last step (the script's
+    reading) and averaged over the last 50 steps' models, final loss and
+    seconds; both gates (|bf16 plain - bf16 kernel| < 0.3 dB on the mean
+    over the six seeds of the tail averages' difference, with its standard
+    error, ``validate.train_gate``; seed 0's f32 model served through K1
+    within 0.1 dB of its f32 forward) and the script's reading at seed 0,
+    which no gate reads."""
     from audio_only_speech_separation_tpu_torch import validate
 
+    seeds = list(validate.SEEDS)
+    halves = (seeds[:len(seeds) // 2], seeds[len(seeds) // 2:])
     print(f"phase 35: the training-quality study (validate.py), full-width ConvTasNet, 300 steps a run, seeds "
-          f"{list(validate.SEEDS)}")
-    torch.cuda.empty_cache()  # leave the study's process the card's memory
-    proc = subprocess.run([sys.executable, "-m", "audio_only_speech_separation_tpu_torch.validate"],
-                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
-                          timeout=900)
-    if proc.returncode not in (0, 1) or "{" not in proc.stdout:
-        raise RuntimeError(f"validate.py exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-    r = json.loads(proc.stdout[proc.stdout.index("{"):])
-    if (proc.returncode == 0) != r["ok"]:
-        raise AssertionError(f"validate.py exited {proc.returncode} with ok {r['ok']}")
-    for row in r["per_seed"]:
+          f"{halves[0]} and {halves[1]} in two processes at once")
+    torch.cuda.empty_cache()  # leave the study's processes the card's memory
+    procs = [subprocess.Popen([sys.executable, "-m", "audio_only_speech_separation_tpu_torch.validate", "--seeds",
+                               *map(str, half)], cwd=os.path.dirname(os.path.abspath(__file__)),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for half in halves]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=900))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    results = []
+    for p, (out, err) in zip(procs, outs):
+        if p.returncode not in (0, 1) or "{" not in out:
+            raise RuntimeError(f"validate.py exited {p.returncode}:\n{out[-2000:]}\n{err[-4000:]}")
+        results.append(json.loads(out[out.index("{"):]))
+    first = results[0]  # seed 0: the f32 arm, the serving gate and the script's reading
+    rows = [row for r in results for row in r["per_seed"]]
+    for row in rows:
         for arm in validate.ARMS:
             if arm in row:
                 print(f"  seed {row['seed']} {arm}: SI-SDRi {row[arm]:.4f} dB after the last step, "
-                      f"{row[f'{arm}_tail']:.4f} dB over the last {r['tail_steps']} steps' models; final loss "
+                      f"{row[f'{arm}_tail']:.4f} dB over the last {first['tail_steps']} steps' models; final loss "
                       f"{row[f'{arm}_final_loss_db']:.4f} dB, {row[f'{arm}_seconds']:.2f} s; {card}")
         print(f"  seed {row['seed']}: bf16 plain - bf16 kernel {row['tail_delta_db']:.4f} dB over the tail")
-    print(f"  over the seeds: f32 {r['f32_tail']:.4f} (seed 0), bf16 plain {r['bf16_plain_tail']:.4f}, bf16 kernel "
-          f"{r['bf16_kernel_tail']:.4f} dB (tail averages); bf16 plain - bf16 kernel {r['train_gate_delta_db']:.4f} "
-          f"dB, standard error {r['train_gate_se_db']:.4f} dB (gate < {validate.TRAIN_GATE_DB}: "
-          f"{r['train_gate_ok']}); the script's reading at seed 0: {r['script_reading_delta_db']:.4f} dB (no gate)")
-    print(f"  the f32 arm's model: f32 forward {r['serve_f32_db']:.4f} dB, bf16 through K1 "
-          f"{r['serve_bf16_fused_db']:.4f} dB, difference {r['serve_delta_db']:.4f} dB (gate < "
-          f"{validate.SERVE_GATE_DB}: {r['serve_gate_ok']})")
-    if not r["ok"]:
-        raise AssertionError(f"the quality study failed a gate: train {r['train_gate_ok']}, "
-                             f"serve {r['serve_gate_ok']}")
+    gate = validate.train_gate([row["tail_delta_db"] for row in rows])
+    tails = {arm: float(np.mean([row[f"{arm}_tail"] for row in rows])) for arm in validate.ARMS[1:]}
+    print(f"  over the seeds: f32 {first['f32_tail']:.4f} (seed 0), bf16 plain {tails['bf16_plain']:.4f}, bf16 kernel "
+          f"{tails['bf16_kernel']:.4f} dB (tail averages); bf16 plain - bf16 kernel {gate['train_gate_delta_db']:.4f} "
+          f"dB, standard error {gate['train_gate_se_db']:.4f} dB (gate < {validate.TRAIN_GATE_DB}: "
+          f"{gate['train_gate_ok']}); the script's reading at seed 0: {first['script_reading_delta_db']:.4f} dB "
+          f"(no gate)")
+    print(f"  the f32 arm's model: f32 forward {first['serve_f32_db']:.4f} dB, bf16 through K1 "
+          f"{first['serve_bf16_fused_db']:.4f} dB, difference {first['serve_delta_db']:.4f} dB (gate < "
+          f"{validate.SERVE_GATE_DB}: {first['serve_gate_ok']})")
+    if not (gate["train_gate_ok"] and first["serve_gate_ok"]):
+        raise AssertionError(f"the quality study failed a gate: train {gate['train_gate_ok']}, "
+                             f"serve {first['serve_gate_ok']}")
 
 
 def registry_training(dev, card: str, root: str, make_model) -> tuple:
@@ -2766,6 +2807,369 @@ def parallel_phases(dev, card: str) -> dict:
     return {"K1": k1, "K2": k2 + cli_k2, "K3": k3 + cli_k3, "K5": k5, "K6": k6, "errs": (k1_err, k5_err, k6_err)}
 
 
+# ---------------------------------------------------------------------------
+# Phases 44-47: the measurement entry points, ConvTasNet's train forms, the sp axis
+# ---------------------------------------------------------------------------
+
+
+def bench_phase(card: str) -> int:
+    """Phase 44: the port's ``bench.main()`` at its shape (K1 checked
+    against its plain version first, then ITERS calls between CUDA events);
+    its JSON line printed as it prints it.  Returns K1's launches on the
+    bench's path (the check's one call is a comparison and not counted)."""
+    from audio_only_speech_separation_tpu_torch import bench
+    from audio_only_speech_separation_tpu_torch.ops.kernels.convtasnet_block import (
+        convtasnet_separator_launches,
+        fused_convtasnet_separator,
+    )
+
+    print(f"phase 44: the port's bench, ConvTasNet-LRS3 B={bench.BATCH} x {bench.SECONDS:g} s x 16 kHz through K1, "
+          f"{bench.ITERS} calls; {card}")
+    fused_convtasnet_separator.launches = 0
+    t0 = time.perf_counter()
+    result = bench.main([])
+    launched = fused_convtasnet_separator.launches - convtasnet_separator_launches(24)
+    want = (bench.ITERS + 1) * convtasnet_separator_launches(24)
+    print(f"  {time.perf_counter() - t0:.1f} s; K1 launches {launched} (want {want}: a warm-up and {bench.ITERS} "
+          f"calls, beside the check's one call); {card}")
+    if launched != want or not result["value"] > 0 or result["device"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"phase 44: launches {launched}, result {result}")
+    return launched
+
+
+def bench_train_phase(card: str) -> tuple:
+    """Phase 45: ``bench_train --only ConvTasNet --iters 5``, every
+    ConvTasNet case; none may fail.  Returns the (K1, K2, K3) launches:
+    the +fused case's forwards and the two +kernelbwd cases' steps."""
+    from audio_only_speech_separation_tpu_torch import bench_train
+    from audio_only_speech_separation_tpu_torch.ops.kernels.convtasnet_backward import (
+        fused_tcn_backward,
+        tcn_backward_launches,
+    )
+    from audio_only_speech_separation_tpu_torch.ops.kernels.convtasnet_block import (
+        convtasnet_separator_launches,
+        fused_convtasnet_separator,
+        fused_tcn_separator,
+        tcn_separator_launches,
+    )
+
+    iters = 5
+    print(f"phase 45: bench_train --only ConvTasNet --iters {iters} (every ConvTasNet case); {card}")
+    counters = (fused_convtasnet_separator, fused_tcn_separator, fused_tcn_backward)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    results = bench_train.main(["--only", "ConvTasNet", "--iters", str(iters)])
+    launched = tuple(c.launches for c in counters)
+    steps = bench_train.WARMUP + iters
+    want = (steps * convtasnet_separator_launches(24), 2 * steps * tcn_separator_launches(24),
+            2 * steps * tcn_backward_launches(24))
+    print(f"  {time.perf_counter() - t0:.1f} s; {len(results)} cases; K1, K2, K3 launches {launched} (want {want}); "
+          f"{card}")
+    failed = [r for r in results if "failed" in r]
+    if len(results) != 8 or failed or launched != want:
+        raise AssertionError(f"phase 45: failed cases {failed}, launches {launched}")
+    return launched
+
+
+FORMS_B = 4  # phase 46's batch of 2 s utterances
+
+
+def train_forms_checks(dev, card: str) -> tuple:
+    """Phase 46: ConvTasNet-LRS3 at full width, B=4 x 2 s, one loss and its
+    gradients five ways: the f32 module, the plain bf16 module (the
+    Trainer's cast policy), the fused train form (K1 as the primal, the
+    backward through the plain bf16 module), the delayed form and the
+    channels-last module on bf16 casts; each bf16 arm's output and
+    gradients under the 1.5x rule against f32 with the plain bf16 module as
+    the margin.  K1 on the fused form's frames against its plain version
+    (``check_k1_plain``), and K1 timed at that shape beside its plain
+    version and its bound.  Returns (K1 launches of the fused arm, K1's max
+    abs error, K1's timing entry)."""
+    from audio_only_speech_separation_tpu_torch.models import ConvTasNet
+    from audio_only_speech_separation_tpu_torch.models.convtasnet import (
+        inference_frames,
+        make_delayed_train_apply,
+        make_fused_train_apply,
+    )
+    from audio_only_speech_separation_tpu_torch.ops.kernels.convtasnet_block import (
+        convtasnet_separator_launches,
+        convtasnet_separator_reference,
+        fused_convtasnet_separator,
+        pack_convtasnet_full_params_differentiable,
+    )
+    from audio_only_speech_separation_tpu_torch.train import bf16_forward
+
+    print(f"phase 46: ConvTasNet's train forms at convtasnet_lrs3 width, B={FORMS_B} x 2 s: fused (K1), delayed, "
+          f"channels-last, against f32 and the plain bf16 module")
+    model = lrs3_model(91, dev)
+    cl = ConvTasNet(**LRS3, channels_last=True, device=dev).train()
+    cl.load_state_dict(model.state_dict())
+    rng = np.random.default_rng(92)
+    srcs = torch.from_numpy((0.3 * rng.standard_normal((FORMS_B, 3, 2 * SR))).astype(np.float32)).to(dev)
+    mix = srcs.sum(1)
+    loss_fn = lrs3_train_loss()
+    arms = {"f32": (model, model), "plain bf16": (model, bf16_forward(model)),
+            "fused": (model, bf16_forward(model, apply_fn=make_fused_train_apply(model))),
+            "delayed": (model, bf16_forward(model, apply_fn=make_delayed_train_apply(model))),
+            "channels last": (cl, bf16_forward(cl))}
+    out = {}
+    for name, (m, forward) in arms.items():
+        before = fused_convtasnet_separator.launches
+        est = forward(mix)
+        loss = loss_fn(est, srcs)
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        torch.cuda.synchronize()
+        out[name] = (est.detach().float(), torch.cat([g.flatten().float() for g in grads]),
+                     float(loss.detach()), fused_convtasnet_separator.launches - before)
+    e_f, g_f = out["f32"][:2]
+    e_p, g_p = out["plain bf16"][:2]
+    plain_err, plain_gerr, n_f = max_err(e_p, e_f), float((g_p - g_f).norm()), float(g_f.norm())
+    for name in ("fused", "delayed", "channels last"):
+        e, g, loss, _ = out[name]
+        check_rule(f"{name} form, output", max_err(e, e_f), plain_err)
+        gerr, bound = float((g - g_f).norm()), 1.5 * plain_gerr + 1e-3 * n_f
+        print(f"  {name} form: loss {loss:.6g} (f32 {out['f32'][2]:.6g}); gradients |arm - f32| {gerr:.6g}, |plain "
+              f"- f32| {plain_gerr:.6g}, |f32| {n_f:.6g}, bound {bound:.6g}; |arm - plain bf16| "
+              f"{float((g - g_p).norm()):.6g}")
+        if not (torch.isfinite(g).all() and gerr <= bound):
+            raise AssertionError(f"phase 46 {name}: gradient error {gerr} > {bound}")
+    launched = out["fused"][3]
+    if launched != convtasnet_separator_launches(24) or any(out[k][3] for k in out if k != "fused"):
+        raise AssertionError(f"phase 46: K1 launches {[(k, v[3]) for k, v in out.items()]}")
+    params = {k: p.detach().to(torch.bfloat16) for k, p in model.named_parameters()}
+    with torch.no_grad():
+        *w, dils = (t.contiguous() if torch.is_tensor(t) else t for t in
+                    pack_convtasnet_full_params_differentiable(params, model.R, model.X, model.num_spks))
+        frames = inference_frames(model, mix.to(torch.bfloat16))
+        sep_k = fused_convtasnet_separator(frames, *w, dilations=dils, nspk=model.num_spks)
+        sep_p = convtasnet_separator_reference(frames, *w, dilations=dils, nspk=model.num_spks)
+        err = check_k1_plain(f"the fused form's primal, frames {tuple(frames.shape)}", sep_k, sep_p)
+        k1 = {"ms": back_to_back_ms(lambda: fused_convtasnet_separator(frames, *w, dilations=dils, nspk=3), 10),
+              "plain_ms": back_to_back_ms(lambda: convtasnet_separator_reference(frames, *w, dilations=dils,
+                                                                                  nspk=3), 2)}
+    k1["bound_ms"], k1["bound_by"] = least_time(*separator_work(FORMS_B, frames.shape[1]))
+    print(f"  K1 at the fused form's frames {tuple(frames.shape)}: {k1['ms']:.4f} ms a call (CUDA events, back to "
+          f"back), plain {k1['plain_ms']:.4f} ms, bound {k1['bound_ms']:.5f} ms ({k1['bound_by']}); {card}")
+    return launched, err, k1
+
+
+# Phase 47: the sp axis on the card, two gloo ranks on the one card sharing
+# each sample; family: (batch, seconds, sample rate, a train step too)
+SP_CARD = {"TasNet-DPRNN": (2, 4.0, TSR, True), "Sepformer": (1, 2.0, SR, False), "BSRNN": (1, 4.0, TSR, True)}
+
+
+def sp_card_model(family: str, dev):
+    from audio_only_speech_separation_tpu_torch.models import BSRNN
+
+    if family == "TasNet-DPRNN":
+        return tasnet_model("DPRNN", 61, dev)
+    if family == "Sepformer":
+        return sepformer_model(62, dev)
+    return seeded_model(BSRNN, BSRNN_WSJ0, TSR, 63, dev)
+
+
+def sp_card_batch(family: str, dev):
+    batch, secs, sr, _ = SP_CARD[family]
+    srcs = (0.3 * np.random.default_rng(64).standard_normal((batch, 2, int(secs * sr)))).astype(np.float32)
+    return torch.from_numpy(srcs.sum(1)).to(dev), torch.from_numpy(srcs).to(dev)
+
+
+def sp_runs(dev, root: str, mesh=None) -> dict:
+    """Each family of SP_CARD on the kernel path, under ``mesh`` when given:
+    the bf16 forward ("kernels": the module's bf16 copy in eval mode) and,
+    where SP_CARD says, one bf16 train step's loss and gradients through
+    ``Trainer``'s train module (with ``mesh``, ``Trainer(sp=2)``: DDP's sum
+    over sp included), each with the K4, K5, K6 launches and the shapes
+    the kernels took."""
+    from audio_only_speech_separation_tpu_torch.losses import PITLossWrapper, pairwise_neg_snr
+    from audio_only_speech_separation_tpu_torch.parallel import use_mesh
+    from audio_only_speech_separation_tpu_torch.train import CSVLogger, Trainer
+
+    counters = [c for _, c, _ in tasnet_counters()]
+    res = {}
+    for family, (_, _, _, step) in SP_CARD.items():
+        model = sp_card_model(family, dev)
+        mix, srcs = sp_card_batch(family, dev)
+        kernel = dualpath_paths(model)[0]
+        for c in counters:
+            c.launches = 0
+        with recording_kernel_shapes() as shapes, use_mesh(mesh):
+            est = kernel(mix)
+            torch.cuda.synchronize()
+        entry = {"out": est.float().cpu(), "launches": tuple(c.launches for c in counters),
+                 "shapes": {g: sorted(v) for g, v in shapes.items()}}
+        if step:
+            work = os.path.join(root, family)
+            trainer = Trainer(work, precision="bfloat16", sp=1 if mesh is None else 2, device=dev,
+                              logger=CSVLogger(os.path.join(work, "logs")))
+            module = trainer.train_module(model.train())
+            loss_fn = PITLossWrapper(pairwise_neg_snr, threshold_byloss=False)
+            for c in counters:
+                c.launches = 0
+            with recording_kernel_shapes() as step_shapes:
+                loss = loss_fn(module(mix, 0), srcs)
+                loss.backward()
+                torch.cuda.synchronize()
+            entry.update(loss=float(loss.detach()), step_launches=tuple(c.launches for c in counters),
+                         step_shapes={g: sorted(v) for g, v in step_shapes.items()},
+                         grads=torch.cat([p.grad.flatten().float() for p in model.parameters()]).cpu())
+            step_ms = []
+            for _ in range(2):  # forward and backward, host clock around a synchronised step
+                model.zero_grad(set_to_none=True)
+                t0 = time.perf_counter()
+                loss_fn(module(mix, 0), srcs).backward()
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            entry["step_ms"] = step_ms
+        res[family] = entry
+        del model
+    return res
+
+
+def sp_rank(rank: int, world: int, port: int, out: str) -> None:
+    """Phase 47's rank process: joins a gloo group of ``world`` ranks on the
+    one card, builds the (1, world) mesh and saves ``sp_runs`` under it."""
+    from audio_only_speech_separation_tpu_torch import parallel
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    parallel.init_distributed(device="cuda", backend="gloo")
+    mesh = parallel.make_mesh("cuda", ("dp", "sp"), (1, world))
+    work = tempfile.mkdtemp(prefix=f"sp_rank{rank}_")
+    torch.save(sp_runs(dev, work, mesh), f"{out}.{rank}")
+    torch.distributed.destroy_process_group()
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def sequence_parallel_checks(dev, card: str) -> tuple:
+    """Phase 47: ``sp`` = 2 as two gloo ranks on the one card (processes of
+    their own, as phase 40) against one process: TasNet-DPRNN (dprnn_wsj0,
+    B=2 x 4 s x 8 kHz) forward and a train step, Sepformer (sepformer_base,
+    B=1 x 2 s x 16 kHz) forward, BSRNN (bsrnn_wsj0, B=1 x 4 s) forward and a
+    train step, all in bf16 through K4-K6; each rank's and the one
+    process's output and gradients under the 1.5x rule against f32 with the
+    plain bf16 path as the margin; each rank's launches and shapes printed;
+    K4, K5 and K6 against their plain versions at every shape the ranks gave
+    them, and timed there.  Returns ({K4, K5, K6: launches of the ranks and
+    the one process}, the K4, K5, K6 worst errors)."""
+    from audio_only_speech_separation_tpu_torch.losses import PITLossWrapper, pairwise_neg_snr
+
+    print("phase 47: sequence parallel, sp = 2 as two gloo ranks on the one card, against one process")
+    t0 = time.perf_counter()
+    scratch = tempfile.TemporaryDirectory(prefix="chip_smoke_sp_")
+    root = scratch.name
+    port = free_port()
+    out = os.path.join(root, "sp")
+    procs = [subprocess.Popen([sys.executable, "-c", f"import chip_smoke; chip_smoke.sp_rank({r}, 2, {port}, {out!r})"],
+                              cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    if any(p.returncode != 0 for p in procs):
+        raise RuntimeError("phase 47: a rank failed:\n" + "\n".join(f"--- rank {r}:\n{log[-3000:]}"
+                                                                     for r, log in enumerate(logs)))
+    ranks = [torch.load(f"{out}.{r}") for r in range(2)]
+    print(f"  ranks: {time.perf_counter() - t0:.1f} s (spawn included)")
+    one = sp_runs(dev, root)
+    launched = [0, 0, 0]
+    shapes = {"K4": set(), "K5": set(), "K6": set()}
+    for family, (batch, secs, sr, step) in SP_CARD.items():
+        model = sp_card_model(family, dev)
+        mix, srcs = sp_card_batch(family, dev)
+        _, plain, f32 = dualpath_paths(model)
+        ref, pl = f32(mix), plain(mix)
+        arms = {"one process": one[family], "rank 0": ranks[0][family], "rank 1": ranks[1][family]}
+        for arm, r in arms.items():
+            print(f"  {family} B={batch} x {secs:g} s, {arm}: forward K4, K5, K6 launches {r['launches']}, shapes "
+                  f"{ {g: v for g, v in r['shapes'].items() if v} }"
+                  + (f"; train step launches {r['step_launches']}, shapes "
+                     f"{ {g: v for g, v in r['step_shapes'].items() if v} }" if step else ""))
+            if r["out"].shape != ref.shape or not torch.isfinite(r["out"]).all() or not any(r["launches"]):
+                raise AssertionError(f"phase 47 {family} {arm}: output {tuple(r['out'].shape)}, launches "
+                                     f"{r['launches']}")
+            check_rule(f"{family} forward, {arm}", max_err(r["out"].to(dev), ref), max_err(pl, ref))
+            if arm != "one process":
+                for g in shapes:
+                    shapes[g] |= {tuple(s) for s in r["shapes"][g]} | {tuple(s) for s in r.get("step_shapes",
+                                                                                          {}).get(g, [])}
+            launched = [n + a + b for n, a, b in zip(launched, r["launches"], r.get("step_launches", (0, 0, 0)))]
+        if step:
+            paths = train_paths(model.train(), os.path.join(root, family + " refs"), dev)
+            grads, losses_ = {}, {}
+            for path in ("plain bf16 path", "f32 module"):
+                context, forward = paths[path]
+                with context():
+                    loss = PITLossWrapper(pairwise_neg_snr, threshold_byloss=False)(forward(mix), srcs)
+                    grads[path] = torch.cat([g.flatten().float()
+                                             for g in torch.autograd.grad(loss, list(model.parameters()))])
+                losses_[path] = float(loss.detach())
+            g_f, g_p = grads["f32 module"], grads["plain bf16 path"]
+            e_p, n_f = float((g_p - g_f).norm()), float(g_f.norm())
+            bound = 1.5 * e_p + 1e-3 * n_f
+            for arm, r in arms.items():
+                e = float((r["grads"].to(dev) - g_f).norm())
+                print(f"  {family} train step, {arm}: loss {r['loss']:.6g} (plain {losses_['plain bf16 path']:.6g}, "
+                      f"f32 {losses_['f32 module']:.6g}); gradients |arm - f32| {e:.6g}, |plain - f32| {e_p:.6g}, "
+                      f"|f32| {n_f:.6g}, bound {bound:.6g}; forward + backward "
+                      f"{', '.join(f'{t:.1f}' for t in r['step_ms'])} ms (host clock, synchronised; {card})")
+                if not (torch.isfinite(r["grads"]).all() and e <= bound):
+                    raise AssertionError(f"phase 47 {family} {arm}: gradient error {e} > {bound}")
+            gap = float((ranks[0][family]["grads"] - ranks[1][family]["grads"]).norm())
+            print(f"  {family}: the two ranks' reduced gradients {gap:.6g} apart")
+        del model
+    scratch.cleanup()
+    print(f"  {time.perf_counter() - t0:.1f} s into phase 47")
+    errs = kernels_at_shapes(dev, "phase 47's ranks", shapes)
+    rand = rand_maker(93, dev)
+    print(f"  K4, K5 and K6 timed at every shape the ranks gave them ({card})")
+    for s in sorted(shapes["K4"]):
+        time_attention("K4 at a rank's shard", s, rand, card)
+    for s in sorted(shapes["K5"]):  # DPRNN's LSTMs take bn_dim 64 into H 128, BSRNN's feature_dim 128 into H 256
+        time_lstm(dev, "K5 at a rank's shard", s, {128: 64, 256: 128}[s[3]], rand, card)
+    for s in sorted(shapes["K6"]):
+        time_lstm(dev, "K6 at a rank's shard", s, s[2], rand, card)
+    print(f"  {time.perf_counter() - t0:.1f} s into phase 47")
+    return dict(zip(("K4", "K5", "K6"), launched)), errs
+
+
+def earlier_bounds(dev, card: str) -> None:
+    """The bounds and library times PERF.md's kernel table lacked: K4 at
+    TDANet's [1008, 64, 1] (beside SDPA), K5 at BSRNN's B=4 band RNN (501,
+    2, 32, 256) and K6 at its band-comm RNN (8, 2004, 128, 256, 2)."""
+    rand = rand_maker(94, dev)
+    print(f"  the table's missing entries ({card})")
+    time_attention("K4 at TDANet's module path (B=1)", (TDANET_K4_SHAPE[0], TDANET_K4_SHAPE[1], 1), rand, card)
+    k5, k6 = bsrnn_shapes(4)
+    time_lstm(dev, "K5 at BSRNN's band RNN, B=4", k5, 128, rand, card)
+    time_lstm(dev, "K6 at BSRNN's band-comm RNN, B=4", k6, k6[2], rand, card)
+
+
+def measurement_phases(dev, card: str) -> dict:
+    """Phases 44-47; returns {K1-K6: launches} and the K1, K4, K5, K6 worst
+    errors of their checks."""
+    t0 = time.perf_counter()
+    k1 = bench_phase(card)
+    k1_b, k2, k3 = bench_train_phase(card)
+    print(f"  {time.perf_counter() - t0:.1f} s into phases 44-47")
+    k1_f, k1_err, _ = train_forms_checks(dev, card)
+    print(f"  {time.perf_counter() - t0:.1f} s into phases 44-47")
+    sp_launched, (k4_err, k5_err, k6_err) = sequence_parallel_checks(dev, card)
+    earlier_bounds(dev, card)
+    print(f"  {time.perf_counter() - t0:.1f} s into phases 44-47")
+    return {"K1": k1 + k1_b + k1_f, "K2": k2, "K3": k3, **sp_launched, "errs": (k1_err, k4_err, k5_err, k6_err)}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels need one")
@@ -3240,6 +3644,13 @@ def main() -> None:
     k5_launches, k6_launches = k5_launches + launched["K5"], k6_launches + launched["K6"]
     k1_err = max(*errs.values(), launched["errs"][0])
     k5_err, k6_err = max(k5_err, launched["errs"][1]), max(k6_err, launched["errs"][2])
+    print(f"  {time.perf_counter() - t_start:.1f} s since the start")
+    launched = measurement_phases(dev, card)
+    k1_launches, k2_launches, k3_launches = (k1_launches + launched["K1"], k2_launches + launched["K2"],
+                                             k3_launches + launched["K3"])
+    k4_launches, k5_launches, k6_launches = (k4_launches + launched["K4"], k5_launches + launched["K5"],
+                                             k6_launches + launched["K6"])
+    k1_err, k4_err, k5_err, k6_err = (max(a, b) for a, b in zip((k1_err, k4_err, k5_err, k6_err), launched["errs"]))
     print(f"  {time.perf_counter() - t_start:.1f} s since the start")
 
     k1_b, k1_by = least_time(*separator_work(8, frames_bench))

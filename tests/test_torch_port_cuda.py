@@ -1099,3 +1099,96 @@ def test_chunked_separation_through_k1(cuda, monkeypatch):
             plain = chunked_separate(m, wav, use_bf16=True, **kw)
         assert got.shape == ref.shape == (2, T) and np.isfinite(got).all()
         assert np.abs(got - ref).max() <= 1.5 * np.abs(plain - ref).max() + 1e-3
+
+
+def test_bench_checks_k1_then_times_it(cuda):
+    """The port's bench at a small shape: K1 checked against its plain
+    version (one call), a warm-up and the timed calls, each one K1 call;
+    the root bench's line with the card's name."""
+    from audio_only_speech_separation_tpu_torch import bench
+
+    before = fused_convtasnet_separator.launches
+    result = bench.run(batch=1, seconds=0.5, iters=3)
+    assert fused_convtasnet_separator.launches - before == (1 + 1 + 3) * convtasnet_separator_launches(24)
+    assert result["value"] > 0 and result["device"] == torch.cuda.get_device_name(0)
+    assert result["vs_baseline"] == pytest.approx(result["value"] / bench.A100_EST, abs=1e-3)
+
+
+def _train_arms(cuda, model, forms):
+    """{arm: (f32 estimate, f32 gradients)} of one loss on ``model`` for the
+    f32 module, the plain bf16 module (the Trainer's cast policy) and each
+    of ``forms`` ({name: forward})."""
+    from audio_only_speech_separation_tpu_torch.train import bf16_forward
+
+    rng = np.random.default_rng(3)
+    mix = torch.from_numpy(rng.standard_normal((2, 8000)).astype(np.float32)).to(cuda)
+    tgt = torch.from_numpy(rng.standard_normal((2, model.num_spks, 8000)).astype(np.float32)).to(cuda)
+    arms = {"f32": model, "plain bf16": bf16_forward(model), **forms}
+    out = {}
+    for name, forward in arms.items():
+        est = forward(mix)
+        grads = torch.autograd.grad(((est.float() - tgt) ** 2).mean(), list(model.parameters()))
+        out[name] = (est.detach().float(), torch.cat([g.flatten().float() for g in grads]))
+    return out
+
+
+def _meets_the_rule(arms, name):
+    (e_f, g_f), (e_p, g_p), (e, g) = arms["f32"], arms["plain bf16"], arms[name]
+    err, plain = float((e - e_f).abs().max()), float((e_p - e_f).abs().max())
+    assert err <= 1.5 * plain + 1e-3, (name, err, plain)
+    gerr, gplain = float((g - g_f).norm()), float((g_p - g_f).norm())
+    assert torch.isfinite(g).all() and gerr <= 1.5 * gplain + 1e-3 * float(g_f.norm()), (name, gerr, gplain)
+
+
+def test_convtasnet_train_forms_on_the_card(cuda):
+    """The fused train form launches K1 once a forward (its backward none:
+    it recomputes through the plain bf16 module); it, the delayed form and
+    the channels-last module (bf16 casts) meet the 1.5x rule against the
+    f32 module, outputs and gradients, with the plain bf16 module as the
+    margin."""
+    from audio_only_speech_separation_tpu_torch.models.convtasnet import (
+        make_delayed_train_apply,
+        make_fused_train_apply,
+    )
+    from audio_only_speech_separation_tpu_torch.train import bf16_forward
+
+    m = _model(cuda).train()
+    cl = ConvTasNet(N=256, H=256, B=128, L=16, X=3, R=1, num_spks=2, sample_rate=8000,
+                    channels_last=True).to(cuda).train()
+    cl.load_state_dict(m.state_dict())
+    before = fused_convtasnet_separator.launches
+    arms = _train_arms(cuda, m, {"fused": bf16_forward(m, apply_fn=make_fused_train_apply(m)),
+                                 "delayed": bf16_forward(m, apply_fn=make_delayed_train_apply(m))})
+    assert fused_convtasnet_separator.launches - before == convtasnet_separator_launches(m.R * m.X)
+    for name in ("fused", "delayed"):
+        _meets_the_rule(arms, name)
+    arms["channels last"] = _train_arms(cuda, cl, {"channels last": bf16_forward(cl)})["channels last"]
+    _meets_the_rule(arms, "channels last")
+
+
+def test_sequence_parallel_step_on_two_gloo_ranks_on_one_card(cuda, tmp_path):
+    """A (1, 2) mesh of two gloo ranks on the one card, TasNet-DPRNN and
+    BSRNN in f32: each rank's partial gradients sum to the one process's on
+    the card, and after the reduction every rank holds its gradients, loss
+    and updated parameters (rtol 2e-4, atol 2e-5, JAX's tolerance for a
+    sharded step)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch_port_ddp import SP_TRAIN, family_model, launch, sp_batch, train_step
+
+    ranks = [res for res, _ in launch("sp_train", str(tmp_path), one_card=True, timeout=300, args=("2", "cuda"))]
+    mix, sources = sp_batch()
+    tol = dict(rtol=2e-4, atol=2e-5)
+    for family in SP_TRAIN:
+        loss, params, grads = train_step(family, family_model(family, 12), mix, sources, str(tmp_path),
+                                         device=cuda)
+        for k, v in grads.items():
+            np.testing.assert_allclose(sum(r[f"{family} partial"][k] for r in ranks), v, err_msg=k, **tol)
+        for r in ranks:
+            assert abs(r[family][0] - loss) <= 1e-5 * max(1.0, abs(loss))
+            for k, v in grads.items():
+                np.testing.assert_allclose(r[family][2][k], v, err_msg=k, **tol)
+            for k, v in params.items():
+                np.testing.assert_allclose(r[family][1][k], v, err_msg=k, **tol)

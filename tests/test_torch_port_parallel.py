@@ -153,13 +153,17 @@ def test_eval_mean_is_exact_over_unequal_shards(two_ranks, tmp_path):
 
 def test_print_only_and_the_mesh_under_a_group(two_ranks, capsys):
     """Rank 0 prints and rank 1 does not; without a group every process
-    prints.  ``make_mesh`` is the 1-D ``dp`` mesh over both ranks and
-    refuses any other axis; ``local_shard_info`` is (rank, 2)."""
+    prints.  ``make_mesh`` is the 1-D ``dp`` mesh over both ranks, or with
+    ("dp", "sp") the 2-D mesh of the shape asked for; it refuses any other
+    axis and a shape that does not cover the ranks; ``local_shard_info`` is
+    (rank, 2)."""
     (r0, out0), (r1, out1) = two_ranks
     assert "print_only from rank 0" in out0 and "print_only from rank" not in out1
     assert (r0["shard"], r1["shard"]) == ((0, 2), (1, 2))
     assert r0["mesh"] == r1["mesh"] == (("dp",), 2, 2)
-    assert "only the data-parallel axis" in r0["sp"]
+    assert r0["sp"] == r1["sp"] == (("dp", "sp"), 1, 2)
+    assert r0["mesh ('dp', 'tp') (1, 2)"] == "NotImplementedError"
+    assert r0["mesh ('dp', 'sp') (2, 2)"] == "ValueError"
     print_only("no group")
     assert capsys.readouterr().out == "no group\n"
     assert parallel.local_shard_info() == (0, 1)

@@ -4,7 +4,7 @@ gloo process group that ``parallel.init_distributed`` joins from
 torchrun's environment, and writes what it computed to a pickle.  The
 port only: no JAX here.
 
-    python tests/torch_port_ddp.py <job> <out.pkl> [<work dir>]
+    python tests/torch_port_ddp.py <job> <out.pkl> [<work dir>] [<job arguments>]
 
 ``launch`` starts the ranks with the environment set, a free port, a
 timeout on the group and on each process, and kills them all on a
@@ -46,6 +46,20 @@ OTHER_FAMILIES = {
     # inside the TCN chain kernels' envelope (H % 128 == 0, B = 128, L = 16): the fused path
     "ConvTasNet-fused": ("ConvTasNet", dict(N=128, L=16, B=128, H=128, P=3, X=2, R=1, num_spks=2)),
 }
+# the sequence-parallel jobs' tiny models: chunks of K = 7 positions, so the
+# columns' shares of K are uneven; S = 2 x (the half-shifted segments) is
+# even, so 3 ranks share it unevenly (BSRNN: 8 bands)
+SP_TASNET = dict(enc_dim=16, bn_dim=16, hidden_dim=16, win=16, layer=2, num_spk=2, block_size=7)
+SP_FAMILIES = {
+    "TasNet-DPRNN": ("TasNet", dict(SP_TASNET, module="DPRNN")),
+    "TasNet-DPTNet": ("TasNet", dict(SP_TASNET, module="DPTNet")),
+    "Sepformer": ("Sepformer", dict(encoder_kernel_size=16, encoder_out_nchannels=16, masknet_chunksize=7,
+                                    masknet_numlayers=2, masknet_numspks=2, intra_numlayers=1, inter_numlayers=1,
+                                    intra_nhead=2, inter_nhead=2, intra_dffn=32, inter_dffn=32, dropout=0.0)),
+    "BSRNN": ("BSRNN", dict(win=256, stride=64, feature_dim=8, num_spks=2, num_layer=1, num_repeat=2)),
+}
+SP_B, SP_T = 4, 1664  # the sp jobs' global batch: S = 62 chunks, 27 BSRNN frames
+SP_TRAIN = ("TasNet-DPRNN", "BSRNN")
 STEP_B, STEP_T = 4, 1600  # the global batch of the step job
 EVAL_SIZES = 5  # eval items, split 3 / 2 over the two ranks
 
@@ -59,7 +73,7 @@ def step_batch():
 def family_model(family, seed):
     from audio_only_speech_separation_tpu_torch import models
 
-    name, cfg = {**FAMILIES, **OTHER_FAMILIES}[family]
+    name, cfg = {**FAMILIES, **OTHER_FAMILIES, **SP_FAMILIES}[family]
     model = models.get(name)(**cfg, sample_rate=SR)
     rng = np.random.default_rng(seed)  # seeded weights for any constructor
     with torch.no_grad():
@@ -153,11 +167,14 @@ def job_step(out, work):
     print_only(f"print_only from rank {rank}")
     mesh = parallel.make_mesh("cpu")
     res["mesh"] = (tuple(mesh.mesh_dim_names), mesh.size(), mesh.get_group("dp").size())
-    try:
-        parallel.make_mesh("cpu", ("dp", "sp"))
-        res["sp"] = "built"
-    except NotImplementedError as e:
-        res["sp"] = str(e)
+    mesh = parallel.make_mesh("cpu", ("dp", "sp"), (1, 2))
+    res["sp"] = (tuple(mesh.mesh_dim_names), mesh.get_group("dp").size(), mesh.get_group("sp").size())
+    for axes, shape in ((("dp", "tp"), (1, 2)), (("dp", "sp"), (2, 2))):
+        try:
+            parallel.make_mesh("cpu", axes, shape)
+            res[f"mesh {axes} {shape}"] = "built"
+        except (NotImplementedError, ValueError) as e:
+            res[f"mesh {axes} {shape}"] = type(e).__name__
     res["chunked"] = chunked(family_model("ConvTasNet", 4))
     return res
 
@@ -240,6 +257,75 @@ def job_main(out, work, conf_path):
     return {"exp_dir": audio_train.main(config, device="cpu")}
 
 
+def sp_batch():
+    rng = np.random.default_rng(7)
+    sources = (0.3 * rng.standard_normal((SP_B, 2, SP_T))).astype(np.float32)
+    return sources.sum(1), sources
+
+
+def intra_module(family, model):
+    """The module of ``model``'s first intra-chunk (row) pass, or BSRNN's
+    first band RNN."""
+    if family == "Sepformer":
+        return model.masknet.dual_mdl[0].intra_mdl
+    if family == "BSRNN":
+        return model.separator[0].band_rnn[0]
+    core = model.seq_model.seq_model
+    return core.row_rnn[0] if family == "TasNet-DPRNN" else core.row_xfmr[0]
+
+
+def job_sp_forward(out, work, sp):
+    """Each family of SP_FAMILIES forward on the first two items of the sp
+    batch on a (1, ``sp``) mesh: each rank's output and the shapes its first
+    intra pass (BSRNN: band RNN) took."""
+    from audio_only_speech_separation_tpu_torch import parallel
+
+    rank, world = parallel.init_distributed(device="cpu")
+    mesh = parallel.make_mesh("cpu", ("dp", "sp"), (world // int(sp), int(sp)))
+    mix = torch.from_numpy(sp_batch()[0][:2])
+    res = {"axes off the mesh": parallel.current_mesh_axes()}
+    with parallel.use_mesh(mesh):
+        res["axes"], res["sp size"] = parallel.current_mesh_axes(), parallel.sp_group().size()
+    for family in SP_FAMILIES:
+        model = family_model(family, 11).eval()
+        seen = []
+        hook = intra_module(family, model).register_forward_pre_hook(lambda m, a: seen.append(tuple(a[0].shape)))
+        with torch.no_grad(), parallel.use_mesh(mesh):
+            res[family] = model(mix).numpy()
+        hook.remove()
+        res[f"{family} intra"] = seen
+    return res
+
+
+def job_sp_train(out, work, sp, device="cpu"):
+    """On a (world / ``sp``, ``sp``) mesh, each rank on its dp shard of the
+    sp batch, for TasNet-DPRNN and BSRNN in f32 on ``device`` (gloo on the
+    card too): the train forward's gradients without any reduction (each
+    rank's partial ones), then one step of ``Trainer(sp=sp)``'s train module
+    (DDP summing over sp and averaging over dp, the clip, Adam)."""
+    from audio_only_speech_separation_tpu_torch import parallel
+    from audio_only_speech_separation_tpu_torch.losses import PITLossWrapper, pairwise_neg_snr
+    from audio_only_speech_separation_tpu_torch.train.trainer import TrainForward
+
+    parallel.init_distributed(device=device, backend="gloo")
+    sp = int(sp)
+    dp_rank, dp = parallel.dp_shard_info(sp)
+    mesh = parallel.make_mesh(device, ("dp", "sp"), (dp, sp))
+    mix, sources = sp_batch()
+    share = SP_B // dp
+    sl = slice(dp_rank * share, (dp_rank + 1) * share)
+    res = {"coords": (dp_rank, dp)}
+    for family in SP_TRAIN:
+        model = family_model(family, 12).to(device).train()
+        est = TrainForward(model, model, 42, dp_rank, False, mesh)(torch.from_numpy(mix[sl]).to(device), 0)
+        PITLossWrapper(pairwise_neg_snr, threshold_byloss=False)(
+            est, torch.from_numpy(sources[sl]).to(device)).backward()
+        res[f"{family} partial"] = {k: p.grad.cpu().numpy().copy() for k, p in model.named_parameters()}
+        res[family] = train_step(family, family_model(family, 12), mix[sl], sources[sl], work, device=device,
+                                 sp=sp)
+    return res
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -286,7 +372,8 @@ if __name__ == "__main__":
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 on the card, as the tests' own process
     torch.backends.cudnn.allow_tf32 = False
     job, out, work = sys.argv[1:4]
-    res = {"step": job_step, "main": job_main, "families": job_families, "card": job_card}[job](
+    res = {"step": job_step, "main": job_main, "families": job_families, "card": job_card,
+           "sp_forward": job_sp_forward, "sp_train": job_sp_train}[job](
         out, work, *sys.argv[4:])
     with open(out, "wb") as f:
         pickle.dump(res, f)
