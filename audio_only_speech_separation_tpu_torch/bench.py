@@ -80,6 +80,25 @@ def check_kernel(model: ConvTasNet, x: torch.Tensor, packed) -> float:
     return err
 
 
+def time_calls(call, dev: torch.device, iters: int) -> float:
+    """Seconds of ``iters`` calls of ``call`` back to back after one warm-up:
+    CUDA events on the card, the host clock on the CPU."""
+    call()
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            call()
+        return time.perf_counter() - t0
+    torch.cuda.synchronize(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        call()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
 def run(device="cuda", batch: int = BATCH, seconds: float = SECONDS, iters: int = ITERS) -> dict:
     """The benchmark at ``batch`` x ``seconds``; returns the JSON line's
     object."""
@@ -98,23 +117,8 @@ def run(device="cuda", batch: int = BATCH, seconds: float = SECONDS, iters: int 
         with torch.no_grad():
             return fused_inference_forward(model, x, packed=packed)
 
-    call()  # warm-up
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            call()
-        end.record()
-        end.synchronize()
-        dt = start.elapsed_time(end) / 1e3
-        name = torch.cuda.get_device_name(dev)
-    else:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            call()
-        dt = time.perf_counter() - t0
-        name = "cpu"
+    dt = time_calls(call, dev, iters)
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     throughput = batch * seconds * iters / dt
     return {"metric": "convtasnet_lrs3_infer_throughput", "value": round(throughput, 2),
             "unit": "audio-sec/sec/chip", "vs_baseline": round(throughput / A100_EST, 3), "device": name}

@@ -1,8 +1,10 @@
-"""PReLU (counterpart of ``audio_only_speech_separation_tpu/ops/activations.py``)."""
+"""PReLU and the activation registry ``get_activation`` (counterpart of
+``audio_only_speech_separation_tpu/ops/activations.py``)."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -18,3 +20,29 @@ class PReLU(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         a = self.weight[0].to(x.dtype)
         return torch.where(x >= 0, x, a * x)
+
+
+# The JAX registry's functions with jax.nn's defaults: leaky_relu's slope
+# 0.01, softmax over the last axis, gelu's tanh approximation
+_ACTIVATIONS = {
+    "linear": lambda x: x,
+    "relu": F.relu,
+    "leaky_relu": F.leaky_relu,
+    "sigmoid": torch.sigmoid,
+    "softmax": lambda x: torch.softmax(x, dim=-1),
+    "tanh": torch.tanh,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+}
+
+
+def get_activation(identifier):
+    """An activation from its name (the JAX registry's; "prelu" gives the
+    ``PReLU`` class), a callable itself, or None; ValueError for anything
+    else."""
+    if identifier is None or callable(identifier):
+        return identifier
+    if identifier == "prelu":
+        return PReLU
+    if isinstance(identifier, str) and identifier in _ACTIVATIONS:
+        return _ACTIVATIONS[identifier]
+    raise ValueError(f"Could not interpret activation identifier: {identifier}")

@@ -3,10 +3,14 @@
 framing and overlap-add, and their channels-last duals on axis 1
 (``frame_axis1``, ``overlap_add_axis1``) for Sandglasset's chunking.
 
-The JAX package's ``PointwiseConv`` and depthwise ``Conv1d`` are plain
-``torch.nn.Conv1d`` here (kernel 1, and ``groups=C`` with a dilation); their
-``state_dict`` layout, weight [out, in/groups, k] plus bias, is the one the
-look2hear checkpoints use.
+The JAX package's conv modules are torch's here: ``Conv1d`` (symmetric
+integer padding, stride, dilation, groups) and ``ConvTranspose1d`` (no
+padding: output length (T - 1) * stride + k) are ``nn.Conv1d`` and
+``nn.ConvTranspose1d``, and ``PointwiseConv`` is an ``nn.Conv1d`` of kernel
+1.  Their ``state_dict`` layout, weight [out, in/groups, k] ([in, out, k]
+transposed) plus bias, is the one the look2hear checkpoints use;
+``utils/jax_import.py`` maps the flax kernels [k, in/groups, out] and
+[in, out] onto it.
 """
 
 from __future__ import annotations
@@ -68,6 +72,17 @@ def overlap_add_axis1(frames: torch.Tensor, stride: int) -> torch.Tensor:
     idx = (torch.arange(n)[:, None] * stride + torch.arange(win)[None, :]).reshape(-1).to(frames.device)
     out = frames.new_zeros(B, T, D)
     return out.index_add_(1, idx, frames.reshape(B, n * win, D))
+
+
+Conv1d = nn.Conv1d
+ConvTranspose1d = nn.ConvTranspose1d
+
+
+class PointwiseConv(nn.Conv1d):
+    """1x1 conv on [B, C, T]: ``nn.Conv1d(in_channels, out_channels, 1)``."""
+
+    def __init__(self, in_channels: int, out_channels: int, bias: bool = True, device=None):
+        super().__init__(in_channels, out_channels, 1, bias=bias, device=device)
 
 
 def _xavier_(w: torch.Tensor, fan_in: int, fan_out: int, generator) -> None:

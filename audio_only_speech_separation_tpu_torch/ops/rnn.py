@@ -49,16 +49,28 @@ from .kernels.lstm import (
 RESIDENT_ABOVE = 128  # more sequences than this take the resident kernel
 
 
+def kernel_choice(B: int, Din: int) -> str:
+    """The kernel the kernel form takes for B sequences of width Din: "K6"
+    (the resident kernel) above ``RESIDENT_ABOVE`` sequences at a width that
+    is a multiple of 16, else "K5"."""
+    return "K6" if B > RESIDENT_ABOVE and Din % 16 == 0 else "K5"
+
+
 def lstm_hidden_kernel_form(x, w_ih, w_hh, bias, recurrence=fused_bilstm,
                             resident=resident_bilstm) -> torch.Tensor:
     """Hidden states [T, D, B, H] of a (bi)LSTM on x [B, T, Din] through the
-    kernels (``recurrence`` and ``resident`` stand for K5 and K6): direction
-    1 runs backward in time, both come out time-aligned.  w_ih and w_hh in
-    x's dtype, bias f32 or None."""
-    B, _, Din = x.shape
-    D = w_hh.shape[0]
-    if B > RESIDENT_ABOVE and Din % 16 == 0:
+    kernels (``recurrence`` and ``resident`` stand for K5 and K6, chosen by
+    ``kernel_choice``): direction 1 runs backward in time, both come out
+    time-aligned.  w_ih and w_hh in x's dtype, bias f32 or None."""
+    if kernel_choice(x.shape[0], x.shape[2]) == "K6":
         return resident(x.contiguous(), w_ih.contiguous(), w_hh.contiguous(), bias)
+    return recurrence_form(x, w_ih, w_hh, bias, recurrence)
+
+
+def recurrence_form(x, w_ih, w_hh, bias, recurrence=fused_bilstm) -> torch.Tensor:
+    """The K5 branch of ``lstm_hidden_kernel_form``: the input product as a
+    library matmul, then ``recurrence`` over the pre-projected gates."""
+    D = w_hh.shape[0]
     xx = torch.stack([x, x.flip(1)]) if D == 2 else x[None]  # [D, B, T, Din]
     xw = torch.matmul(xx, w_ih[:, None])  # [D, B, T, 4H], f32-accumulated, x's dtype
     if bias is not None:

@@ -4,13 +4,15 @@ centred frames with reflect padding, a one-sided spectrum, and the inverse
 with window-square overlap normalisation.
 
 Framing and overlap-add are the port's own (``ops/conv.py``); the DFTs are
-``torch.fft.rfft``/``irfft``.  The framed-matmul DFT of the JAX package
-(``stft_matmul``) is still to port: no model calls it.
+``torch.fft.rfft``/``irfft``.  ``stft_matmul`` is the same transform as a
+framed product against cached cos/sin DFT matrices (f32), as the JAX
+package computes it outside any kernel.
 """
 
 from __future__ import annotations
 
 import math
+from functools import lru_cache
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +35,30 @@ def stft(x: torch.Tensor, n_fft: int, hop_length: int, window: torch.Tensor,
         x = F.pad(x[:, None], (p, p), mode=pad_mode)[:, 0]
     frames = frame_signal(x, n_fft, hop_length) * window  # [B, n, n_fft]
     return torch.fft.rfft(frames, dim=-1).transpose(1, 2)
+
+
+@lru_cache(maxsize=8)
+def _dft_matrices(n_fft: int, device: torch.device):
+    """(cos, sin) [n_fft, n_fft // 2 + 1] f32 on ``device`` for the angles
+    -2 pi k n / n_fft, built in float64 once a size and device (a copy from
+    host memory inside a forward would wait for the device's queue)."""
+    k = torch.arange(n_fft // 2 + 1, dtype=torch.float64)[None, :]
+    n = torch.arange(n_fft, dtype=torch.float64)[:, None]
+    ang = -2.0 * math.pi * k * n / n_fft
+    return torch.cos(ang).float().to(device), torch.sin(ang).float().to(device)
+
+
+def stft_matmul(x: torch.Tensor, n_fft: int, hop_length: int, window: torch.Tensor,
+                center: bool = True, pad_mode: str = "reflect"):
+    """``stft`` as a framed product: x [B, T] -> (real, imag), each
+    [B, n_fft // 2 + 1, n_frames] f32 (f32 products of the windowed frames
+    with the DFT matrices)."""
+    if center:
+        p = n_fft // 2
+        x = F.pad(x[:, None], (p, p), mode=pad_mode)[:, 0]
+    frames = (frame_signal(x, n_fft, hop_length) * window).float()  # [B, n, n_fft]
+    cos_m, sin_m = _dft_matrices(n_fft, frames.device)
+    return (torch.matmul(frames, cos_m).transpose(1, 2), torch.matmul(frames, sin_m).transpose(1, 2))
 
 
 def istft(spec: torch.Tensor, n_fft: int, hop_length: int, window: torch.Tensor,

@@ -50,16 +50,24 @@ def choose_dispatch(model, use_bf16: bool, device) -> str:
     return "eager"
 
 
+DISPATCHES = ("fused", "fast_tdanet", "kernels", "eager")
+
+
 class Server:
     """The forward of ``serve`` for one model, set up once: the dispatch,
     the packed weights ("fused") or the bf16 copy of the module
     ("kernels", or "fast_tdanet" with bf16 on the card), and the bucket.
-    Each call separates one batch."""
+    Each call separates one batch.  ``dispatch`` names the forward in place
+    of ``choose_dispatch``'s choice (a measurement of one path: the bf16
+    module of a ConvTasNet or a TDANet that would take "fused" or
+    "fast_tdanet")."""
 
-    def __init__(self, model, use_bf16: bool, device, bucket_seconds: float = 1.0):
+    def __init__(self, model, use_bf16: bool, device, bucket_seconds: float = 1.0, dispatch=None):
         self.device = torch.device(device)
         self.bucket = max(1, int(bucket_seconds * model.sample_rate))
-        self.dispatch = choose_dispatch(model, use_bf16, self.device)
+        if dispatch not in (None,) + DISPATCHES:
+            raise ValueError(f"unknown dispatch {dispatch!r}; known: {DISPATCHES}")
+        self.dispatch = dispatch or choose_dispatch(model, use_bf16, self.device)
         self.model, self.packed = model, None
         bf16 = self.dispatch in ("fused", "kernels") or (
             self.dispatch == "fast_tdanet" and use_bf16 and self.device.type == "cuda")

@@ -20,6 +20,12 @@ Layouts translated:
 - Sandglasset's ``first_out_kernel`` [N, M] -> Conv2d weight [M, N, 1, 1]
   and ``decoder_kernel`` [N, win] -> ``decoder.basis_lin.weight`` [win, N]
 - TAC's three Dense layers -> look2hear's ``TAC_{input,mean,output}.0``
+- the layer library (``layers_from_jax``): flax conv kernels [k, in/groups,
+  out] -> Conv1d weight [out, in/groups, k]; flax BatchNorm ``scale``,
+  ``bias`` and its ``batch_stats`` ``mean``, ``var`` -> ``weight``, ``bias``,
+  ``running_mean``, ``running_var``; filterbank filters [k, N] / [N, k] ->
+  [N, 1, k]; the DPRNN head's ``out_kernel`` [N, M] -> Conv2d weight
+  [M, N, 1, 1]
 """
 
 from __future__ import annotations
@@ -443,3 +449,168 @@ def from_jax(model, params_np) -> Dict[str, np.ndarray]:
     if name == "Sandglasset":
         return sandglasset_from_jax(params_np, model.n_repeats)
     raise NotImplementedError(f"no JAX converter for {name}")
+
+
+# ---------------------------------------------------------------------------
+# the layer library (``layers/``): one converter a port class, by name
+# ---------------------------------------------------------------------------
+
+def _ln_any(sd, prefix, m, p, s) -> None:
+    """gLN, cLN and LN (their affine pair), or BatchNorm with its running
+    statistics from the ``batch_stats`` collection."""
+    if type(m).__name__ != "BatchNorm1d":
+        _norm(sd, prefix, p)
+        return
+    bn, st = p["BatchNorm_0"], s["BatchNorm_0"]
+    sd[f"{prefix}.weight"] = _f32(bn["scale"])
+    sd[f"{prefix}.bias"] = _f32(bn["bias"])
+    sd[f"{prefix}.running_mean"] = _f32(st["mean"])
+    sd[f"{prefix}.running_var"] = _f32(st["var"])
+    sd[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
+
+
+def _conv_norm_layer(sd, prefix, m, p, s) -> None:
+    _conv1d(sd, f"{prefix}.conv", p["conv"])
+    _norm(sd, f"{prefix}.norm", p["norm"])
+    if "act" in p:
+        _prelu(sd, f"{prefix}.act", p["act"])
+
+
+def _conv1d_block(sd, prefix, m, p, s) -> None:
+    for name in ("in_conv", "res_conv", "skip_conv"):
+        _pointwise(sd, f"{prefix}.{name}", p[name])
+    _conv1d(sd, f"{prefix}.dconv", p["dconv"])
+    for name in ("act1", "act2"):
+        _prelu(sd, f"{prefix}.{name}", p[name])
+    for name in ("norm1", "norm2"):
+        _ln_any(sd, f"{prefix}.{name}", getattr(m, name), p[name], s.get(name, {}))
+
+
+def _frcnn_block(sd, prefix, m, p, s) -> None:
+    D = m.depth
+    _conv_norm_layer(sd, f"{prefix}.proj", None, p["proj"], {})
+    for k in range(D):
+        _conv_norm_layer(sd, f"{prefix}.down.{k}", None, p[f"down_{k}"], {})
+        _conv_norm_layer(sd, f"{prefix}.concat.{k}", None, p[f"concat_{k}"], {})
+        if k > 0:
+            _conv_norm_layer(sd, f"{prefix}.fuse_down.{k - 1}", None, p[f"fuse_down_{k}"], {})
+    _conv_norm_layer(sd, f"{prefix}.last", None, p["last"], {})
+    _pointwise(sd, f"{prefix}.res_conv", p["res_conv"])
+
+
+def _rnn_layer(sd, prefix, m, p, s) -> None:
+    _lstm(sd, f"{prefix}.rnn", p["rnn"])
+    if "proj" in p:  # LSTMBlockTF
+        _dense(sd, f"{prefix}.proj", p["proj"])
+        _layer_norm(sd, f"{prefix}.norm", p["norm"])
+
+
+def _transformer_block(sd, prefix, m, p, s) -> None:
+    _mha(sd, f"{prefix}.attn", p["attn"])
+    for name in ("norm1", "norm2"):
+        _layer_norm(sd, f"{prefix}.{name}", p[name])
+    for name in ("ffn1", "ffn2"):
+        _dense(sd, f"{prefix}.{name}", p[name])
+
+
+def _dual_path_block(sd, prefix, m, p, s) -> None:
+    """DPRNNBlock and DPRNNLinear."""
+    _lstm(sd, f"{prefix}.row_rnn", p["row_rnn"])
+    _dense(sd, f"{prefix}.row_proj", p["row_proj"])
+    _norm(sd, f"{prefix}.row_norm", p["row_norm"])
+    if "col_linear" in p:
+        _dense(sd, f"{prefix}.col_linear", p["col_linear"])
+    else:
+        _lstm(sd, f"{prefix}.col_rnn", p["col_rnn"])
+        _dense(sd, f"{prefix}.col_proj", p["col_proj"])
+    _norm(sd, f"{prefix}.col_norm", p["col_norm"])
+
+
+def _dprnn(sd, prefix, m, p, s) -> None:
+    for i in range(len(m.blocks)):
+        _dual_path_block(sd, f"{prefix}.blocks.{i}", None, p[f"block_{i}"], {})
+    if m.output is not None:
+        sd[f"{prefix}.output.weight"] = _f32(np.asarray(p["out_kernel"]).T[:, :, None, None])
+
+
+def _video_conv(sd, prefix, m, p, s) -> None:
+    if not m.first_block:
+        _ln_any(sd, f"{prefix}.bn", m.bn, p["bn"], s["bn"])
+    _conv1d(sd, f"{prefix}.dconv", p["dconv"])
+    name = "sconv" if m.skip_con else "bconv"
+    _pointwise(sd, f"{prefix}.{name}", p[name])
+
+
+def _concat(sd, prefix, m, p, s) -> None:
+    _pointwise(sd, f"{prefix}.proj", p["proj"])
+    _prelu(sd, f"{prefix}.act", p["act"])
+
+
+def _bottomup(sd, prefix, m, p, s) -> None:
+    _conv_norm_layer(sd, f"{prefix}.proj_1x1", None, p["proj_1x1"], {})
+    for k in range(len(m.spp)):
+        _conv_norm_layer(sd, f"{prefix}.spp.{k}", None, p[f"spp_{k}"], {})
+
+
+def _bottomup_topdown(sd, prefix, m, p, s) -> None:
+    _bottomup(sd, f"{prefix}.bottomup", m.bottomup, p["bottomup"], {})
+    _norm(sd, f"{prefix}.fuse_norm", p["fuse_norm"])
+    _pointwise(sd, f"{prefix}.res_conv", p["res_conv"])
+
+
+def _relative_mha(sd, prefix, m, p, s) -> None:
+    for name in ("query_proj", "key_proj", "value_proj", "pos_proj", "out_proj"):
+        _dense(sd, f"{prefix}.{name}", p[name])
+    sd[f"{prefix}.u_bias"] = _f32(p["u_bias"])
+    sd[f"{prefix}.v_bias"] = _f32(p["v_bias"])
+
+
+def _mhsa_module(sd, prefix, m, p, s) -> None:
+    _layer_norm(sd, f"{prefix}.norm", p["norm"])
+    _relative_mha(sd, f"{prefix}.attn", None, p["attn"], {})
+
+
+def _conformer_conv(sd, prefix, m, p, s) -> None:
+    _layer_norm(sd, f"{prefix}.norm", p["norm"])
+    _pointwise(sd, f"{prefix}.pw1", p["pw1"])
+    _conv1d(sd, f"{prefix}.dw", p["dw"])
+    _norm(sd, f"{prefix}.bn", p["bn"])
+    _pointwise(sd, f"{prefix}.pw2", p["pw2"])
+
+
+def _filters(transpose: bool):
+    def convert(sd, prefix, m, p, s) -> None:
+        f = np.asarray(p["filters"])
+        sd[f"{prefix}.filters"] = _f32((f.T if transpose else f)[:, None, :])
+    return convert
+
+
+_LAYERS = {
+    "GlobalLayerNorm": _ln_any, "CumulativeLayerNorm": _ln_any, "FrameLayerNorm": _ln_any,
+    "BatchNorm1d": _ln_any,
+    "PReLU": lambda sd, prefix, m, p, s: _prelu(sd, prefix, p),
+    "MultiheadAttention": lambda sd, prefix, m, p, s: _mha(sd, prefix, p),
+    "PositionalEncoding": lambda sd, prefix, m, p, s: None,  # no parameters
+    "TAC": lambda sd, prefix, m, p, s: _tac(sd, prefix, p),
+    "Encoder": _filters(True), "Decoder": _filters(False),
+    "ConvNorm": _conv_norm_layer, "ConvNormAct": _conv_norm_layer, "Conv1DBlock": _conv1d_block,
+    "FRCNNBlock": _frcnn_block, "SingleRNN": _rnn_layer, "LSTMBlockTF": _rnn_layer,
+    "TransformerBlockTF": _transformer_block, "DPRNNBlock": _dual_path_block, "DPRNNLinear": _dual_path_block,
+    "DPRNN": _dprnn, "Video1DConv": _video_conv, "Concat": _concat, "Bottomup": _bottomup,
+    "BottomupConcatTopdown": _bottomup_topdown, "RelativeMultiHeadAttention": _relative_mha,
+    "MultiHeadedSelfAttentionModule": _mhsa_module, "ConformerConvModule": _conformer_conv,
+}
+
+
+def layers_from_jax(module, jax_variables) -> Dict[str, np.ndarray]:
+    """A JAX layer's variables (``{"params": ..., "batch_stats": ...}`` as
+    numpy, or the params tree alone) -> the ``state_dict`` (numpy) of
+    ``module``, the port's counterpart of that layer (``layers/``)."""
+    name = type(module).__name__
+    if name not in _LAYERS:
+        raise NotImplementedError(f"no JAX converter for layer {name}")
+    v = jax_variables
+    p = v["params"] if "params" in v else v
+    sd: Dict[str, np.ndarray] = {}
+    _LAYERS[name](sd, "", module, p, v.get("batch_stats", {}))
+    return {k[1:]: a for k, a in sd.items()}  # drop the empty prefix's "."

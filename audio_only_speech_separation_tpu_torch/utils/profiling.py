@@ -11,6 +11,10 @@ evaluated_mac_params.py:49).
   output bytes;
 - ``profile_trace`` captures a ``torch.profiler`` trace (CPU and, on the
   card, CUDA activity) for TensorBoard or a Chrome trace viewer;
+- ``device_events`` sums a ``torch.profiler`` run's device operations by
+  name, and ``idle_share`` reads the device's idle share of a window from
+  their total (``chip_smoke.py``'s profiled phases and
+  ``profile_trace_ops.py`` both read them);
 - ``StepTimer`` keeps rolling per-step wall-clock statistics.
 
 The counts are not XLA's ``cost_analysis``, which the JAX package reads:
@@ -35,7 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -101,6 +105,21 @@ def profile_trace(log_dir: str):
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
         yield prof
+
+
+def device_events(prof) -> Dict[str, Tuple[float, int]]:
+    """{name: (self device ms, count)} of every device operation (kernels,
+    copies, memsets) a finished ``torch.profiler`` run recorded, over the
+    whole run."""
+    return {e.key: (e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def idle_share(busy_ms: float, wall_ms: float) -> float:
+    """The share of a ``wall_ms`` window in which the device ran none of the
+    ``busy_ms`` of its operations (``device_events``' total; operations
+    taken as not overlapping)."""
+    return 1.0 - busy_ms / wall_ms
 
 
 class StepTimer:

@@ -1,12 +1,27 @@
-"""Inference helper (counterpart of ``audio_only_speech_separation_tpu/utils/separator.py``;
-reference look2hear/utils/separator.py:24-72)."""
+"""Inference helpers (counterpart of ``audio_only_speech_separation_tpu/utils/separator.py``;
+reference look2hear/utils/separator.py:24-72): ``separate`` a waveform and
+``wav_file_separate`` a wav file into one file a speaker."""
 
 from __future__ import annotations
+
+from typing import List
 
 import numpy as np
 import torch
 
+from ..data.audio_io import read_wav, write_wav
 from ..models.base import eval_mode
+
+
+class Separator:
+    """The reference's interface of a separator (its ``forward_wav`` and
+    ``sample_rate``), for subclasses."""
+
+    def forward_wav(self, wav, **kwargs):
+        raise NotImplementedError
+
+    def sample_rate(self):
+        raise NotImplementedError
 
 
 def separate(model, wav):
@@ -23,3 +38,19 @@ def separate(model, wav):
         out = model(x)
         out = out * (x.abs().sum() / out.abs().sum())
     return out.cpu().numpy() if is_numpy else out
+
+
+def wav_file_separate(model, in_path: str, out_prefix: str, sample_rate=None) -> List[str]:
+    """Separate the wav file ``in_path`` with ``separate`` on the model's
+    device (the card unless the model was built on the CPU) and write
+    ``<out_prefix>_s{i}.wav`` (PCM16 at ``sample_rate``, else the model's
+    rate, else 16 kHz), one a speaker; returns their paths."""
+    wav = read_wav(in_path)
+    sr = sample_rate or getattr(model, "sample_rate", 16000)
+    est = separate(model, wav[None])[0]
+    paths = []
+    for i in range(est.shape[0]):
+        path = f"{out_prefix}_s{i + 1}.wav"
+        write_wav(path, est[i], sr)
+        paths.append(path)
+    return paths

@@ -25,7 +25,9 @@ remat, lamb and a cosine schedule, the optimizers written after optax's
 rules, MixIT and the two-step entry; then data-parallel training, the WSJ0
 datamodule with the native wav reader, and chunked separation of a long
 recording; then the port's bench and ``bench_train``, ConvTasNet's train
-forms, and sequence parallelism.  In phases:
+forms, and sequence parallelism; then the layer library's kernel blocks,
+the STFT library, ``bench_all``, ``measure_gates``, ``profile_trace_ops``
+and ``wav_file_separate``.  In phases:
 
 0. the card's name and power limit (fails without a CUDA device);
 1. build the kernels from ``csrc/`` with nvcc;
@@ -207,7 +209,27 @@ forms, and sequence parallelism.  In phases:
     each rank's K4-K6 launches and shapes; K4-K6 against their plain
     versions at every shard shape and timed there beside SDPA or
     ``nn.LSTM`` and their bounds; and K4 at TDANet's [1008, 64, 1], K5 and
-    K6 at BSRNN's B=4 shapes timed with their bounds.
+    K6 at BSRNN's B=4 shapes timed with their bounds;
+48. the layer library (``layers/``) at full width: ``DPRNN`` (N 64, hidden
+    128, K 100, 6 repeats) on TasNet-DPRNN's chunked tensor of B=8 and B=1
+    x 2 s x 8 kHz (12 K6, then 12 K5 a call), ``DPRNNBlock`` with
+    one-direction columns (K6 and K5 at D = 1), ``LSTMBlockTF(128, 256)``
+    on [8, 501, 128] (K5 at BSRNN's band shape), ``DPRNNLinear`` (K6) and
+    ``TransformerBlockTF(256, 8, 1024)`` on [68, 250, 256] (K4 at
+    Sepformer's intra shape): each in bf16 against the plain bf16 block and
+    the f32 block under the 1.5x rule, launches exact; K4-K6 against their
+    plain versions at every shape the blocks gave them, then timed there
+    beside SDPA or ``nn.LSTM`` and their bounds; ``stft_matmul``,
+    ``forward_stft`` / ``inverse_stft`` and ``STFT`` / ``iSTFT`` on the card
+    against the CPU within 1e-5 of the scale;
+49. ``bench_all --iters 3``: all 12 rows, none failing, each row's K1, K2,
+    K4, K5 and K6 launches a call as ``BENCH_ALL_LAUNCHES`` states;
+50. ``measure_gates``: its table and its count of misroutes (a finding;
+    the phase fails only if a time cannot be taken);
+51. ``profile_trace_ops sandglasset`` (the top device operations, the idle
+    share; 180 K4 and 180 K6 launches in its 30 calls), and
+    ``wav_file_separate`` on a 4 s, 16 kHz synthetic wav through a
+    ConvTasNet-LRS3 on the card: three files as long as the input.
 
 TF32 is off for matmuls and cuDNN, so the f32 references are full f32.
 
@@ -544,10 +566,10 @@ def back_to_back_ms(fn, n: int = 50) -> float:
     return cuda_time(lambda: [fn() for _ in range(n)], reps=5, warmup=1) / n
 
 
-def lstm_library_ms(dev, x, Din: int, H: int):
+def lstm_library_ms(dev, x, Din: int, H: int, bidirectional: bool = True):
     """bf16 ``nn.LSTM(Din, H, bidirectional)`` on x [B, T, Din], back to
     back, or None where the installed PyTorch has no bf16 LSTM here."""
-    lstm = torch.nn.LSTM(Din, H, batch_first=True, bidirectional=True).to(dev, torch.bfloat16)
+    lstm = torch.nn.LSTM(Din, H, batch_first=True, bidirectional=bidirectional).to(dev, torch.bfloat16)
     lstm.flatten_parameters()
     try:
         with torch.no_grad():
@@ -851,6 +873,8 @@ def device_profile(label: str, fn, call_ms: float, counters, card: str, calls: i
     Returns {"K…", "matmuls", "busy", "wall"} in ms a call."""
     from torch.profiler import ProfilerActivity, profile
 
+    from audio_only_speech_separation_tpu_torch.utils.profiling import device_events, idle_share
+
     for _, c, _ in counters:
         c.launches = 0
     torch.cuda.synchronize()
@@ -860,29 +884,20 @@ def device_profile(label: str, fn, call_ms: float, counters, card: str, calls: i
             fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / calls
-    dev_us = {g: 0.0 for g, _, _ in counters}
-    busy_us = gemm_us = 0.0
-    ops = 0
+    events = device_events(prof)
+    busy_ms = sum(ms for ms, _ in events.values()) / calls
+    ops = sum(n for _, n in events.values())
+    gemm_ms = sum(ms for k, (ms, _) in events.items() if any(g in k.lower() for g in LIBRARY_GEMMS)) / calls
+    prof_ms = {g: sum(ms for k, (ms, _) in events.items() if key in k) / calls for g, _, key in counters}
     by_name = {}
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        busy_us += evt.self_device_time_total
-        ops += evt.count
-        by_name[evt.key.split("(")[0][:60]] = evt.self_device_time_total / 1e3 / calls
-        if any(g in evt.key.lower() for g in LIBRARY_GEMMS):
-            gemm_us += evt.self_device_time_total
-        for g, _, key in counters:
-            if key in evt.key:
-                dev_us[g] += evt.self_device_time_total
-    busy_ms, gemm_ms = busy_us / 1e3 / calls, gemm_us / 1e3 / calls
-    prof_ms = {g: dev_us[g] / 1e3 / calls for g in dev_us}
+    for k, (ms, _) in events.items():
+        by_name[k.split("(")[0][:60]] = ms / calls
     print(f"  {label} under torch.profiler, per call: " + "".join(
         f"{g} {prof_ms[g]:.4f} ms device, {c.launches / calls:g} launches; " for g, c, _ in counters)
         + f"library matmuls {gemm_ms:.4f} ms; the rest {busy_ms - gemm_ms - sum(prof_ms.values()):.4f} ms"
         f"; all device work {busy_ms:.4f} ms in {ops / calls:g} device operations (kernels, copies, "
         f"memsets); wall {wall_ms:.4f} ms with the profiler; idle share "
-        f"{1 - busy_ms / wall_ms:.4f} (profiler on), {1 - busy_ms / call_ms:.4f} "
+        f"{idle_share(busy_ms, wall_ms):.4f} (profiler on), {idle_share(busy_ms, call_ms):.4f} "
         f"(against the unprofiled time); {card}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     print(f"  {label} largest kernels (ms a call): " + ", ".join(f"{k} {v:.4f}" for k, v in top))
@@ -1178,16 +1193,22 @@ def sepformer_timing(dev, card, model) -> dict:
 def seeded_model(cls, cfg: dict, sr: int, seed: int, dev):
     """``cls(**cfg)`` at full width and depth with seeded weights: the
     seeded init, with every gLN and LayerNorm affine redrawn."""
+    m = cls(**cfg, sample_rate=sr, generator=torch.Generator().manual_seed(seed))
+    return redrawn_norms(m, seed).to(dev).eval()
+
+
+def redrawn_norms(m, seed: int):
+    """``m`` with every gLN and LayerNorm affine moved by seeded 0.2-scaled
+    normal noise."""
     from audio_only_speech_separation_tpu_torch.ops.norms import GlobalLayerNorm
 
-    m = cls(**cfg, sample_rate=sr, generator=torch.Generator().manual_seed(seed))
     rng = np.random.default_rng(seed)
     with torch.no_grad():
         for mod in m.modules():
             if isinstance(mod, (GlobalLayerNorm, torch.nn.LayerNorm)):
                 for p in (mod.weight, mod.bias):
-                    p.add_(torch.from_numpy((0.2 * rng.standard_normal(p.shape)).astype(np.float32)))
-    return m.to(dev).eval()
+                    p.add_(torch.from_numpy((0.2 * rng.standard_normal(p.shape)).astype(np.float32)).to(p.device))
+    return m
 
 
 def lstm_kernel_inputs(rand, k5_shape=None, k6_shape=None):
@@ -2103,11 +2124,12 @@ def time_lstm(dev, label: str, shape, Din: int, rand, card: str) -> None:
     d = {"ms": back_to_back_ms(lambda: kernel(*args), 10),
          "device_ms": launch_ms(lambda: kernel(*args), name, 5),
          "plain_ms": back_to_back_ms(lambda: plain(*args), 1)}
-    lib = lstm_library_ms(dev, rand((B, T, Din), 0.5), Din, H)
+    lib = lstm_library_ms(dev, rand((B, T, Din), 0.5), Din, H, bidirectional=D == 2)
     bound, by = least_time(nbytes, flops)
     traced = "not traced" if d["device_ms"] is None else f"{d['device_ms']:.4f} ms"
     print(f"  {label} {shape}: kernel {d['ms']:.4f} ms a launch (CUDA events, back to back), {traced} on "
-          f"the device (torch.profiler); plain {d['plain_ms']:.4f} ms; bf16 nn.LSTM({Din}, {H}) on "
+          f"the device (torch.profiler); plain {d['plain_ms']:.4f} ms; bf16 nn.LSTM({Din}, {H}"
+          f"{'' if D == 2 else ', one direction'}) on "
           f"[{B}, {T}, {Din}] " + ("not timed" if lib is None else f"{lib:.4f} ms")
           + f"; bound {bound:.5f} ms ({by}); {card}")
 
@@ -3170,6 +3192,209 @@ def measurement_phases(dev, card: str) -> dict:
     return {"K1": k1 + k1_b + k1_f, "K2": k2, "K3": k3, **sp_launched, "errs": (k1_err, k4_err, k5_err, k6_err)}
 
 
+# phase 49: bench_all's kernel launches a call, by row (none for a row not named)
+BENCH_ALL_LAUNCHES = {"ConvTasNet (lrs3) fused": {"K1": 50}, "TasNet-DPRNN (wsj0)": {"K6": 12},
+                      "TasNet-DPTNet (wsj0)": {"K4": 12, "K6": 12}, "Sepformer (base)": {"K4": 32},
+                      "TDANet (lrs2)": {"K4": 16}, "Sandglasset (defaults)": {"K4": 6, "K6": 6},
+                      "DPRNNTasNet (legacy)": {"K6": 12}, "BSRNN (wsj0)": {"K5": 8, "K6": 8},
+                      "K2 alone (ConvTasNet lrs3 TCN chain)": {"K2": 49}}
+
+
+def layer_checks(dev, card: str) -> tuple:
+    """Phase 48: the layer library's kernel-bearing blocks at full width,
+    each in bf16 on the card (kernel path) against the same inside
+    ``plain_versions()`` and the f32 block under the 1.5x rule, exact K4,
+    K5, K6 launches and no plain version called on the kernel path; K4-K6
+    against their plain versions at every shape the blocks gave them, the
+    one-direction form among them; then the STFTs on the card against the
+    CPU.  Returns the (K4, K5, K6) launches and their worst errors."""
+    import copy
+
+    from audio_only_speech_separation_tpu_torch import layers
+    from audio_only_speech_separation_tpu_torch.layers import stft_lib
+    from audio_only_speech_separation_tpu_torch.ops.chunk import split_feature
+    from audio_only_speech_separation_tpu_torch.ops.kernels import plain_versions
+    from audio_only_speech_separation_tpu_torch.ops.stft import hann_window, stft_matmul
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(97)
+
+    def rand(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    # TasNet-DPRNN's chunked tensor (wsj0: N 64, K 100) at B x 2 s x 8 kHz: 2001 frames of a hop of 8
+    chunks = {b: split_feature(rand((b, 64, 2001)), 100)[0].contiguous() for b in (8, 1)}
+    S = chunks[8].shape[-1]
+    print(f"phase 48: the layer library's kernel blocks at full width (DPRNN on the chunked tensor "
+          f"{list(chunks[8].shape)}), kernel path vs plain bf16 vs f32; {card}")
+    torch.manual_seed(97)
+    dprnn = layers.DPRNN(64, 128, n_repeats=6)
+    one_way = layers.DPRNNBlock(64, 128, bidirectional=False)
+    cases = [  # (label, block, input, K4, K5, K6 launches a call)
+        ("DPRNN (64, 128, 6 repeats) B=8", dprnn, chunks[8], (0, 0, 12)),
+        ("DPRNN (64, 128, 6 repeats) B=1", dprnn, chunks[1], (0, 12, 0)),
+        ("DPRNNBlock, one-direction columns, B=8", one_way, chunks[8], (0, 0, 2)),
+        ("DPRNNBlock, one-direction columns, B=1", one_way, chunks[1], (0, 2, 0)),
+        ("LSTMBlockTF(128, 256) on [8, 501, 128]", layers.LSTMBlockTF(128, 256), rand((8, 501, 128)), (0, 1, 0)),
+        (f"DPRNNLinear(64, 128, {S}) B=8", layers.DPRNNLinear(64, 128, S), chunks[8], (0, 0, 1)),
+        ("TransformerBlockTF(256, 8, 1024) on [68, 250, 256]", layers.TransformerBlockTF(256, 8, 1024),
+         rand((68, 250, 256)), (1, 0, 0)),
+    ]
+    counters = [c for _, c, _ in tasnet_counters()]
+    total = [0, 0, 0]
+    shapes = {"K4": set(), "K5": set(), "K6": set()}
+    for label, block, x, want in cases:
+        block = redrawn_norms(block.to(dev).eval(), 98)
+        bf = copy.deepcopy(block).to(torch.bfloat16)
+        for c in counters:
+            c.launches = 0
+        with torch.no_grad(), counting_plain_versions() as plain_calls, recording_kernel_shapes() as seen:
+            got = bf(x.to(torch.bfloat16))
+            torch.cuda.synchronize()
+        launched = tuple(c.launches for c in counters)
+        with torch.no_grad():
+            ref = block(x)
+            with plain_versions():
+                plain = bf(x.to(torch.bfloat16))
+        torch.cuda.synchronize()
+        if got.shape != ref.shape or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{label}: bad output {tuple(got.shape)}")
+        print(f"  {label}: launches K4, K5, K6 {launched} (want {want}); plain versions called on the kernel path "
+              f"{tuple(plain_calls.values())}; shapes {({g: sorted(v) for g, v in seen.items() if v})}")
+        if launched != want or any(plain_calls.values()):
+            raise AssertionError(f"{label}: launches {launched}, plain versions {plain_calls}")
+        check_rule(label, max_err(got, ref), max_err(plain, ref))
+        total = [a + b for a, b in zip(total, launched)]
+        for g in shapes:
+            shapes[g] |= seen[g]
+    if not (any(s[1] == 1 for s in shapes["K5"]) and any(s[4] == 1 for s in shapes["K6"])):
+        raise AssertionError(f"the one-direction LSTM took no kernel: {shapes}")
+    errs = kernels_at_shapes(dev, "the layer blocks", shapes)
+    print(f"  K4, K5, K6 alone at the layer blocks' shapes, on {card}")
+    rand_t = rand_maker(102, dev)
+    with torch.no_grad():
+        for shape in sorted(shapes["K4"]):
+            time_attention("K4 TransformerBlockTF", shape, rand_t, card)
+        for g in ("K5", "K6"):
+            for shape in sorted(shapes[g]):  # the input width: 128 for LSTMBlockTF's H 256, else DPRNN's 64
+                time_lstm(dev, f"{g} layer blocks", shape, 128 if 256 in shape else 64, rand_t, card)
+
+    x = torch.from_numpy(np.random.default_rng(99).standard_normal((2, 16000)).astype(np.float32))
+    worst = 0.0
+
+    def close(label, got, want):
+        nonlocal worst
+        rel = float((got.cpu() - want).abs().max()) / float(want.abs().max())
+        worst = max(worst, rel)
+        if not rel <= 1e-5:
+            raise AssertionError(f"{label}: the card against the CPU {rel} > 1e-5 of the scale")
+
+    for a, b in zip(stft_matmul(x.to(dev), 256, 64, hann_window(256, device=dev)),
+                    stft_matmul(x, 256, 64, hann_window(256))):
+        close("stft_matmul", a, b)
+    for mode, kw in (("librosa", {}), ("kaldi", dict(pre_emphasis=0.97)), ("torch", dict(center=True))):
+        spec = stft_lib.forward_stft(x, 400, 160, mode=mode, **kw)
+        close(f"forward_stft {mode}", stft_lib.forward_stft(x.to(dev), 400, 160, mode=mode, **kw), spec)
+        kw.pop("pre_emphasis", None)
+        # uncentred, the ends divide by an overlapped squared window that falls towards 0: compared
+        # where it covers the signal, as tests/test_torch_port_stft_lib.py compares them
+        edge = 0 if kw.get("center") else 512
+        wave_k = stft_lib.inverse_stft(spec.to(dev), 400, 160, mode=mode, **kw)
+        wave_c = stft_lib.inverse_stft(spec, 400, 160, mode=mode, **kw)
+        close(f"inverse_stft {mode}", wave_k[:, edge:wave_k.shape[1] - edge], wave_c[:, edge:wave_c.shape[1] - edge])
+    fwd, inv = stft_lib.STFT(512, 128, center=True), stft_lib.iSTFT(512, 128, center=True)
+    close("STFT / iSTFT", inv(fwd(x.to(dev))), inv(fwd(x)))
+    print(f"  stft_matmul, forward_stft / inverse_stft (librosa, kaldi, torch), STFT / iSTFT on the card vs the "
+          f"CPU: worst {worst:.3g} of the scale (bound 1e-5); phase 48 {time.perf_counter() - t0:.1f} s")
+    return total, errs
+
+
+def bench_all_phase(card: str, iters: int = 3) -> dict:
+    """Phase 49: ``bench_all --iters 3``, every case (a failing one exits
+    the script with 1), each row's launches a call as BENCH_ALL_LAUNCHES
+    states them.  Returns {K1, K2, K4, K5, K6: launches in the sweep}."""
+    from audio_only_speech_separation_tpu_torch import bench_all
+
+    print(f"phase 49: bench_all --iters {iters} (every case); {card}")
+    t0 = time.perf_counter()
+    rows = bench_all.main(["--iters", str(iters)])
+    # each row counts its own launches (a warm-up and the timed calls); the sweep's are their sum
+    launched = {k: round(sum(r["launches"][k] for r in rows) * (iters + 1)) for k in bench_all.COUNTERS}
+    for r in rows:
+        got = {k: v for k, v in r["launches"].items() if v}
+        if got != BENCH_ALL_LAUNCHES.get(r["name"], {}):
+            raise AssertionError(f"{r['name']}: launches a call {got}, want {BENCH_ALL_LAUNCHES.get(r['name'], {})}")
+    if len(rows) != len(bench_all.CASES):
+        raise AssertionError(f"bench_all: {len(rows)} rows")
+    print(f"  {time.perf_counter() - t0:.1f} s; {len(rows)} rows, every row's launches as stated; launches {launched}")
+    return launched
+
+
+def measure_gates_phase(card: str) -> None:
+    """Phase 50: ``measure_gates``' table and its count of misroutes (a
+    finding, written into ROADMAP Queue 2, not a failure); fails if a time
+    cannot be taken."""
+    from audio_only_speech_separation_tpu_torch import measure_gates
+
+    print(f"phase 50: measure_gates; {card}")
+    t0 = time.perf_counter()
+    rows, bad = measure_gates.measure()
+    times = [v for r in rows for v in list(r["times"].values()) + list(r["info"].values())]
+    if len(rows) != len(measure_gates.ATTENTION) + len(measure_gates.LSTM) or not all(
+            np.isfinite(v) and v > 0 for v in times):
+        raise AssertionError(f"measure_gates: a time was not taken: {rows}")
+    print(f"  {time.perf_counter() - t0:.1f} s; {bad} misroute(s): a finding, not a failure")
+
+
+def trace_and_wav_phase(dev, card: str) -> dict:
+    """Phase 51: ``profile_trace_ops sandglasset`` (its top operations and
+    the idle share), then ``wav_file_separate`` on a 4 s, 16 kHz synthetic
+    wav through a ConvTasNet-LRS3 on the card: three files as long as the
+    input.  Returns {"K4", "K6": the profiled run's launches}."""
+    from audio_only_speech_separation_tpu_torch import profile_trace_ops
+    from audio_only_speech_separation_tpu_torch.data.audio_io import read_wav
+    from audio_only_speech_separation_tpu_torch.ops.kernels.attention import fused_attention_bdt
+    from audio_only_speech_separation_tpu_torch.ops.kernels.lstm import resident_bilstm
+    from audio_only_speech_separation_tpu_torch.utils.separator import wav_file_separate
+
+    print(f"phase 51: profile_trace_ops sandglasset; wav_file_separate; {card}")
+    t0 = time.perf_counter()
+    fused_attention_bdt.launches = resident_bilstm.launches = 0
+    result = profile_trace_ops.main(["sandglasset", "--top", "15"])
+    launched = {"K4": fused_attention_bdt.launches, "K6": resident_bilstm.launches}
+    names = " ".join(name for name, _, _ in result["ops"])
+    if (result["dispatch"] != "kernels" or not result["busy"] > 0 or not 0 <= result["idle"] < 1
+            or "attention_kernel" not in names or "lstm_resident_kernel" not in names
+            or launched != {"K4": 6 * 30, "K6": 6 * 30}):
+        raise AssertionError(f"profile_trace_ops: dispatch {result['dispatch']}, busy {result['busy']}, idle "
+                             f"{result['idle']}, launches {launched}")
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = (0.3 * np.random.default_rng(100).standard_normal(4 * SR)).astype(np.float32)
+        write_wav(os.path.join(tmp, "mix.wav"), wav)
+        model = convtasnet_model(LRS3, 101, dev)
+        paths = wav_file_separate(model, os.path.join(tmp, "mix.wav"), os.path.join(tmp, "est"))
+        outs = [read_wav(p) for p in paths]
+    print(f"  wav_file_separate: {[os.path.basename(p) for p in paths]}, lengths {[len(o) for o in outs]} "
+          f"(input {len(wav)}); phase 51 {time.perf_counter() - t0:.1f} s")
+    if len(outs) != 3 or any(len(o) != len(wav) or not np.isfinite(o).all() or not np.abs(o).max() > 0
+                             for o in outs):
+        raise AssertionError("wav_file_separate: not three finite files as long as the input")
+    return launched
+
+
+def library_phases(dev, card: str) -> dict:
+    """Phases 48-51; returns {K1, K2, K4, K5, K6: launches} and the K4, K5,
+    K6 worst errors of phase 48's checks."""
+    t0 = time.perf_counter()
+    (k4, k5, k6), errs = layer_checks(dev, card)
+    swept = bench_all_phase(card)
+    measure_gates_phase(card)
+    traced = trace_and_wav_phase(dev, card)
+    print(f"  phases 48-51 {time.perf_counter() - t0:.1f} s")
+    return {"K1": swept["K1"], "K2": swept["K2"], "K4": k4 + swept["K4"] + traced["K4"], "K5": k5 + swept["K5"],
+            "K6": k6 + swept["K6"] + traced["K6"], "errs": errs}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels need one")
@@ -3651,6 +3876,12 @@ def main() -> None:
     k4_launches, k5_launches, k6_launches = (k4_launches + launched["K4"], k5_launches + launched["K5"],
                                              k6_launches + launched["K6"])
     k1_err, k4_err, k5_err, k6_err = (max(a, b) for a, b in zip((k1_err, k4_err, k5_err, k6_err), launched["errs"]))
+    print(f"  {time.perf_counter() - t_start:.1f} s since the start")
+    launched = library_phases(dev, card)
+    k1_launches, k2_launches = k1_launches + launched["K1"], k2_launches + launched["K2"]
+    k4_launches, k5_launches, k6_launches = (k4_launches + launched["K4"], k5_launches + launched["K5"],
+                                             k6_launches + launched["K6"])
+    k4_err, k5_err, k6_err = (max(a, b) for a, b in zip((k4_err, k5_err, k6_err), launched["errs"]))
     print(f"  {time.perf_counter() - t_start:.1f} s since the start")
 
     k1_b, k1_by = least_time(*separator_work(8, frames_bench))

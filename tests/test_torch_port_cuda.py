@@ -1192,3 +1192,70 @@ def test_sequence_parallel_step_on_two_gloo_ranks_on_one_card(cuda, tmp_path):
                 np.testing.assert_allclose(r[family][2][k], v, err_msg=k, **tol)
             for k, v in params.items():
                 np.testing.assert_allclose(r[family][1][k], v, err_msg=k, **tol)
+
+
+# ---------------------------------------------------------------------------
+# the layer library's blocks through K4, K5 and K6; the STFTs on the card
+# ---------------------------------------------------------------------------
+
+# (block, its input shape, its K4, K5, K6 launches a call in bf16 on the card)
+LAYER_CASES = {
+    "DPRNN rows K6, columns K5": (lambda: _layers().DPRNN(32, 64, n_repeats=2), (4, 32, 20, 40), [0, 2, 2]),
+    "DPRNN at B=1": (lambda: _layers().DPRNN(32, 64, n_repeats=2), (1, 32, 50, 40), [0, 4, 0]),
+    "DPRNNBlock one-direction columns, K6": (lambda: _layers().DPRNNBlock(32, 64, bidirectional=False),
+                                             (4, 32, 50, 40), [0, 0, 2]),
+    "DPRNNBlock one-direction columns, K5": (lambda: _layers().DPRNNBlock(32, 64, bidirectional=False),
+                                             (1, 32, 50, 40), [0, 2, 0]),
+    "SingleRNN one direction, K5": (lambda: _layers().SingleRNN(64, 128), (8, 101, 64), [0, 1, 0]),
+    "SingleRNN one direction, K6": (lambda: _layers().SingleRNN(64, 128), (200, 21, 64), [0, 0, 1]),
+    "LSTMBlockTF": (lambda: _layers().LSTMBlockTF(64, 128), (8, 101, 64), [0, 1, 0]),
+    "DPRNNLinear": (lambda: _layers().DPRNNLinear(32, 64, 40), (4, 32, 50, 40), [0, 0, 1]),
+    "TransformerBlockTF": (lambda: _layers().TransformerBlockTF(128, 4, 256), (16, 100, 128), [1, 0, 0]),
+}
+
+
+def _layers():
+    from audio_only_speech_separation_tpu_torch import layers
+
+    return layers
+
+
+@pytest.mark.parametrize("case", list(LAYER_CASES))
+def test_layer_blocks_take_the_kernels_under_the_validator_rule(cuda, case):
+    """Each block of ``layers/`` that reaches a kernel, in bf16 on the card
+    at a reduced width: the launches stated, within the 1.5x rule of the f32
+    block (``_validator_rule``); the one-direction LSTM runs on K5 and K6
+    (D = 1)."""
+    ctor, shape, launched = LAYER_CASES[case]
+    torch.manual_seed(len(case))
+    m = ctor().to(cuda).eval()
+    x = torch.from_numpy(np.random.default_rng(23).standard_normal(shape).astype(np.float32)).to(cuda)
+    assert _validator_rule(m, x, (fused_attention_bdt, fused_bilstm, resident_bilstm)) == launched
+
+
+def test_stfts_on_the_card_match_the_cpu(cuda):
+    """``stft_matmul``, ``forward_stft``/``inverse_stft`` (each mode) and the
+    ``STFT``/``iSTFT`` layers on the card against the CPU, f32, within 1e-5
+    of the output's largest magnitude (an uncentred inverse where the
+    overlapped squared window covers the signal)."""
+    from audio_only_speech_separation_tpu_torch.layers import stft_lib
+    from audio_only_speech_separation_tpu_torch.ops.stft import hann_window, stft_matmul
+
+    x = torch.from_numpy(np.random.default_rng(24).standard_normal((2, 8000)).astype(np.float32))
+
+    def close(got, want):
+        assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+    for a, b in zip(stft_matmul(x.to(cuda), 256, 64, hann_window(256, device=cuda)),
+                    stft_matmul(x, 256, 64, hann_window(256))):
+        close(a, b)
+    for mode, kw in (("librosa", {}), ("kaldi", dict(pre_emphasis=0.97)), ("torch", dict(center=True))):
+        spec = stft_lib.forward_stft(x, 400, 160, mode=mode, **kw)
+        close(stft_lib.forward_stft(x.to(cuda), 400, 160, mode=mode, **kw), spec)
+        kw.pop("pre_emphasis", None)
+        edge = 0 if kw.get("center") else 512  # uncentred: where the squared window covers the signal
+        got = stft_lib.inverse_stft(spec.to(cuda), 400, 160, mode=mode, **kw)
+        want = stft_lib.inverse_stft(spec, 400, 160, mode=mode, **kw)
+        close(got[:, edge:got.shape[1] - edge], want[:, edge:want.shape[1] - edge])
+    fwd, inv = stft_lib.STFT(512, 128, center=True), stft_lib.iSTFT(512, 128, center=True)
+    close(inv(fwd(x.to(cuda))), inv(fwd(x)))

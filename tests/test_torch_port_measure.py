@@ -4,7 +4,14 @@ FLOPs within the tolerance measured for XLA's count), ``StepTimer`` and
 ``profile_trace``, and ``bench``, ``bench_train``, ``evaluated_mac_params``
 and ``unit_tests`` run through their ``main`` at tiny shapes with
 ``--device cpu`` (their kernels' plain versions).  On the card the bench
-and ``bench_train`` run in ``chip_smoke.py`` (phases 44-45)."""
+and ``bench_train`` run in ``chip_smoke.py`` (phases 44-45).
+
+Also the JAX scripts' measurement entry points: ``bench_all``,
+``bench_batch_sweep`` and ``profile_trace_ops`` on ``--device cpu`` at
+tiny shapes, ``bench_all``'s exit code when a case raises, its FLOP count
+through the plain versions against ``estimate_cost`` on the f32 module,
+and ``measure_gates``' verdicts on injected times (on the card: phases
+49-51)."""
 
 import glob
 import json
@@ -20,7 +27,18 @@ import yaml
 import audio_only_speech_separation_tpu.models as jmodels
 from audio_only_speech_separation_tpu.utils.profiling import count_params as jax_count_params
 from audio_only_speech_separation_tpu.utils.profiling import estimate_cost as jax_estimate_cost
-from audio_only_speech_separation_tpu_torch import bench, bench_train, evaluated_mac_params, models, unit_tests
+from audio_only_speech_separation_tpu_torch import (
+    bench,
+    bench_all,
+    bench_batch_sweep,
+    bench_train,
+    evaluated_mac_params,
+    measure_gates,
+    models,
+    profile_trace_ops,
+    unit_tests,
+)
+from audio_only_speech_separation_tpu_torch.serve import Server
 from audio_only_speech_separation_tpu_torch.utils.profiling import (
     StepTimer,
     count_params,
@@ -164,3 +182,160 @@ def test_the_entry_points_need_a_card_unless_told_cpu(monkeypatch):
     for main in (bench_train.main, unit_tests.main):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main([])
+
+
+def test_bench_all_has_the_jax_scripts_cases_and_the_k2_row():
+    """The 11 cases of scripts/bench_all.py at their rates and batches, in
+    order, each on the path ``serve.Server`` takes on the card, the module
+    rows forced to "kernels"; then "K2 alone"."""
+    got = [(name.replace(" fused", ""), sr, batch, path) for name, _, sr, batch, path in bench_all.CASES]
+    assert [g[:3] for g in got] == [
+        ("ConvTasNet (lrs3)", 16000, 8), ("ConvTasNet (lrs3)", 16000, 8), ("TasNet-DPRNN (wsj0)", 8000, 8),
+        ("TasNet-DPTNet (wsj0)", 8000, 8), ("Sepformer (base)", 16000, 2), ("TDANet (lrs2) fast-analytic", 16000, 4),
+        ("TDANet (lrs2)", 16000, 4), ("AFRCNN (lrs2)", 16000, 4), ("Sandglasset (defaults)", 8000, 8),
+        ("DPRNNTasNet (legacy)", 8000, 8), ("BSRNN (wsj0)", 8000, 8), ("K2 alone (ConvTasNet lrs3 TCN chain)", 16000, 8)]
+    assert [g[3] for g in got] == ["fused", "kernels", "kernels", "kernels", "kernels", "fast_tdanet", "kernels",
+                                   "kernels", "kernels", "kernels", "kernels", "k2"]
+
+
+@pytest.mark.parametrize("only", ["TasNet-DPTNet", "lrs3) fused", "K2 alone"])
+def test_bench_all_runs_a_case_and_prints_its_row(only, capsys):
+    rows = bench_all.main(["--device", "cpu", "--only", only, "--batch", "1", "--seconds", "0.05", "--iters", "1"])
+    out = capsys.readouterr().out
+    assert len(rows) == 1 and "failed" not in rows[0]
+    r = rows[0]
+    assert r["ms"] > 0 and r["flops"] > 0 and r["params"] > 0 and r["audio_sec_per_s"] > 0
+    assert r["gflop_per_audio_sec"] > 0 and 0 < r["peak_share"] < 1
+    assert all(v == 0 for v in r["launches"].values())  # CPU tensors run the plain versions
+    assert bench_all.row_line(r) in out and f"| {r['name']} [{r['path']}] |" in out and "FAILED" not in out
+
+
+def test_bench_all_exits_nonzero_when_a_case_raises(monkeypatch, capsys, tmp_path):
+    """A failing case prints FAILED, the sweep goes on to the next, the
+    table marks it, and the process exits with 1."""
+    real = bench_all.bench_one
+
+    def broken(name, *args, **kwargs):
+        if name.startswith("TasNet-DPRNN"):
+            raise RuntimeError("broken case")
+        return real(name, *args, **kwargs)
+
+    monkeypatch.setattr(bench_all, "bench_one", broken)
+    with pytest.raises(SystemExit) as e:
+        bench_all.main(["--device", "cpu", "--only", "TasNet-DP", "--batch", "1", "--seconds", "0.05", "--iters", "1"])
+    assert e.value.code == 1
+    out = capsys.readouterr().out
+    assert "TasNet-DPRNN (wsj0): FAILED (RuntimeError: broken case)" in out
+    assert "| TasNet-DPRNN (wsj0) | FAILED |" in out and "TasNet-DPTNet (wsj0) [kernels]:" in out
+    with pytest.raises(SystemExit):  # a subset would overwrite a whole table
+        bench_all.main(["--device", "cpu", "--only", "BSRNN", "--out", str(tmp_path / "t.md")])
+
+
+def test_bench_all_needs_a_card_unless_told_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_all.main(["--only", "BSRNN"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        measure_gates.main([])
+
+
+TINY = {
+    "DPRNN": lambda: models.TasNet(enc_dim=16, bn_dim=16, hidden_dim=16, win=16, layer=2, num_spk=2, module="DPRNN",
+                                   block_size=10, sample_rate=8000),
+    "DPTNet": lambda: models.TasNet(enc_dim=16, bn_dim=16, hidden_dim=16, win=16, layer=2, num_spk=2,
+                                    module="DPTNet", block_size=10, sample_rate=8000),
+    "Sepformer": lambda: models.Sepformer(encoder_out_nchannels=16, masknet_chunksize=10, masknet_numlayers=1,
+                                          intra_numlayers=1, inter_numlayers=1, intra_nhead=2, inter_nhead=2,
+                                          intra_dffn=32, inter_dffn=32, sample_rate=8000),
+    "BSRNN": lambda: models.BSRNN(win=64, stride=16, feature_dim=16, num_spks=2, num_repeat=1, sample_rate=8000),
+}
+
+
+@pytest.mark.parametrize("name", list(TINY))
+def test_bench_all_flops_through_the_plain_versions_equal_the_f32_modules(name):
+    """The FLOPs a row reports (its bf16 path inside ``plain_versions()``)
+    within 1 % of ``estimate_cost`` on the f32 module: the kernels' plain
+    versions do the products the module does."""
+    torch.manual_seed(0)
+    model = TINY[name]().eval()
+    r = bench_all.bench_one(name, model, 8000, 2, "kernels", "cpu", iters=1, seconds=0.1)
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 800)).astype(np.float32))
+    want = estimate_cost(model, x)["flops"]
+    assert abs(r["flops"] / want - 1) <= 0.01, (r["flops"], want)
+    assert r["gflop_per_audio_sec"] == pytest.approx(r["flops"] / 0.2 / 1e9)
+
+
+def test_server_takes_a_named_dispatch():
+    model = TINY["DPRNN"]()
+    assert Server(model, True, "cpu").dispatch == "eager"
+    assert Server(model, True, "cpu", dispatch="kernels").dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="unknown dispatch"):
+        Server(model, True, "cpu", dispatch="graphs")
+
+
+def test_bench_batch_sweep_prints_its_rows(capsys):
+    rows = bench_batch_sweep.main(["dptnet", "tdanet-module", "--device", "cpu", "--batches", "1", "2",
+                                   "--seconds", "0.03", "--iters", "1"])
+    assert [r["name"] for r in rows] == ["dptnet b=1", "dptnet b=2", "tdanet-module b=1", "tdanet-module b=2"]
+    out = capsys.readouterr().out
+    assert all(bench_all.row_line(r) in out for r in rows)
+    assert set(bench_batch_sweep.SWEEPS) == {"sandglasset", "sepformer", "dptnet", "tdanet-fast", "tdanet-module"}
+    assert [s[2] for s in bench_batch_sweep.SWEEPS.values()] == [(8, 16, 32), (2, 4, 8), (8, 16, 32), (4, 8, 16),
+                                                                  (4, 8, 16)]
+
+
+def test_profile_trace_ops_prints_the_top_operations(capsys):
+    assert sorted(profile_trace_ops.CASES) == sorted(["convtasnet", "dprnn", "dptnet", "sepformer", "tdanet", "afrcnn",
+                                                      "sandglasset", "dprnn_old", "bsrnn"])
+    result = profile_trace_ops.main(["dprnn", "--device", "cpu", "--batch", "1", "--seconds", "0.05", "--iters", "1",
+                                     "--top", "5"])
+    out = capsys.readouterr().out
+    assert result["dispatch"] == "eager" and result["idle"] is None and result["wall"] > 0
+    assert len(result["ops"]) > 5 and all(ms >= 0 and n > 0 for _, ms, n in result["ops"])
+    assert "idle share: not measured (no device)" in out
+    assert sum(line.endswith(name[:110]) for line in out.splitlines() for name, _, _ in result["ops"][:5]) >= 5
+
+
+def _gate_row(rule, choice, **times):
+    return {"rule": rule, "name": "case", "shape": (1,), "times": times, "info": {"SDPA": 1.0}, "choice": choice}
+
+
+def test_measure_gates_verdicts_on_injected_times():
+    """A rule misroutes where its path is more than 10 % slower than the
+    fastest; within 10 % it does not."""
+    rows = [_gate_row("attention", "K4", K4=1.0, plain=2.0),
+            _gate_row("attention", "K4", K4=1.09, plain=1.0),
+            _gate_row("attention", "K4", K4=1.2, plain=1.0),
+            _gate_row("lstm", "K6", K5=1.0, K6=1.5, plain=9.0),
+            _gate_row("lstm", "K5", K5=1.0, K6=0.95, plain=9.0)]
+    assert measure_gates.verdicts(rows) == 2
+    assert [r["misroute"] for r in rows] == [False, False, True, True, False]
+    assert [r["best"] for r in rows] == ["K4", "plain", "plain", "K5", "K6"]
+    text = measure_gates.report(rows, "a card")
+    assert text.count("MISROUTES") == 2 and "for information" in text
+
+
+@pytest.mark.parametrize("slow_k4,code", [(1.5, 1), (1.05, None)])
+def test_measure_gates_exits_1_on_a_misroute(monkeypatch, capsys, slow_k4, code):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "a card")
+    monkeypatch.setattr(measure_gates, "attention_rows", lambda dev: [_gate_row("attention", "K4", K4=slow_k4,
+                                                                                 plain=1.0)])
+    monkeypatch.setattr(measure_gates, "lstm_rows", lambda dev: [_gate_row("lstm", "K5", K5=1.0, K6=2.0, plain=5.0)])
+    if code is None:
+        assert len(measure_gates.main([])) == 2
+    else:
+        with pytest.raises(SystemExit) as e:
+            measure_gates.main([])
+        assert e.value.code == code
+    assert "misroute(s)" in capsys.readouterr().out
+
+
+def test_measure_gates_states_the_dispatch_it_measures():
+    """The rows' choices follow the port's dispatch: K4 at every head width
+    the models use, K6 above 128 sequences, K5 at or below."""
+    from audio_only_speech_separation_tpu_torch.ops.rnn import kernel_choice
+
+    assert all(measure_gates.attention_kernel_ok(dh) for _, dh, _ in measure_gates.ATTENTION.values())
+    assert [kernel_choice(B, Din) for _, B, Din, _ in measure_gates.LSTM.values()] == ["K5", "K6", "K6", "K5", "K5",
+                                                                                        "K6"]
