@@ -4,8 +4,8 @@ look2hear/layers/cnnlayers.py and rnnlayers.py).
 
 Torch modules take their input widths at construction, where the JAX
 modules infer them.  The LSTMs are ``ops/rnn.py``'s, so a bf16 input on
-the card runs the recurrence kernels (K5 at <= 128 sequences, K6 above; the
-one-direction ``LSTM`` too), and ``TransformerBlockTF``'s attention is
+the card runs the recurrence kernels (K5 or K6 as ``ops/rnn.py::kernel_choice``
+picks; the one-direction ``LSTM`` too), and ``TransformerBlockTF``'s attention is
 ``ops/attention.py::MultiheadAttention`` (K4).
 """
 

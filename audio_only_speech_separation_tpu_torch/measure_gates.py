@@ -10,10 +10,12 @@ Three dispatch rules are measured:
   (``attention_bdt_reference``, the plain form's attention) on [BH, dh, T]
   at Sepformer's, Sandglasset's and DPTNet's shapes;
 - LSTM (``ops/rnn.py``): inside ``lstm_kernel_ok``, ``kernel_choice``'s
-  K6 above 128 sequences, else K5 with its library input product
-  (``recurrence_form``), and the plain scan outside.  The three paths at
-  BSRNN's band RNN, DPRNN's rows and columns at B=8 and B=1 and
-  Sandglasset's intra pass, bidirectional, bf16.
+  K5 with its library input product (``recurrence_form``) or K6, and the
+  plain scan outside.  The three paths, bf16, at every LSTM call of a
+  served family at its ``bench_all`` batch and at B=1: TasNet-DPRNN's rows
+  and columns, the grouped TasNet's cores and context RNNs, DPRNNTasNet's
+  rows and columns, Sandglasset's intra pass, BSRNN's band and band-comm
+  RNNs, and ``layers.DPRNNBlock``'s one-direction column pass.
 
 Each time is the median of 5 CUDA-event readings around back-to-back
 calls.  SDPA's and bf16 ``nn.LSTM``'s times are printed beside the rows for
@@ -40,11 +42,21 @@ from .ops.rnn import kernel_choice, recurrence_form
 ATTENTION = {"sepformer intra": (544, 32, 250), "sepformer inter": (4000, 32, 34),
              "sandglasset 0/5": (16000, 16, 131), "sandglasset 1/4": (3968, 16, 131),
              "dptnet rows": (1344, 16, 100)}
-# (T, sequences, Din, H) of the bidirectional LSTMs: BSRNN's band RNN (B=1 x 4 s x 8 kHz), TasNet-DPRNN's
-# (wsj0) rows and columns at B=8 and B=1 x 2 s x 8 kHz (K = 100, S = 42), Sandglasset's intra pass (B=8)
-LSTM = {"bsrnn band": (501, 8, 128, 256), "dprnn rows B=8": (100, 336, 64, 128),
-        "dprnn columns B=8": (42, 800, 64, 128), "dprnn rows B=1": (100, 42, 64, 128),
-        "dprnn columns B=1": (42, 100, 64, 128), "sandglasset intra": (250, 1048, 128, 128)}
+# (T, sequences, Din, H, D) of the LSTMs at B=1 and at bench_all's batch (8; PERF.md section 6): TasNet-DPRNN
+# (wsj0, 2 s x 8 kHz: K = 100, S = 42), the grouped TasNet (group size 2: cores' rows and columns, context
+# GC_RNNs), DPRNNTasNet (2 s: K = 32, S = 128), Sandglasset (2 s: K = 250, S = 131), BSRNN (4 s: 501 frames,
+# 8 bands), layers.DPRNNBlock with one-direction columns at TasNet-DPRNN's chunks
+LSTM = {"dprnn rows B=1": (100, 42, 64, 128, 2), "dprnn columns B=1": (42, 100, 64, 128, 2),
+        "dprnn rows B=8": (100, 336, 64, 128, 2), "dprnn columns B=8": (42, 800, 64, 128, 2),
+        "grouped rows B=1": (100, 12, 32, 64, 2), "grouped columns B=1": (6, 200, 32, 64, 2),
+        "grouped context B=1": (24, 336, 32, 64, 2), "grouped rows B=8": (100, 96, 32, 64, 2),
+        "grouped columns B=8": (6, 1600, 32, 64, 2), "grouped context B=8": (24, 2688, 32, 64, 2),
+        "dprnn-tasnet rows B=1": (32, 128, 128, 256, 2), "dprnn-tasnet columns B=1": (128, 32, 128, 256, 2),
+        "dprnn-tasnet rows B=8": (32, 1024, 128, 256, 2), "dprnn-tasnet columns B=8": (128, 256, 128, 256, 2),
+        "sandglasset intra B=1": (250, 131, 128, 128, 2), "sandglasset intra B=8": (250, 1048, 128, 128, 2),
+        "bsrnn band B=1": (501, 8, 128, 256, 2), "bsrnn band-comm B=1": (8, 501, 128, 256, 2),
+        "bsrnn band B=8": (501, 64, 128, 256, 2), "bsrnn band-comm B=8": (8, 4008, 128, 256, 2),
+        "DPRNNBlock columns B=1": (42, 100, 64, 128, 1), "DPRNNBlock columns B=8": (42, 800, 64, 128, 1)}
 SLOWER = 1.1  # a rule misroutes where its path takes more than this times the fastest
 REPS = 5
 
@@ -89,17 +101,17 @@ def lstm_rows(dev) -> list:
         return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev, dtype)
 
     rows = []
-    for name, (T, B, Din, H) in LSTM.items():
-        x, w_ih, w_hh = rand((B, T, Din), 0.5), rand((2, Din, 4 * H), 0.08), rand((2, H, 4 * H), 0.05)
-        bias = rand((2, 4 * H), 0.05, torch.float32)
+    for name, (T, B, Din, H, D) in LSTM.items():
+        x, w_ih, w_hh = rand((B, T, Din), 0.5), rand((D, Din, 4 * H), 0.08), rand((D, H, 4 * H), 0.05)
+        bias = rand((D, 4 * H), 0.05, torch.float32)
         with torch.no_grad():
             times = {"K5": event_ms(lambda: recurrence_form(x, w_ih, w_hh, bias), 10),
                      "K6": event_ms(lambda: resident_bilstm(x, w_ih, w_hh, bias), 10),
                      "plain": event_ms(lambda: resident_bilstm_reference(x, w_ih, w_hh, bias), 1)}
-            lstm = torch.nn.LSTM(Din, H, batch_first=True, bidirectional=True).to(dev, torch.bfloat16)
+            lstm = torch.nn.LSTM(Din, H, batch_first=True, bidirectional=D == 2).to(dev, torch.bfloat16)
             info = {"nn.LSTM": event_ms(lambda: lstm(x), 5)}
-        rows.append({"rule": "lstm", "name": name, "shape": (T, B, Din, H), "times": times, "info": info,
-                     "choice": kernel_choice(B, Din) if lstm_kernel_ok(H) else "plain"})
+        rows.append({"rule": "lstm", "name": name, "shape": (T, B, Din, H, D), "times": times, "info": info,
+                     "choice": kernel_choice(T, B, Din, H, D) if lstm_kernel_ok(H) else "plain"})
     return rows
 
 

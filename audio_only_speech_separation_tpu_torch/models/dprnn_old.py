@@ -10,8 +10,8 @@ runs rows and columns channels-last like ``blocks.DPRNNCore``: each pass a
 ``ProjRNN`` ((Bi)LSTM, then a Linear back to N), a norm and a residual;
 with ``full_causal`` the rows and columns run one-direction LSTMs and cLN
 (over the flattened chunk axes, as the reference does).  The LSTMs take
-K6 over more than 128 sequences and K5 otherwise, in bf16 on the card
-(``ops/rnn.py``).
+K6 at the defaults' shapes in bf16 on the card (``ops/rnn.py::kernel_choice``:
+the rows are 32 steps, the columns more than 16 sequences at B=1).
 
 The ``state_dict`` uses look2hear's keys (the JAX package's
 ``utils/torch_import.py::convert_dprnn_tasnet``): ``encoder._filters``,
@@ -38,6 +38,11 @@ from .base import BaseModel, seeded_init_
 
 _F32_EPS = float(np.finfo(np.float32).eps)
 
+# (Bi)LSTM + Linear proj (reference dprnn_old.py:57-95), the JAX package's
+# ``SingleRNNProj``: the one module, with the ``rnn.*`` / ``proj.*``
+# parameter names look2hear checkpoints load with.
+SingleRNNProj = ProjRNN
+
 
 class OldDPRNN(nn.Module):
     """Dual-path core without TAC (dprnn_old.py:99-196): [B, N, K, S] ->
@@ -54,9 +59,9 @@ class OldDPRNN(nn.Module):
             return CumulativeLayerNorm(n, 1e-8, device=device) if causal else \
                 GlobalLayerNorm(n, 1e-8, channels_last=True, device=device)
 
-        self.row_rnn = nn.ModuleList([ProjRNN(n, hidden_size, not full_causal, device=device)
+        self.row_rnn = nn.ModuleList([SingleRNNProj(n, hidden_size, not full_causal, device=device)
                                       for _ in range(num_layers)])
-        self.col_rnn = nn.ModuleList([ProjRNN(n, hidden_size, self.col_bi, device=device)
+        self.col_rnn = nn.ModuleList([SingleRNNProj(n, hidden_size, self.col_bi, device=device)
                                       for _ in range(num_layers)])
         self.row_norm = nn.ModuleList([norm(full_causal) for _ in range(num_layers)])
         self.col_norm = nn.ModuleList([norm(not self.col_bi) for _ in range(num_layers)])

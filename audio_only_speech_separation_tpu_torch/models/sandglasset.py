@@ -10,8 +10,8 @@ Chunks of K frames with hop K/2 and a full chunk of padding on both sides;
 the fold divides by 2.
 
 - The intra BiLSTM (``intra_RNN.rnn``) has ``intra_linear`` fused into its
-  output; over B*S sequences it takes K6 (K5 at 128 or fewer) in bf16 on
-  the card (``ops/rnn.py``).
+  output; over B*S sequences it takes K6 in bf16 on the card, K5 over 16
+  or fewer (``ops/rnn.py::kernel_choice``).
 - Blocks 0 and n-1 pool by 1: the attention runs on the 4-D [B, S, K, D]
   block tensor over S with K batched (``ops/attention.py``'s 4-D form,
   K4 at [B*K*h, dh, S]).  The other blocks average K by 4^i
@@ -51,6 +51,23 @@ from ..ops.resample import avg_pool1d, interpolate_linear_align_corners
 from ..ops.rnn import BiLSTM
 from . import register_model
 from .base import BaseModel, normalize_input, restore_output, seeded_init_
+
+
+def unfold_chunks(x: torch.Tensor, K: int):
+    """x: [B, D, I] -> (channels-last chunks [B, S, K, D], I): a chunk of
+    padding on both sides, hop K/2 (torch unfold semantics,
+    sandglasset.py:383-395).  The chunks are a strided view of the padded
+    [B, I + 2K, D] signal."""
+    I = x.shape[2]
+    return frame_axis1(F.pad(x.transpose(1, 2), (0, 0, K, K)), K, K // 2), I
+
+
+def fold_chunks(chunks: torch.Tensor, ori_len: int) -> torch.Tensor:
+    """The inverse of ``unfold_chunks`` ([B, S, K, D] channels-last in) with
+    the reference's /2 normalisation -> [B, D, ori_len], a transposed view
+    of the channels-last sum."""
+    K = chunks.shape[2]
+    return (overlap_add_axis1(chunks, K // 2)[:, K:K + ori_len] / 2.0).transpose(1, 2)
 
 
 class GlobalAttnLayer(nn.Module):
@@ -184,9 +201,8 @@ class Sandglasset(BaseModel):
         mixture_w = torch.relu(torch.matmul(frames, self.encoder.weight[:, 0, :].to(sig.dtype).t()))
         mixture_w = self.enc_LN(mixture_w)  # [B, I, N]
         out = torch.matmul(mixture_w, self.bottleneck.weight[:, :, 0].to(mixture_w.dtype).t())  # [B, I, D]
-        I = out.shape[1]
-        K = self.chunk_size
-        x = self.seg_norm(torch.relu(frame_axis1(F.pad(out, (0, 0, K, K)), K, K // 2)))  # [B, S, K, D]
+        chunks, I = unfold_chunks(out.transpose(1, 2), self.chunk_size)
+        x = self.seg_norm(torch.relu(chunks))  # [B, S, K, D]
 
         skips = []
         for i, block in enumerate(self.sep_net):
@@ -201,7 +217,7 @@ class Sandglasset(BaseModel):
         x = self.first_out[0](x)
         x = torch.matmul(x, conv.weight[:, :, 0, 0].to(x.dtype).t()) + conv.bias.to(x.dtype)
         x = F.softplus(x)  # [B, S, K, n_src * N]
-        sig_cl = overlap_add_axis1(x, K // 2)[:, K:K + I] / 2.0
+        sig_cl = fold_chunks(x, I).transpose(1, 2)  # [B, I, n_src * N]
         est = sig_cl.reshape(B, I, self.n_src, self.n_feats).transpose(1, 2)
         est = self.out_norm(torch.relu(est.reshape(B * self.n_src, I, self.n_feats)))
         masked = est.reshape(B, self.n_src, I, self.n_feats) * mixture_w[:, None]  # [B, C, I, N]

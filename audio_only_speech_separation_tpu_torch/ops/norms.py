@@ -106,6 +106,11 @@ class FrameLayerNorm(nn.Module):
         return y * self.weight.to(y.dtype).reshape(shape) + self.bias.to(y.dtype).reshape(shape)
 
 
+# The reference names the per-frame channel norm twice (the JAX package's
+# ops/norms.py:91-93); one class here.
+ChannelLayerNorm = FrameLayerNorm
+
+
 class BatchNorm1d(nn.BatchNorm1d):
     """bN: ``nn.BatchNorm1d`` over the channels of [B, C, T] (eps 1e-5,
     momentum 0.1): batch statistics and an update of ``running_mean`` /

@@ -9,14 +9,19 @@ starts at zero.
 
 Dispatch: the kernel form for a bf16 input on a CUDA device
 (``kernels.kernel_input``) whose hidden width the kernels take
-(``lstm_kernel_ok``: H % 16 == 0, 16 <= H <= 256); within it, by the
-number B of sequences:
+(``lstm_kernel_ok``: H % 16 == 0, 16 <= H <= 256); within it
+``kernel_choice`` picks, from the shape, one of:
 
-- B > 128 (and an input width that is a multiple of 16): the resident
-  kernel K6 (``ops/kernels/lstm.py::resident_bilstm``), the input
-  projection inside;
-- otherwise: the input projection as a library matmul (the JAX package
-  leaves it to XLA), then the recurrence kernel K5 (``fused_bilstm``).
+- the resident kernel K6 (``ops/kernels/lstm.py::resident_bilstm``), the
+  input projection inside;
+- the input projection as a library matmul (the JAX package leaves it to
+  XLA), then the recurrence kernel K5 (``fused_bilstm``): for an input
+  width K6 cannot take (Din % 16 != 0), for long sequences (T >= 64) of a
+  wide input (Din >= 128) at few sequences (B <= 16), where a K6 step's
+  own input product lengthens the chain of T dependent steps more than
+  K5's copies around the library product cost, and for narrower inputs
+  at T >= 128 and B <= 128 (the JAX package's K5 gate, kept there; see
+  ``kernel_choice``).
 
 Both kernels run one step (``csrc/lstm.cu``): gates in mma.sync registers,
 h exchanged across a cluster of up to four blocks, one barrier a step.
@@ -24,7 +29,7 @@ Inside ``ops.kernels.plain_versions()`` the same form runs the kernels'
 plain versions.  Anything else (f32, a CPU tensor, a hidden width outside
 the envelope) takes the plain path, ``resident_bilstm_reference``: the JAX
 package's scan in the input dtype.  The JAX package's TPU gates (T >= 128,
-T >= 200, the VMEM tile test) are dropped.  A bidirectional layer can fuse
+T >= 200, the VMEM tile test) are replaced by ``kernel_choice``.  A bidirectional layer can fuse
 a following projection (``proj_w``/``proj_b``, with ``proj_act`` applied
 before it) into its output, as the JAX package does.
 """
@@ -46,14 +51,44 @@ from .kernels.lstm import (
     resident_bilstm_reference,
 )
 
-RESIDENT_ABOVE = 128  # more sequences than this take the resident kernel
+# K5's corners of the shapes (``kernel_choice``): wide inputs at few sequences, measured on an H100; and,
+# for narrower inputs, the upper bounds of the JAX package's K5 gate (ops/pallas/lstm.py: T >= 128, at
+# most 128 sequences)
+WIDE_DIN = 128
+WIDE_MIN_T, WIDE_MAX_B = 64, 16
+NARROW_MIN_T, NARROW_MAX_B = 128, 128
 
 
-def kernel_choice(B: int, Din: int) -> str:
-    """The kernel the kernel form takes for B sequences of width Din: "K6"
-    (the resident kernel) above ``RESIDENT_ABOVE`` sequences at a width that
-    is a multiple of 16, else "K5"."""
-    return "K6" if B > RESIDENT_ABOVE and Din % 16 == 0 else "K5"
+def kernel_choice(T: int, B: int, Din: int, H: int, D: int) -> str:
+    """The kernel the kernel form takes for B sequences of T steps of width
+    Din into a (bi)LSTM of width H with D directions: "K5" (the library
+    input product, then the recurrence kernel) where Din % 16 != 0; where
+    Din >= ``WIDE_DIN``, T >= ``WIDE_MIN_T`` and B <= ``WIDE_MAX_B``; and
+    where Din < ``WIDE_DIN``, T >= ``NARROW_MIN_T`` and B <=
+    ``NARROW_MAX_B``.  "K6" (the resident kernel) everywhere else.
+
+    Measured: ``scripts/profile_port_lstm_crossover.py``'s grid (T 8-501, B
+    1-1048, (Din, H) (32, 64) to (128, 256), D 1 and 2, bf16) on an NVIDIA
+    H100 80GB HBM3 at 700 W, tabulated in PERF.md.  There K6 is faster at
+    most points, up to 7x at short T and many sequences; K5's path wins,
+    by up to 1.27x, at long T and few sequences: T >= 82 and B <= 16 at
+    every width (by more than 10 % almost only at Din 128), and at H 256
+    with D 1 from T 24 and up to B 64.  H and D set no threshold.
+
+    The last clause is not the grid's: at Din < 128, T >= 128 and 16 < B
+    <= 128 K6 is faster (by up to 1.67x at 128 sequences).  Those shapes
+    keep the JAX package's gate because sending them to K6 moves the 12 s
+    batch-1 DPRNN of ``chip_smoke.py``'s phase 14 off the 1.5x rule at its
+    one fixed input (1.57x the plain path's error), though over 16 inputs
+    the two paths' errors agree (median ratio 1.00; PERF.md).  With it, the
+    rule takes a path more than 10 % slower than the faster at 62 of the
+    grid's 936 points (10 without it), none a shape of ``measure_gates``'
+    table."""
+    if Din % 16:
+        return "K5"
+    if Din >= WIDE_DIN:
+        return "K5" if T >= WIDE_MIN_T and B <= WIDE_MAX_B else "K6"
+    return "K5" if T >= NARROW_MIN_T and B <= NARROW_MAX_B else "K6"
 
 
 def lstm_hidden_kernel_form(x, w_ih, w_hh, bias, recurrence=fused_bilstm,
@@ -62,7 +97,9 @@ def lstm_hidden_kernel_form(x, w_ih, w_hh, bias, recurrence=fused_bilstm,
     kernels (``recurrence`` and ``resident`` stand for K5 and K6, chosen by
     ``kernel_choice``): direction 1 runs backward in time, both come out
     time-aligned.  w_ih and w_hh in x's dtype, bias f32 or None."""
-    if kernel_choice(x.shape[0], x.shape[2]) == "K6":
+    B, T, Din = x.shape
+    D, H = w_hh.shape[:2]
+    if kernel_choice(T, B, Din, H, D) == "K6":
         return resident(x.contiguous(), w_ih.contiguous(), w_hh.contiguous(), bias)
     return recurrence_form(x, w_ih, w_hh, bias, recurrence)
 

@@ -7,9 +7,9 @@ replicates the parameters and shards the batch, and XLA inserts the
 gradient reduction.  Here the same layout is one process a card, launched
 by ``torchrun``: ``init_distributed`` joins the process group that
 torchrun's environment describes, each process loads its own shard of the
-data, and ``train.Trainer`` runs its train forward under
-``DistributedDataParallel``, whose backward averages the gradients over
-the ``dp`` group.  A second axis, ``sp`` (``make_mesh(axis_names=("dp",
+data (``shard_batch`` puts it on the process's device), and
+``train.Trainer`` runs its train forward under ``DistributedDataParallel``,
+whose backward averages the gradients over the ``dp`` group.  A second axis, ``sp`` (``make_mesh(axis_names=("dp",
 "sp"), shape=(dp, sp))``), shares each sample's chunks among ``sp`` ranks
 (``sequence.py``): the data are then sharded by the ``dp`` coordinate
 (``dp_shard_info``), so the ranks of one ``sp`` group read the same batch.
@@ -20,8 +20,9 @@ from __future__ import annotations
 import math
 import os
 from datetime import timedelta
-from typing import Sequence
+from typing import Any, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
@@ -96,6 +97,30 @@ def local_mesh(device="cuda") -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         return torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def shard_batch(batch: Any, mesh, axis: str = "dp"):
+    """This rank's shard of a batch on this rank's device: every numpy
+    array or tensor of a (possibly nested) tuple, list or dict, as tensors
+    on ``local_mesh`` of ``mesh``'s device type (``mesh`` a ``DeviceMesh``
+    with an ``axis`` axis, or a device).  Each rank loads its own shard of
+    the data, so nothing is split or exchanged here: the JAX function's
+    ``make_array_from_process_local_data`` for one process."""
+    if isinstance(mesh, (torch.device, str)):
+        dev = local_mesh(mesh)
+    else:
+        if axis not in (mesh.mesh_dim_names or ()):
+            raise ValueError(f"shard_batch: the mesh has no axis {axis!r}: {mesh.mesh_dim_names}")
+        dev = local_mesh(mesh.device_type)
+
+    def put(x):
+        if isinstance(x, dict):
+            return {k: put(v) for k, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            return type(x)(put(v) for v in x)
+        return (x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))).to(dev)
+
+    return put(batch)
 
 
 def replicate(module: nn.Module) -> nn.Module:

@@ -16,6 +16,8 @@ The JAX package marks the chunk axis for XLA's partitioner, which places
 the collectives; here they are written out, with autograd:
 
 - ``shard(x, dim)``: this rank's share of a replicated tensor (a slice);
+  ``shard_chunks(x, chunk_axis)`` is the JAX package's name for it on the
+  chunk axis;
 - ``exchange(x, split_dim, cat_dim, cat_total)``: from sharded on
   ``cat_dim`` to sharded on ``split_dim``; its backward is the exchange
   back;
@@ -121,6 +123,18 @@ def shard(x: torch.Tensor, dim: int) -> torch.Tensor:
     sizes = split_sizes(x.shape[dim], dist.get_world_size(group))
     rank = dist.get_rank(group)
     return x.narrow(dim, sum(sizes[:rank]), sizes[rank])
+
+
+def shard_chunks(x: torch.Tensor, chunk_axis: int = -1, axis_name: str = "sp") -> torch.Tensor:
+    """This rank's share of the chunk axis ``chunk_axis`` of a chunked
+    feature tensor (dual-path layout [B, N, K, S]) through ``shard``; ``x``
+    itself without an active mesh that has ``axis_name``.  The counterpart
+    of the JAX function, which marks the axis for XLA's partitioner."""
+    if axis_name not in current_mesh_axes():
+        return x
+    if axis_name != "sp":
+        raise NotImplementedError(f"shard_chunks shares chunks over the 'sp' axis, not {axis_name!r}")
+    return shard(x, chunk_axis % x.ndim)
 
 
 def _exchange(x, split_dim: int, cat_dim: int, cat_total: int, group):

@@ -2,7 +2,7 @@
 reference look2hear/system/__init__.py:9-12)."""
 
 from .checkpoints import CheckpointManager
-from .loggers import CompositeLogger, CSVLogger, TensorBoardLogger, make_default_logger
+from .loggers import CometLogger, CompositeLogger, CSVLogger, TensorBoardLogger, make_default_logger, make_logger
 from .optimizers import get_learning_rate, make_optimizer, set_learning_rate
 from .schedulers import CosineAnnealingLR, ExponentialLR, NoamLR, ReduceLROnPlateau, StepLR, make_scheduler
 from .system import AudioLightningModule, AudioSystem
@@ -27,5 +27,7 @@ __all__ = [
     "CSVLogger",
     "TensorBoardLogger",
     "CompositeLogger",
+    "CometLogger",
     "make_default_logger",
+    "make_logger",
 ]

@@ -69,7 +69,6 @@ import os
 import time
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
@@ -78,7 +77,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..models import save_serialized, serialize
 from ..ops.dropout import seed_generators
-from ..parallel import dp_shard_info, local_mesh, local_shard_info, make_mesh, sequence
+from ..parallel import dp_shard_info, local_mesh, local_shard_info, make_mesh, sequence, shard_batch
 from ..utils.console import print_only
 from .checkpoints import CheckpointManager
 from .loggers import BaseLogger, make_default_logger
@@ -262,8 +261,7 @@ class Trainer:
 
     def _batch(self, np_batch):
         mix, sources, _keys = np_batch
-        return (torch.from_numpy(np.asarray(mix)).to(self.device),
-                torch.from_numpy(np.asarray(sources)).to(self.device))
+        return shard_batch((mix, sources), self.device)
 
     def _mean_over_ranks(self, total, count: int) -> float:
         """Σ total / Σ count over every rank (one all-reduce of both; this

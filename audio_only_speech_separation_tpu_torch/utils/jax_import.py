@@ -381,14 +381,22 @@ def dprnn_tasnet_from_jax(params_np, layer: int) -> Dict[str, np.ndarray]:
     return sd
 
 
+def single_rnn_proj_from_jax(params_np) -> Dict[str, np.ndarray]:
+    """A JAX ``SingleRNNProj``'s params -> the port's
+    ``models/dprnn_old.py::SingleRNNProj`` ``state_dict``."""
+    sd: Dict[str, np.ndarray] = {}
+    _proj_rnn(sd, "", params_np["params"] if "params" in params_np else params_np)
+    return {k[1:]: v for k, v in sd.items()}
+
+
 def old_dprnn_from_jax(core, layer: int) -> Dict[str, np.ndarray]:
     """A JAX ``OldDPRNN``'s params -> the port core's ``state_dict``."""
     core = core["params"] if "params" in core else core
     sd: Dict[str, np.ndarray] = {}
     for i in range(layer):
         for side in ("row", "col"):
-            rnn = core[f"{side}_rnn_{i}"]
-            _proj_rnn(sd, f"{side}_rnn.{i}", rnn)
+            sd.update({f"{side}_rnn.{i}.{k}": v
+                       for k, v in single_rnn_proj_from_jax(core[f"{side}_rnn_{i}"]).items()})
             _norm(sd, f"{side}_norm.{i}", core[f"{side}_norm_{i}"])
     sd["output.weight"] = _f32(np.asarray(core["out_kernel"]).T[:, :, None, None])
     sd["output.bias"] = _f32(core["out_bias"])

@@ -9,7 +9,8 @@ width and depth with seeded random weights: serving through the
 whole-separator CUDA kernel (K1), training through the TCN chain's forward
 (K2) and backward (K3) CUDA kernels.  Then the TasNet dual-path serving
 path (DPTNet and DPRNN on the wsj0 configs, 8 kHz) through the attention
-(K4) and LSTM (K5, K6) CUDA kernels, Sepformer (sepformer_base, 16 kHz)
+(K4) and LSTM (K5, K6) CUDA kernels, the LSTM kernel of each call as
+``ops/rnn.py::kernel_choice`` picks it, Sepformer (sepformer_base, 16 kHz)
 through K4, and the eval CLI (``audio_test.main``) over all three
 families; then BSRNN (bsrnn_wsj0, 8 kHz) through K5 and K6, TDANet
 (tdanet_lrs2, 16 kHz) on its module path through K4 and on its
@@ -18,7 +19,7 @@ three; the elementwise probe K7 (``scripts/micro_vpu.py``'s function);
 training on the card for every served family through ``Trainer``'s
 bf16 cast policy (K4-K6 in the forward, their backwards through the plain
 versions); then the rest of the model zoo: Sandglasset (K4 in its 3-D and
-4-D forms, K6), DPRNNTasNet (K5, K6) and TasNet's other separator modules
+4-D forms, K6), DPRNNTasNet (K6) and TasNet's other separator modules
 and group communication, served, through the eval CLI and in a train
 step; then the training-quality study, the main path's training with
 remat, lamb and a cosine schedule, the optimizers written after optax's
@@ -86,9 +87,10 @@ and ``wav_file_separate``.  In phases:
     version, SDPA on [B, h, T, dh] and its bound;
 20. BSRNN at full width and depth, seeded weights, at B=1 and 4 x 4 s: the
     kernel path (``serve``'s "kernels"), the plain bf16 path and the f32
-    module under the 1.5x rule, exactly 8 K5 (the band RNNs, (501, 2, 8B,
-    256)) and 8 K6 (the band-comm RNNs, (8, 501B, 128, 256)) launches a
-    call; K5 and K6 against their plain versions at those shapes;
+    module under the 1.5x rule, exactly 8 K6 (the band-comm RNNs, (8,
+    501B, 128, 256)) and 8 band RNNs ((501, 2, 8B, 256)) a call: K5 at
+    B=1, K6 at B=4 (BSRNN_LAUNCHES); K5 and K6 against their plain
+    versions at those shapes;
 21. TDANet at full width and depth at B=1 and 2 x 2 s: the module path in
     bf16 (16 K4 launches a call, at [1008, 64, B]) under the 1.5x rule; the
     fast path ("fast_tdanet") in bf16 with no K4 launch and an SNR against
@@ -121,7 +123,8 @@ and ``wav_file_separate``.  In phases:
     best_model.pth served on the card;
 28. each family's train step timed (kernel path, plain bf16 path, f32; the
     kernel path split into forward, backward and optimizer and profiled),
-    and for BSRNN the backward of K5 and K6 through their plain versions;
+    and for DPRNN, DPTNet and BSRNN the backward of K6 through its plain
+    version (BSRNN's band RNNs take K6 at the train batch of 4);
 29. Sandglasset at its defaults (8 kHz, full width and depth) at B=8 and
     1 x 2 s: the kernel path (``serve``'s "kernels") with exactly 6 K4 (two
     in the 4-D batched-axis form) and 6 K6 launches a call and no call of
@@ -131,23 +134,22 @@ and ``wav_file_separate``.  In phases:
     131], [3968, 16, 131], [960, 16, 131] and their B=1 shapes, K6 at
     (250, 1048 and 131, 128, 128)), and those shapes must be the ones
     ``sandglasset_shapes`` states for phase 33;
-30. DPRNNTasNet at its defaults (8 kHz) the same way at B=8 (12 K6) and
-    B=1 (12 K5) x 2 s, K5 and K6 against their plain versions at the row
-    and column shapes its calls gave them (H 256; stated in
-    DPRNN_TASNET_K5 and DPRNN_TASNET_K6);
+30. DPRNNTasNet at its defaults (8 kHz) the same way at B=8 and B=1 x 2 s
+    (12 K6 each), K6 against its plain version at the row and column
+    shapes its calls gave it (H 256; stated in DPRNN_TASNET_K6);
 31. TasNet at the wsj0 widths with each other separator module (TCN,
     SudoRMRF; GC_TCN, GC_SudoRMRF, DPRNN and DPTNet with group size 2) at
     B=8 x 2 s the same way, with the launches of TASNET_MODULES, and K4,
     K5 and K6 against their plain versions at every shape those calls
     gave them (the context GC_RNNs' and the grouped cores' LSTMs at Din
     32, H 64; DPTNet's attention at dh 8);
-32. the eval CLI as in phase 18 on Sandglasset (K4, K6), DPRNNTasNet (K5)
-    and the DPTNet TasNet with group size 2 (K4, K5, K6);
+32. the eval CLI as in phase 18 on Sandglasset (K4, K6), DPRNNTasNet (K6)
+    and the DPTNet TasNet with group size 2 (K4, K6), none of them K5;
 33. time Sandglasset and DPRNNTasNet at B=8 and B=1 x 2 s (kernel path,
     plain bf16 path, f32 module; the kernel path profiled), K4 alone at
     Sandglasset's three shapes beside its plain version, SDPA and its
-    bound, and K6 and K5 alone at Sandglasset's and DPRNNTasNet's shapes
-    beside their plain versions, bf16 ``nn.LSTM`` and their bounds;
+    bound, and K6 alone at Sandglasset's and DPRNNTasNet's shapes beside
+    its plain version, bf16 ``nn.LSTM`` and its bounds;
 34. one bf16 train step of Sandglasset and DPRNNTasNet (B=2 x 2 s) three
     ways as in phase 26, exact forward launches, none in the backward;
 35. the training-quality study (``validate.py``, the JAX script's
@@ -183,8 +185,8 @@ and ``wav_file_separate``.  In phases:
     build/wavio: rank 0's artifacts, K2 and K3 launches, and a train step
     with and without DDP timed in turns;
 42. ``WSJ0DataModule`` training: one DPRNN step (dprnn_wsj0 width) from
-    wsj0-layout manifests, K6 at the batch of 2 and K5 at the eval
-    batches of 1, and K5/K6 against their plain versions at those shapes;
+    wsj0-layout manifests, K6 at the batch of 2 and at the eval batches of
+    1, and K6 against its plain version at those shapes;
 43. ``chunked_separate`` on a 20 s, 16 kHz mixture at convtasnet_lrs3
     width (8 s windows, 1 s overlap: one K1 call over 3 windows) under the
     1.5x rule against the plain bf16 path, K1 against its plain version on
@@ -208,13 +210,14 @@ and ``wav_file_separate``.  In phases:
     4 s) forward and a train step, each under the 1.5x rule against f32;
     each rank's K4-K6 launches and shapes; K4-K6 against their plain
     versions at every shard shape and timed there beside SDPA or
-    ``nn.LSTM`` and their bounds; and K4 at TDANet's [1008, 64, 1], K5 and
-    K6 at BSRNN's B=4 shapes timed with their bounds;
+    ``nn.LSTM`` and their bounds; and K4 at TDANet's [1008, 64, 1] and K6
+    at BSRNN's B=4 shapes timed with their bounds;
 48. the layer library (``layers/``) at full width: ``DPRNN`` (N 64, hidden
     128, K 100, 6 repeats) on TasNet-DPRNN's chunked tensor of B=8 and B=1
-    x 2 s x 8 kHz (12 K6, then 12 K5 a call), ``DPRNNBlock`` with
-    one-direction columns (K6 and K5 at D = 1), ``LSTMBlockTF(128, 256)``
-    on [8, 501, 128] (K5 at BSRNN's band shape), ``DPRNNLinear`` (K6) and
+    x 2 s x 8 kHz (12 K6 a call at both), ``DPRNNBlock`` with
+    one-direction columns (K6 at D = 1), ``LSTMBlockTF(128, 256)`` and a
+    one-direction ``SingleRNN(128, 256)`` on [8, 501, 128] (K5 at BSRNN's
+    band shape, D = 2 and D = 1), ``DPRNNLinear`` (K6) and
     ``TransformerBlockTF(256, 8, 1024)`` on [68, 250, 256] (K4 at
     Sepformer's intra shape): each in bf16 against the plain bf16 block and
     the f32 block under the 1.5x rule, launches exact; K4-K6 against their
@@ -279,7 +282,9 @@ SEPFORMER_SHAPES = {"intra": (2 * 34 * 8, 32, 250), "inter": (2 * 250 * 8, 32, 3
 # configs/bsrnn_wsj0.yml audionet_config, written out; 8 kHz (8 bands)
 BSRNN_WSJ0 = dict(win=256, stride=64, feature_dim=128, num_spks=2, num_layer=1, num_repeat=8, context=0,
                   dropout=0.0, bi_comm=True)
-BSRNN_LAUNCHES = 8  # K5 and K6 each a BSRNN call: one band RNN and one band-comm RNN a repeat
+# K5 and K6 launches of a BSRNN call by batch: a band RNN (8B sequences of 501 frames, 128 wide) and a
+# band-comm RNN a repeat; ops/rnn.py::kernel_choice sends the band RNNs to K5 at B=1 and to K6 at B=4
+BSRNN_LAUNCHES = {1: (8, 8), 4: (0, 16)}
 
 
 def bsrnn_shapes(batch: int):
@@ -319,16 +324,20 @@ def sandglasset_shapes(batch: int):
 # scripts/bench_all.py:40: win 32 samples, 2006 frames at 2 s, 128 chunks of
 # 32 an utterance; rows (B*128 sequences of 32) and columns (B*32 of 128)
 DPRNN_TASNET = dict(feature_dim=128, hidden_dim=256, win=4, layer=6, segment_size=32)
-DPRNN_TASNET_LAUNCHES = {1: (0, 12, 0), 8: (0, 0, 12)}  # K4, K5, K6 a call: 128 and 32 / 1024 and 256 sequences
-DPRNN_TASNET_K5 = ((32, 2, 128, 256), (128, 2, 32, 256))  # (T, D, B, H) at B=1: rows, columns
-DPRNN_TASNET_K6 = ((32, 1024, 128, 256, 2), (128, 256, 128, 256, 2))  # (T, B, Din, H, D) at B=8
+# K4, K5, K6 a call: 128 and 32 / 1024 and 256 sequences, all on K6 (the rows are 32 steps, the columns
+# more than 16 sequences: ops/rnn.py::kernel_choice)
+DPRNN_TASNET_LAUNCHES = {1: (0, 0, 12), 8: (0, 0, 12)}
+# (T, B, Din, H, D) at B=8 and at B=1: rows, columns
+DPRNN_TASNET_K6 = ((32, 1024, 128, 256, 2), (128, 256, 128, 256, 2), (32, 128, 128, 256, 2),
+                   (128, 32, 128, 256, 2))
 # The other TasNet separator modules at the wsj0 widths (module swapped),
 # with group size 2 where they communicate, and the K4, K5, K6 launches of
 # a call at B=8 x 2 s x 8 kHz: the context GC_RNNs (4 layers over 8 x 168
-# windows x 2 groups: K6), the grouped cores' rows (96 sequences: K5) and
-# columns (1600: K6), DPTNet's attention (dh 8: K4); TCN and SudoRM-RF none
+# windows x 2 groups: K6), the grouped cores' rows (96 sequences) and columns
+# (1600), K6 too (a group's input is 32 wide), DPTNet's attention (dh 8: K4);
+# TCN and SudoRM-RF none
 TASNET_MODULES = {"TCN": (1, (0, 0, 0)), "SudoRMRF": (1, (0, 0, 0)), "GC_TCN": (2, (0, 0, 4)),
-                  "GC_SudoRMRF": (2, (0, 0, 4)), "DPRNN G2": (2, (0, 6, 10)), "DPTNet G2": (2, (12, 6, 10))}
+                  "GC_SudoRMRF": (2, (0, 0, 4)), "DPRNN G2": (2, (0, 0, 16)), "DPTNet G2": (2, (12, 0, 16))}
 PEAK_FLOPS = 989e12  # H100 SXM bf16 dense tensor-core peak, FLOP/s
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 
@@ -547,8 +556,12 @@ def launch_ms(fn, prefix: str, calls: int = 5):
     ``prefix``, under torch.profiler: their time over the launches the
     trace holds (a trace can miss launches, so not over the calls); None
     where it holds none."""
-    rows = [(ms, n) for k, (ms, n) in profile_kernels(fn, calls).items() if k.startswith(prefix)]
+    traced = profile_kernels(fn, calls)
+    rows = [(ms, n) for k, (ms, n) in traced.items() if k.startswith(prefix)]
     launches = sum(n for _, n in rows)
+    if not launches:  # what the trace held instead, for the record
+        print(f"  no {prefix} launch in a {calls}-call trace; it held " + (", ".join(
+            f"{k} ({n:g} a call)" for k, (_, n) in traced.items()) or "no device kernel"))
     return sum(ms for ms, _ in rows) / launches if launches else None
 
 
@@ -1226,8 +1239,9 @@ def lstm_kernel_inputs(rand, k5_shape=None, k6_shape=None):
 def bsrnn_checks(dev, model):
     """Phase 20: BSRNN end to end at B=1 and 4 x 4 s (kernel path through
     ``serve``'s dispatch, plain bf16 path, f32 module) under the 1.5x rule,
-    exactly BSRNN_LAUNCHES K5 and K6 launches a call; then K5 and K6
-    against their plain versions at BSRNN's shapes.  Returns their worst
+    exactly BSRNN_LAUNCHES' K5 and K6 launches a call; then K5 and K6
+    against their plain versions at BSRNN's shapes (K6 also at the band
+    RNN of B=4).  Returns their worst
     max abs errors and the launches of both calls."""
     from audio_only_speech_separation_tpu_torch.ops.kernels.lstm import (
         bilstm_reference,
@@ -1253,17 +1267,18 @@ def bsrnn_checks(dev, model):
             if out.shape != ref.shape or not torch.isfinite(out.float()).all():
                 raise AssertionError(f"BSRNN: bad output {tuple(out.shape)}")
         print(f"  BSRNN B={batch} x 4 s (output scale {float(ref.abs().max()):.4g}): launches K5 {n5}, "
-              f"K6 {n6} (want {BSRNN_LAUNCHES} each)")
-        if (n5, n6) != (BSRNN_LAUNCHES, BSRNN_LAUNCHES):
-            raise AssertionError(f"BSRNN launched K5 {n5} and K6 {n6} times, not {BSRNN_LAUNCHES} each")
+              f"K6 {n6} (want {BSRNN_LAUNCHES[batch]})")
+        if (n5, n6) != BSRNN_LAUNCHES[batch]:
+            raise AssertionError(f"BSRNN B={batch} launched K5 {n5} and K6 {n6} times, not {BSRNN_LAUNCHES[batch]}")
         check_rule(f"BSRNN B={batch} x 4 s", max_err(got, ref), max_err(pl, ref))
     rand = rand_maker(33, dev)
     print("  K5 and K6 vs plain at BSRNN's shapes (B = 1 and 4 x 4 s), the validator's inputs")
     k5_err = max(kernel_vs_plain(f"K5 (T, D, B, H) = {bsrnn_shapes(b)[0]}", fused_bilstm, bilstm_reference,
                                  lstm_kernel_inputs(rand, k5_shape=bsrnn_shapes(b)[0]), 1e-2) for b in (1, 4))
-    k6_err = max(kernel_vs_plain(f"K6 (T, B, Din, H, D) = {bsrnn_shapes(b)[1]}", resident_bilstm,
-                                 resident_bilstm_reference, lstm_kernel_inputs(rand, k6_shape=bsrnn_shapes(b)[1]),
-                                 1e-2) for b in (1, 4))
+    band4 = (501, 32, 128, 256, 2)  # the band RNN at B=4, on K6
+    k6_err = max(kernel_vs_plain(f"K6 (T, B, Din, H, D) = {s}", resident_bilstm, resident_bilstm_reference,
+                                 lstm_kernel_inputs(rand, k6_shape=s), 1e-2)
+                 for s in (bsrnn_shapes(1)[1], bsrnn_shapes(4)[1], band4))
     return k5_err, k6_err, launches
 
 
@@ -1455,19 +1470,20 @@ TRAIN_FAMILIES = {
 # (dropout on) and in eval: DPRNN's rows (164 chunks of 100 frames) and
 # columns (200 sequences of 82 chunks) both past 128 sequences take K6, 6
 # layers; DPTNet's MHA has no dropout (12 K4); BSRNN's band RNNs (32
-# sequences) K5 and band-comm RNNs (2004) K6, 8 repeats; Sepformer's and
-# TDANet's attention has dropout 0.1, so K4 only in eval (32 and 16)
+# sequences: more than ops/rnn.py::kernel_choice gives K5) and band-comm RNNs
+# (2004) K6, 8 repeats each; Sepformer's and TDANet's attention has dropout
+# 0.1, so K4 only in eval (32 and 16)
 TRAIN_LAUNCHES = {"DPRNN": ((0, 0, 12), (0, 0, 12)), "DPTNet": ((12, 0, 12), (12, 0, 12)),
-                  "BSRNN": ((0, 8, 8), (0, 8, 8)), "Sepformer": ((0, 0, 0), (SEPFORMER_K4, 0, 0)),
+                  "BSRNN": ((0, 0, 16), (0, 0, 16)), "Sepformer": ((0, 0, 0), (SEPFORMER_K4, 0, 0)),
                   "TDANet": ((0, 0, 0), (TDANET_K4, 0, 0)), "AFRCNN": ((0, 0, 0), (0, 0, 0))}
 TRAIN_STEPS = 2  # optimizer steps of a training run (one epoch)
 # One bf16 train step each (phase 34) of Sandglasset and DPRNNTasNet, at B=2 x
 # 2 s x 8 kHz: Sandglasset's intra BiLSTMs (262 sequences) K6 and its six
-# attentions K4 (dropout 0); DPRNNTasNet's rows (256 sequences) K6 and
-# columns (64) K5
+# attentions K4 (dropout 0); DPRNNTasNet's rows (256 sequences) and columns
+# (64: more than kernel_choice gives K5) K6
 STEP_FAMILIES = {"Sandglasset": ("Sandglasset", SANDGLASSET, TSR, 2, 2.0, False),
                  "DPRNNTasNet": ("DPRNNTasNet", DPRNN_TASNET, TSR, 2, 2.0, False)}
-TRAIN_LAUNCHES.update({"Sandglasset": ((6, 0, 6), (6, 0, 6)), "DPRNNTasNet": ((0, 6, 6), (0, 6, 6))})
+TRAIN_LAUNCHES.update({"Sandglasset": ((6, 0, 6), (6, 0, 6)), "DPRNNTasNet": ((0, 0, 12), (0, 0, 12))})
 
 
 def family_settings(family: str):
@@ -2002,7 +2018,7 @@ def zoo_checks(dev, card: str):
                                        sorted(DPRNN_TASNET_LAUNCHES.items(), reverse=True))
     launched = [a + b for a, b in zip(launched, more)]
     errs.append(kernels_at_shapes(dev, "DPRNNTasNet", shapes,
-                                  {"K4": [], "K5": DPRNN_TASNET_K5, "K6": DPRNN_TASNET_K6}))
+                                  {"K4": [], "K5": [], "K6": DPRNN_TASNET_K6}))
 
     print("phase 31: TasNet's other separator modules (wsj0 widths, group size 2 where they communicate), "
           "B=8 x 2 s")
@@ -2031,8 +2047,8 @@ def zoo_checks(dev, card: str):
 
 def zoo_eval_cli(dev, zoo) -> list:
     """Phase 32: the eval CLI as in phase 18 on Sandglasset (K4, K6),
-    DPRNNTasNet (K5, K6 at batch 1) and the DPTNet TasNet with group size 2
-    (K4, K5, K6).  Returns their K4, K5, K6 launches."""
+    DPRNNTasNet (K6 at batch 1) and the DPTNet TasNet with group size 2
+    (K4, K6).  Returns their K4, K5, K6 launches."""
     wsj0 = {k: v for k, v in WSJ0_TASNET.items() if k != "sample_rate"}
     scratch = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     launched = eval_cli_checks(dev, scratch.name, "phase 32: the eval CLI on the card for the new models", {
@@ -2041,9 +2057,9 @@ def zoo_eval_cli(dev, zoo) -> list:
                             "LRS2DataModule", 2, TSR, ("K4", "K6"), ("K5",), "kernels"),
         "(h) DPRNNTasNet": (None, zoo["DPRNNTasNet"], {"audionet_name": "DPRNNTasNet",
                                                        "audionet_config": dict(DPRNN_TASNET)},
-                            "LRS2DataModule", 2, TSR, ("K5",), ("K4",), "kernels"),
+                            "LRS2DataModule", 2, TSR, ("K6",), ("K4", "K5"), "kernels"),
         "(i) DPTNet TasNet G2": (None, zoo["DPTNet G2"], {"audionet_name": "TasNet", "audionet_config": dict(
-            wsj0, module="DPTNet", group_size=2)}, "LRS2DataModule", 2, TSR, ("K4", "K5", "K6"), (), "kernels"),
+            wsj0, module="DPTNet", group_size=2)}, "LRS2DataModule", 2, TSR, ("K4", "K6"), ("K5",), "kernels"),
     })
     scratch.cleanup()
     return [sum(v[g] for v in launched.values()) for g in ("K4", "K5", "K6")]
@@ -2054,9 +2070,9 @@ def zoo_timing(dev, card, zoo) -> None:
     (kernel path, plain bf16 path, f32 module; the kernel path profiled);
     then K4 alone at Sandglasset's three shapes beside its plain version,
     SDPA and its bound, K6 at Sandglasset's intra shape and at
-    DPRNNTasNet's B=8 rows and columns, and K5 at its B=1 rows and
-    columns, each beside its plain version, bf16 ``nn.LSTM`` and its
-    bound (``time_attention``, ``time_lstm``)."""
+    DPRNNTasNet's B=8 and B=1 rows and columns, each beside its plain
+    version, bf16 ``nn.LSTM`` and its bound (``time_attention``,
+    ``time_lstm``)."""
     print(f"phase 33: timing, Sandglasset and DPRNNTasNet at B=8 and B=1 x 2 s x 8 kHz, on {card}")
     models = {"Sandglasset": zoo["Sandglasset"], "DPRNNTasNet": zoo["DPRNNTasNet"]}
     for batch in (8, 1):
@@ -2066,11 +2082,10 @@ def zoo_timing(dev, card, zoo) -> None:
         for side, shape in sandglasset_shapes(8)[0].items():
             time_attention(f"K4 Sandglasset {side}", shape, rand, card)
         lstm_cases = [("K6 Sandglasset intra", sandglasset_shapes(8)[1]),
-                      ("K6 DPRNNTasNet rows B=8", DPRNN_TASNET_K6[0]), ("K6 DPRNNTasNet columns B=8", DPRNN_TASNET_K6[1]),
-                      ("K5 DPRNNTasNet rows B=1", DPRNN_TASNET_K5[0]), ("K5 DPRNNTasNet columns B=1", DPRNN_TASNET_K5[1])]
+                      *zip(("K6 DPRNNTasNet rows B=8", "K6 DPRNNTasNet columns B=8", "K6 DPRNNTasNet rows B=1",
+                            "K6 DPRNNTasNet columns B=1"), DPRNN_TASNET_K6)]
         for label, shape in lstm_cases:
-            # the rows' and columns' input width, where K5's pre-projected input does not show it
-            time_lstm(dev, label, shape, DPRNN_TASNET["feature_dim"], rand, card)
+            time_lstm(dev, label, shape, shape[2], rand, card)
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
@@ -2705,9 +2720,10 @@ def wsj0_training(dev, card: str, root: str) -> tuple:
     """Phase 42: one DPRNN step (configs/dprnn_wsj0.yml: full width, batch
     2 x 4 s x 8 kHz) through ``audio_train.main`` from ``WSJ0DataModule``
     manifests, 3 validation and 1 test utterance: K6 at the batch of 2 (the
-    step and a validation batch), K5 at the batches of 1, launches exact;
-    K5 and K6 against their plain versions at the shapes the run gave
-    them.  Returns (K5, K6 launches, their worst max abs errors)."""
+    step and a validation batch) and at the batches of 1 (the LSTMs' input
+    is 64 wide), no K5, launches exact; K5 and K6 against their plain
+    versions at the shapes the run gave them.  Returns (K5, K6 launches,
+    their worst max abs errors)."""
     from audio_only_speech_separation_tpu_torch import audio_train
 
     print("phase 42: WSJ0DataModule training, DPRNN (dprnn_wsj0 width), 1 step, 3 + 1 eval utterances")
@@ -2735,7 +2751,7 @@ def wsj0_training(dev, card: str, root: str) -> tuple:
     with open(os.path.join(work, "Experiments", "tensorboard_logs", "wsj0", "scalars.csv")) as f:
         scalars = {row.split(",")[1]: float(row.split(",")[2]) for row in f.read().splitlines()[1:]}
     per_forward = 2 * WSJ0_TASNET["layer"]  # a row and a column LSTM a layer
-    want = (0, 2 * per_forward, 2 * per_forward)  # K6: the step, cv's batch of 2; K5: cv's and tt's batches of 1
+    want = (0, 0, 4 * per_forward)  # K6: the step, cv's batch of 2, cv's and tt's batches of 1
     print(f"  {run_s:.1f} s; train_loss {scalars.get('train_loss')}, val_loss {scalars.get('val_loss')}, "
           f"test_loss {scalars.get('test_loss')}; K4, K5, K6 launches {launched} (want {want}); {card}")
     if launched != want:
@@ -3167,13 +3183,13 @@ def sequence_parallel_checks(dev, card: str) -> tuple:
 
 def earlier_bounds(dev, card: str) -> None:
     """The bounds and library times PERF.md's kernel table lacked: K4 at
-    TDANet's [1008, 64, 1] (beside SDPA), K5 at BSRNN's B=4 band RNN (501,
-    2, 32, 256) and K6 at its band-comm RNN (8, 2004, 128, 256, 2)."""
+    TDANet's [1008, 64, 1] (beside SDPA), K6 at BSRNN's B=4 band RNN (501,
+    32, 128, 256, 2) and band-comm RNN (8, 2004, 128, 256, 2)."""
     rand = rand_maker(94, dev)
     print(f"  the table's missing entries ({card})")
     time_attention("K4 at TDANet's module path (B=1)", (TDANET_K4_SHAPE[0], TDANET_K4_SHAPE[1], 1), rand, card)
-    k5, k6 = bsrnn_shapes(4)
-    time_lstm(dev, "K5 at BSRNN's band RNN, B=4", k5, 128, rand, card)
+    time_lstm(dev, "K6 at BSRNN's band RNN, B=4", (501, 32, 128, 256, 2), 128, rand, card)
+    k6 = bsrnn_shapes(4)[1]
     time_lstm(dev, "K6 at BSRNN's band-comm RNN, B=4", k6, k6[2], rand, card)
 
 
@@ -3196,7 +3212,7 @@ def measurement_phases(dev, card: str) -> dict:
 BENCH_ALL_LAUNCHES = {"ConvTasNet (lrs3) fused": {"K1": 50}, "TasNet-DPRNN (wsj0)": {"K6": 12},
                       "TasNet-DPTNet (wsj0)": {"K4": 12, "K6": 12}, "Sepformer (base)": {"K4": 32},
                       "TDANet (lrs2)": {"K4": 16}, "Sandglasset (defaults)": {"K4": 6, "K6": 6},
-                      "DPRNNTasNet (legacy)": {"K6": 12}, "BSRNN (wsj0)": {"K5": 8, "K6": 8},
+                      "DPRNNTasNet (legacy)": {"K6": 12}, "BSRNN (wsj0)": {"K6": 16},
                       "K2 alone (ConvTasNet lrs3 TCN chain)": {"K2": 49}}
 
 
@@ -3230,12 +3246,16 @@ def layer_checks(dev, card: str) -> tuple:
     torch.manual_seed(97)
     dprnn = layers.DPRNN(64, 128, n_repeats=6)
     one_way = layers.DPRNNBlock(64, 128, bidirectional=False)
-    cases = [  # (label, block, input, K4, K5, K6 launches a call)
+    # (label, block, input, K4, K5, K6 launches a call): DPRNN's LSTMs take K6 at both batches (their input
+    # is 64 wide), the 501-step LSTMs of width 128 over 8 sequences K5 (ops/rnn.py::kernel_choice)
+    cases = [
         ("DPRNN (64, 128, 6 repeats) B=8", dprnn, chunks[8], (0, 0, 12)),
-        ("DPRNN (64, 128, 6 repeats) B=1", dprnn, chunks[1], (0, 12, 0)),
+        ("DPRNN (64, 128, 6 repeats) B=1", dprnn, chunks[1], (0, 0, 12)),
         ("DPRNNBlock, one-direction columns, B=8", one_way, chunks[8], (0, 0, 2)),
-        ("DPRNNBlock, one-direction columns, B=1", one_way, chunks[1], (0, 2, 0)),
+        ("DPRNNBlock, one-direction columns, B=1", one_way, chunks[1], (0, 0, 2)),
         ("LSTMBlockTF(128, 256) on [8, 501, 128]", layers.LSTMBlockTF(128, 256), rand((8, 501, 128)), (0, 1, 0)),
+        ("SingleRNN(128, 256), one direction, on [8, 501, 128]", layers.SingleRNN(128, 256), rand((8, 501, 128)),
+         (0, 1, 0)),
         (f"DPRNNLinear(64, 128, {S}) B=8", layers.DPRNNLinear(64, 128, S), chunks[8], (0, 0, 1)),
         ("TransformerBlockTF(256, 8, 1024) on [68, 250, 256]", layers.TransformerBlockTF(256, 8, 1024),
          rand((68, 250, 256)), (1, 0, 0)),
@@ -3884,6 +3904,10 @@ def main() -> None:
     k4_err, k5_err, k6_err = (max(a, b) for a, b in zip((k4_err, k5_err, k6_err), launched["errs"]))
     print(f"  {time.perf_counter() - t_start:.1f} s since the start")
 
+    counted = {"K1": k1_launches, "K2": k2_launches, "K3": k3_launches, "K4": k4_launches, "K5": k5_launches,
+               "K6": k6_launches, "K7": k7["launches"]}
+    if not all(counted.values()):
+        raise AssertionError(f"a kernel took no launch on the main paths: {counted}")
     k1_b, k1_by = least_time(*separator_work(8, frames_bench))
     k2_b, k2_by = least_time(*chain_work(batch, T_train))
     k3_b, k3_by = least_time(*chain_work(batch, T_train, products=5))

@@ -149,20 +149,26 @@ def lstm_calls(monkeypatch):
     return calls
 
 
-def test_bf16_bsrnn_lstm_dispatch(lstm_calls):
-    """With the card forced, a bf16 BSRNN sends each band RNN (B*nband = 16
-    sequences of 126 frames) to K5 and each band-comm RNN (B*T = 252
-    sequences of 8 bands) to K6: one of each a repeat; the output is
-    finite and near the float32 module's."""
-    model = _port_model(5, sample_rate=8000)
+@pytest.mark.parametrize("feature_dim", [16, 128])
+def test_bf16_bsrnn_lstm_dispatch(lstm_calls, feature_dim):
+    """With the card forced, a bf16 BSRNN sends each band-comm RNN (B*T =
+    252 sequences of 8 bands) to K6, and each band RNN (B*nband = 16
+    sequences of 126 frames) to K6 at width 16 and to K5 at width 128
+    (``ops/rnn.py::kernel_choice``): one launch each a repeat; the output
+    is finite and near the float32 module's."""
+    model = _port_model(5, sample_rate=8000, feature_dim=feature_dim)
     x = torch.from_numpy(np.random.default_rng(6).standard_normal((2, 8000)).astype(np.float32))
     with torch.no_grad():
         ref = model(x)
         lstm_calls["K5"].clear(), lstm_calls["K6"].clear()
         out = copy.deepcopy(model).to(torch.bfloat16)(x.to(torch.bfloat16))
     assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
-    assert lstm_calls["K5"] == [(126, 2, 16, 4 * 32)] * 2
-    assert lstm_calls["K6"] == [(252, 8, 16)] * 2
+    band, comm = (16, 126, feature_dim), (252, 8, feature_dim)
+    if feature_dim == 128:
+        assert lstm_calls["K5"] == [(126, 2, 16, 4 * 2 * feature_dim)] * 2
+        assert lstm_calls["K6"] == [comm] * 2
+    else:
+        assert lstm_calls["K5"] == [] and lstm_calls["K6"] == [band, comm] * 2
     assert float((out.float() - ref).norm() / ref.norm()) < 0.1
 
 

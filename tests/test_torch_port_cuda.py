@@ -449,9 +449,9 @@ def test_dualpath_kernel_backward_matches_plain_autograd(cuda):
 def test_tasnet_kernel_path_meets_the_validator_rule(cuda, module, batch):
     """A small TasNet cast to bf16 on the card runs its LSTMs (and DPTNet
     its attention) through the kernels (1.5 s: 62 chunks of 50 frames, so
-    batch 1 gives 62 and 50 sequences, all K5; batch 6 gives 372 and 300,
-    all K6) and stays within 1.5 * (plain bf16 error) + 1e-3 of the f32
-    module."""
+    batch 1 gives 62 and 50 sequences, batch 6 372 and 300, all K6: the
+    input is 64 wide) and stays within 1.5 * (plain bf16 error) + 1e-3 of
+    the f32 module."""
     import copy
 
     from audio_only_speech_separation_tpu_torch.models import TasNet
@@ -471,7 +471,7 @@ def test_tasnet_kernel_path_meets_the_validator_rule(cuda, module, batch):
     torch.cuda.synchronize()
     n4, n5, n6 = (c.launches - b for c, b in zip(counters, before))
     assert (n4 > 0) == (module == "DPTNet")
-    assert (n5 > 0, n6 > 0) == ((True, False) if batch == 1 else (False, True))
+    assert n5 == 0 and n6 > 0
     err, plain_err = float((got.float() - ref).abs().max()), float((plain.float() - ref).abs().max())
     assert err <= 1.5 * plain_err + 1e-3, (err, plain_err)
 
@@ -590,12 +590,13 @@ def _waves(cuda, seed, B, T):
 
 
 def test_bsrnn_kernel_path_meets_the_validator_rule(cuda):
-    """A BSRNN (feature 64, H 128, 2 repeats, 8 kHz) at B=2 x 1 s: each band
-    RNN (16 sequences) takes K5 and each band-comm RNN (252 sequences) K6,
-    once a repeat, within the 1.5x rule of the f32 module."""
+    """A BSRNN (feature 128, H 256, 2 repeats, 8 kHz) at B=2 x 1 s: each
+    band RNN (16 sequences of 126 frames, 128 wide) takes K5 and each
+    band-comm RNN (252 sequences) K6, once a repeat, within the 1.5x rule
+    of the f32 module."""
     from audio_only_speech_separation_tpu_torch.models import BSRNN
 
-    m = BSRNN(feature_dim=64, num_repeat=2, sample_rate=8000,
+    m = BSRNN(feature_dim=128, num_repeat=2, sample_rate=8000,
               generator=torch.Generator().manual_seed(11)).to(cuda).eval()
     launched = _validator_rule(m, _waves(cuda, 12, 2, 8000), (fused_attention_bdt, fused_bilstm, resident_bilstm))
     assert launched == [0, 2, 2]
@@ -857,12 +858,13 @@ def test_remat_through_k2_and_k3_on_the_card(cuda, tmp_path):
 
 # K5 and K6 inside a (bi)LSTM layer trained on bf16 casts of its f32
 # parameters (the Trainer's cast policy), at the training shapes: BSRNN's
-# band RNN (K5: 501 frames, B 32 = 4 utterances x 8 bands, in 128, H 256) and
+# band RNN (K6: 501 frames, B 32 = 4 utterances x 8 bands, in 128, H 256) and
 # band-comm RNN (K6: 8 bands, B 2004, H 256) at B=4 x 4 s x 8 kHz; DPRNN's
 # rows (K6: 100 frames, B 164) and columns (K6: 82 chunks, B 200) at B=2 x
-# 4 s x 8 kHz (in 64, H 128)
-CAST_POLICY_CASES = [(501, 32, 128, 256, "K5"), (8, 2004, 128, 256, "K6"), (100, 164, 64, 128, "K6"),
-                     (82, 200, 64, 128, "K6")]
+# 4 s x 8 kHz (in 64, H 128); and BSRNN's band RNN at B=1 (K5: B 8), where
+# ops/rnn.py::kernel_choice takes K5
+CAST_POLICY_CASES = [(501, 32, 128, 256, "K6"), (8, 2004, 128, 256, "K6"), (100, 164, 64, 128, "K6"),
+                     (82, 200, 64, 128, "K6"), (501, 8, 128, 256, "K5")]
 
 
 @pytest.mark.parametrize("T,B,Din,H,kernel", CAST_POLICY_CASES)
@@ -952,12 +954,12 @@ def test_batched_axis1_attention_kernel_form_matches_plain_form(cuda):
     assert float((got.float() - want.float()).abs().max()) < 2e-2
 
 
-@pytest.mark.parametrize("batch,launched", [(1, [0, 4, 0]), (8, [0, 0, 4])])
+@pytest.mark.parametrize("batch,launched", [(1, [0, 0, 4]), (8, [0, 0, 4])])
 def test_dprnn_tasnet_kernel_path_meets_the_validator_rule(cuda, batch, launched):
     """A DPRNNTasNet (feature 64, H 128, 2 layers, segments of 32) at B x
     1 s x 8 kHz (1006 frames: 64 chunks an utterance) cast to bf16: rows
-    and columns through K5 at batch 1 (64 and 32 sequences) and K6 at
-    batch 8 (512 and 256), within the 1.5x rule of the f32 module."""
+    and columns through K6 at batch 1 (64 and 32 sequences of width 64)
+    and at batch 8 (512 and 256), within the 1.5x rule of the f32 module."""
     from audio_only_speech_separation_tpu_torch.models import DPRNNTasNet
 
     m = DPRNNTasNet(feature_dim=64, hidden_dim=128, sample_rate=8000, layer=2,
@@ -967,7 +969,7 @@ def test_dprnn_tasnet_kernel_path_meets_the_validator_rule(cuda, batch, launched
 
 
 TASNET_MODULE_CASES = [("TCN", 1, [0, 0, 0]), ("SudoRMRF", 1, [0, 0, 0]), ("GC_TCN", 2, [0, 0, 4]),
-                       ("GC_SudoRMRF", 2, [0, 0, 4]), ("DPRNN", 2, [0, 2, 6]), ("DPTNet", 2, [4, 2, 6])]
+                       ("GC_SudoRMRF", 2, [0, 0, 4]), ("DPRNN", 2, [0, 0, 8]), ("DPTNet", 2, [4, 0, 8])]
 
 
 @pytest.mark.parametrize("module,group_size,launched", TASNET_MODULE_CASES)
@@ -975,9 +977,10 @@ def test_tasnet_modules_meet_the_validator_rule(cuda, module, group_size, launch
     """A TasNet (enc and bn 64, H 128, 2 layers, chunks of 50, context 24) of
     each separator module at B=4 x 1 s x 8 kHz cast to bf16: TCN and
     SudoRM-RF run no kernel; with group size 2 the context GC_RNNs (4
-    layers, 4 x 86 windows x 2 groups) take K6, the grouped cores' rows
-    (4 x 2 x 6 sequences) K5 and their columns (4 x 2 x 50) K6, DPTNet's
-    attention K4 (dh 8); within the 1.5x rule of the f32 module."""
+    layers, 4 x 86 windows x 2 groups) take K6, and so do the grouped
+    cores' rows (4 x 2 x 6 sequences) and columns (4 x 2 x 50), whose input
+    is 32 wide, DPTNet's attention K4 (dh 8); within the 1.5x rule of the
+    f32 module."""
     from audio_only_speech_separation_tpu_torch.models import TasNet
 
     m = TasNet(enc_dim=64, bn_dim=64, hidden_dim=128, layer=2, module=module, group_size=group_size,
@@ -1198,17 +1201,19 @@ def test_sequence_parallel_step_on_two_gloo_ranks_on_one_card(cuda, tmp_path):
 # the layer library's blocks through K4, K5 and K6; the STFTs on the card
 # ---------------------------------------------------------------------------
 
-# (block, its input shape, its K4, K5, K6 launches a call in bf16 on the card)
+# (block, its input shape, its K4, K5, K6 launches a call in bf16 on the card;
+# ops/rnn.py::kernel_choice takes K5 for 64 or more steps of width 128 or more
+# over 16 or fewer sequences, K6 elsewhere)
 LAYER_CASES = {
-    "DPRNN rows K6, columns K5": (lambda: _layers().DPRNN(32, 64, n_repeats=2), (4, 32, 20, 40), [0, 2, 2]),
-    "DPRNN at B=1": (lambda: _layers().DPRNN(32, 64, n_repeats=2), (1, 32, 50, 40), [0, 4, 0]),
+    "DPRNN rows K6, columns K5": (lambda: _layers().DPRNN(128, 64, n_repeats=2), (1, 128, 4, 64), [0, 2, 2]),
+    "DPRNN at B=1": (lambda: _layers().DPRNN(32, 64, n_repeats=2), (1, 32, 50, 40), [0, 0, 4]),
     "DPRNNBlock one-direction columns, K6": (lambda: _layers().DPRNNBlock(32, 64, bidirectional=False),
                                              (4, 32, 50, 40), [0, 0, 2]),
-    "DPRNNBlock one-direction columns, K5": (lambda: _layers().DPRNNBlock(32, 64, bidirectional=False),
-                                             (1, 32, 50, 40), [0, 2, 0]),
-    "SingleRNN one direction, K5": (lambda: _layers().SingleRNN(64, 128), (8, 101, 64), [0, 1, 0]),
+    "DPRNNBlock one-direction columns, K5": (lambda: _layers().DPRNNBlock(128, 64, bidirectional=False),
+                                             (1, 128, 4, 64), [0, 1, 1]),
+    "SingleRNN one direction, K5": (lambda: _layers().SingleRNN(128, 128), (8, 101, 128), [0, 1, 0]),
     "SingleRNN one direction, K6": (lambda: _layers().SingleRNN(64, 128), (200, 21, 64), [0, 0, 1]),
-    "LSTMBlockTF": (lambda: _layers().LSTMBlockTF(64, 128), (8, 101, 64), [0, 1, 0]),
+    "LSTMBlockTF": (lambda: _layers().LSTMBlockTF(64, 128), (8, 101, 64), [0, 0, 1]),
     "DPRNNLinear": (lambda: _layers().DPRNNLinear(32, 64, 40), (4, 32, 50, 40), [0, 0, 1]),
     "TransformerBlockTF": (lambda: _layers().TransformerBlockTF(128, 4, 256), (16, 100, 128), [1, 0, 0]),
 }

@@ -17,13 +17,15 @@ from audio_only_speech_separation_tpu.models import DPRNNTasNet as JDPRNNTasNet
 from audio_only_speech_separation_tpu.models import save_serialized as jax_save
 from audio_only_speech_separation_tpu.models import serialize as jax_serialize
 from audio_only_speech_separation_tpu.models.dprnn_old import OldDPRNN as JOldDPRNN
+from audio_only_speech_separation_tpu.models.dprnn_old import SingleRNNProj as JSingleRNNProj
 from audio_only_speech_separation_tpu.utils.torch_import import convert_dprnn_tasnet
 from audio_only_speech_separation_tpu_torch.models import DPRNNTasNet, from_pretrain
-from audio_only_speech_separation_tpu_torch.models.dprnn_old import OldDPRNN
+from audio_only_speech_separation_tpu_torch.models.dprnn_old import OldDPRNN, SingleRNNProj
 from audio_only_speech_separation_tpu_torch.serve import choose_dispatch, serve
 from audio_only_speech_separation_tpu_torch.utils.jax_import import (
     dprnn_tasnet_from_jax,
     old_dprnn_from_jax,
+    single_rnn_proj_from_jax,
 )
 from torch_port_helpers import (
     assert_close,
@@ -73,6 +75,24 @@ def test_old_dprnn_core_matches_jax(bidirectional, full_causal):
     core.load_state_dict({k: torch.from_numpy(v) for k, v in old_dprnn_from_jax(params, 2).items()})
     with torch.no_grad():
         np.testing.assert_allclose(core(t(x)).numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("bidirectional", [True, False], ids=["bidirectional", "one_direction"])
+def test_single_rnn_proj_matches_jax(bidirectional):
+    """``SingleRNNProj``, the module ``OldDPRNN`` builds for its rows and
+    columns, from a JAX ``SingleRNNProj``'s variables through
+    ``single_rnn_proj_from_jax`` (look2hear's ``rnn.*`` and ``proj.*``
+    keys): [B, T, N] -> [B, T, N] within 1e-5."""
+    rng = np.random.default_rng(30 + int(bidirectional))
+    x = rng.standard_normal((3, 7, 8)).astype(np.float32)
+    jm = JSingleRNNProj(8, 12, bidirectional=bidirectional)
+    params = draw_tree(jm.init(jax.random.PRNGKey(0), x), np.random.default_rng(31))
+    want = np.asarray(jm.apply(params, x))
+    m = SingleRNNProj(8, 12, bidirectional=bidirectional)
+    m.load_state_dict({k: torch.from_numpy(v) for k, v in single_rnn_proj_from_jax(params).items()})
+    assert all(isinstance(r, SingleRNNProj) for r in (*OldDPRNN(8, 12, 34).row_rnn, *OldDPRNN(8, 12, 34).col_rnn))
+    with torch.no_grad():
+        np.testing.assert_allclose(m(t(x)).numpy(), want, **TOL)
 
 
 def test_dprnn_tasnet_matches_jax():
@@ -130,15 +150,15 @@ def test_f32_train_step_matches_jax():
 
 def test_kernel_launches_a_call(monkeypatch):
     """With the kernels' dispatch taken (as for bf16 on the card), each
-    layer's row and column LSTM is one K5 launch at 128 sequences or
-    fewer and one K6 launch above (Din 16); the kernel form, here with the
-    plain versions, within 1e-5 of the plain form."""
+    layer's row and column LSTM is one K6 launch at any batch (an input of
+    width 16 never takes K5); the kernel form, here with the plain
+    versions, within 1e-5 of the plain form."""
     _, _, tm = dprnn_pair()
     x = t(np.random.default_rng(8).standard_normal((1, 800)))
     with torch.no_grad():
         want = tm(x)
     # 800 samples: 106 frames, 28 chunks of 8 -> rows 28, columns 8 sequences per utterance
-    for batch, counts in ((1, {"K4": 0, "K5": 4, "K6": 0}), (5, {"K4": 0, "K5": 2, "K6": 2}),
+    for batch, counts in ((1, {"K4": 0, "K5": 0, "K6": 4}), (5, {"K4": 0, "K5": 0, "K6": 4}),
                           (17, {"K4": 0, "K5": 0, "K6": 4})):
         got, launched = count_kernel_launches(monkeypatch, lambda: tm(x.repeat(batch, 1)))
         assert launched == counts

@@ -239,16 +239,24 @@ def test_wav_file_separate_matches_the_jax_package(tmp_path):
 
 
 # the blocks that reach a kernel, at the widths the kernels take, and the
-# kernels their bf16 form launches there
+# kernels their bf16 form launches there (``ops/rnn.py::kernel_choice``:
+# K6 at narrow inputs or short sequences, K5 at 64 or more steps of width
+# 128 over 16 or fewer sequences)
 KERNEL_CASES = {
-    "SingleRNN": (lambda: L.SingleRNN(16, 32), (3, 9, 16), {"K5": 1}),
-    "SingleRNN bidirectional": (lambda: L.SingleRNN(16, 32, bidirectional=True), (3, 9, 16), {"K5": 1}),
-    "LSTMBlockTF": (lambda: L.LSTMBlockTF(16, 32), (3, 9, 16), {"K5": 1}),
+    "SingleRNN": (lambda: L.SingleRNN(16, 32), (3, 9, 16), {"K6": 1}),
+    "SingleRNN bidirectional": (lambda: L.SingleRNN(16, 32, bidirectional=True), (3, 9, 16), {"K6": 1}),
+    "SingleRNN at K5's shapes": (lambda: L.SingleRNN(128, 32), (3, 64, 128), {"K5": 1}),
+    "SingleRNN bidirectional at K5's shapes": (lambda: L.SingleRNN(128, 32, bidirectional=True), (3, 64, 128),
+                                               {"K5": 1}),
+    "LSTMBlockTF": (lambda: L.LSTMBlockTF(16, 32), (3, 9, 16), {"K6": 1}),
     "TransformerBlockTF": (lambda: L.TransformerBlockTF(32, 4, 64), (2, 11, 32), {"K4": 1}),
     "DPRNNBlock one-direction columns": (lambda: L.DPRNNBlock(16, 32, bidirectional=False), (2, 16, 6, 5),
-                                         {"K5": 2}),
-    "DPRNN": (lambda: L.DPRNN(16, 32, n_repeats=2), (25, 16, 6, 5), {"K5": 2, "K6": 2}),  # rows 125, columns 150
-    "DPRNNLinear": (lambda: L.DPRNNLinear(16, 32, 5), (2, 16, 6, 5), {"K5": 1}),
+                                         {"K6": 2}),
+    # rows: 4 steps over 64 sequences (K6); one-direction columns: 64 steps over 4 sequences (K5)
+    "DPRNNBlock one-direction columns at K5's shapes": (lambda: L.DPRNNBlock(128, 32, bidirectional=False),
+                                                        (1, 128, 4, 64), {"K5": 1, "K6": 1}),
+    "DPRNN": (lambda: L.DPRNN(16, 32, n_repeats=2), (25, 16, 6, 5), {"K6": 4}),  # rows 125, columns 150
+    "DPRNNLinear": (lambda: L.DPRNNLinear(16, 32, 5), (2, 16, 6, 5), {"K6": 1}),
 }
 
 
@@ -277,3 +285,28 @@ def test_bf16_kernel_form_meets_the_rule_against_f32(case, monkeypatch):
         with torch.no_grad():
             again = bf(x.to(torch.bfloat16)).float()
     assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("shape", [(2, 6, 9), (2, 6, 4, 3)], ids=["3-D", "4-D"])
+def test_channel_layer_norm_matches_jax(shape):
+    """``ops.norms.ChannelLayerNorm`` (the JAX package's alias of
+    ``FrameLayerNorm``) against the JAX module on the same input and
+    affine: within 1e-5; ``ops`` re-exports it with the JAX package's 20
+    names."""
+    from audio_only_speech_separation_tpu.ops import __all__ as jax_ops_all
+    from audio_only_speech_separation_tpu.ops.norms import ChannelLayerNorm as JChannelLayerNorm
+    from audio_only_speech_separation_tpu_torch import ops
+    from audio_only_speech_separation_tpu_torch.ops.norms import ChannelLayerNorm, FrameLayerNorm
+
+    assert ChannelLayerNorm is FrameLayerNorm and ops.ChannelLayerNorm is ChannelLayerNorm
+    assert ops.__all__ == list(jax_ops_all) and all(hasattr(ops, n) for n in ops.__all__)
+    x = np.random.default_rng(len(shape)).standard_normal(shape).astype(np.float32)
+    jm = JChannelLayerNorm(shape[1])
+    params = draw_tree(jm.init(jax.random.PRNGKey(0), x), np.random.default_rng(3))
+    want = np.asarray(jm.apply(params, x))
+    m = ChannelLayerNorm(shape[1])
+    m.load_state_dict({"weight": torch.from_numpy(np.asarray(params["params"]["gamma"])),
+                       "bias": torch.from_numpy(np.asarray(params["params"]["beta"]))})
+    with torch.no_grad():
+        np.testing.assert_allclose(m(torch.from_numpy(x)).numpy(), want, rtol=1e-5, atol=1e-5)
+

@@ -333,9 +333,20 @@ def test_measure_gates_exits_1_on_a_misroute(monkeypatch, capsys, slow_k4, code)
 
 def test_measure_gates_states_the_dispatch_it_measures():
     """The rows' choices follow the port's dispatch: K4 at every head width
-    the models use, K6 above 128 sequences, K5 at or below."""
-    from audio_only_speech_separation_tpu_torch.ops.rnn import kernel_choice
+    the models use; ``kernel_choice``'s rule at every LSTM row (K5 only at
+    BSRNN's band RNN at B=1: 501 steps of width 128 over 8 sequences), and
+    on each side of each of its thresholds."""
+    from audio_only_speech_separation_tpu_torch.ops import rnn
 
     assert all(measure_gates.attention_kernel_ok(dh) for _, dh, _ in measure_gates.ATTENTION.values())
-    assert [kernel_choice(B, Din) for _, B, Din, _ in measure_gates.LSTM.values()] == ["K5", "K6", "K6", "K5", "K5",
-                                                                                        "K6"]
+    k5 = {name for name, shape in measure_gates.LSTM.items() if rnn.kernel_choice(*shape) == "K5"}
+    assert k5 == {"bsrnn band B=1"} and len(measure_gates.LSTM) == 22
+    assert {shape[4] for shape in measure_gates.LSTM.values()} == {1, 2}
+    for H, D in ((64, 1), (256, 2)):
+        for Din, T, B in ((rnn.WIDE_DIN, rnn.WIDE_MIN_T, rnn.WIDE_MAX_B),
+                          (rnn.WIDE_DIN - 16, rnn.NARROW_MIN_T, rnn.NARROW_MAX_B)):
+            assert rnn.kernel_choice(T, B, Din, H, D) == "K5"
+            assert rnn.kernel_choice(T - 1, B, Din, H, D) == "K6"
+            assert rnn.kernel_choice(T, B + 1, Din, H, D) == "K6"
+        assert rnn.kernel_choice(rnn.WIDE_MIN_T, rnn.WIDE_MAX_B + 1, rnn.WIDE_DIN - 16, H, D) == "K6"
+        assert rnn.kernel_choice(8, 1000, 40, H, D) == "K5"  # K6 takes Din % 16 == 0 only

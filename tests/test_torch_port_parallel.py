@@ -30,6 +30,7 @@ from audio_only_speech_separation_tpu.train import AudioSystem as JAudioSystem
 from audio_only_speech_separation_tpu.train import Trainer as JTrainer
 from audio_only_speech_separation_tpu.train import make_optimizer as jmake_optimizer
 from audio_only_speech_separation_tpu.parallel import make_mesh as jmake_mesh
+from audio_only_speech_separation_tpu.parallel import shard_batch as jshard_batch
 from audio_only_speech_separation_tpu.utils.torch_import import convert, convert_tasnet
 from audio_only_speech_separation_tpu_torch import audio_train, parallel
 from audio_only_speech_separation_tpu_torch.data.audio_io import write_wav
@@ -315,3 +316,31 @@ def test_audio_train_main_on_two_ranks_matches_one_process_and_jax(tmp_path, mon
     assert len(two) == len(single) == len(jax_val) == 2
     np.testing.assert_allclose(two, single, atol=1e-3)
     np.testing.assert_allclose(single, jax_val, atol=1e-3)
+
+
+def test_shard_batch_puts_a_nested_batch_on_the_device():
+    """``shard_batch`` of a nested batch (a dict of a numpy array, a tuple
+    of an array and a tensor, and a list) returns the same nesting as
+    tensors on the rank's device, equal to the JAX function's arrays on its
+    8-device dp mesh; a mesh without the axis is refused."""
+    rng = np.random.default_rng(40)
+    batch = {"mix": rng.standard_normal((8, 5)).astype(np.float32),
+             "pair": (rng.standard_normal((8, 2, 3)).astype(np.float32), torch.arange(8)),
+             "lengths": [np.arange(8, dtype=np.int64)]}
+    got = parallel.shard_batch(batch, torch.device("cpu"))
+    want = jshard_batch({"mix": batch["mix"], "pair": (batch["pair"][0], batch["pair"][1].numpy()),
+                         "lengths": [batch["lengths"][0]]}, jmake_mesh())
+    assert isinstance(got["pair"], tuple) and isinstance(got["lengths"], list)
+    for g, w in ((got["mix"], want["mix"]), (got["pair"][0], want["pair"][0]), (got["pair"][1], want["pair"][1]),
+                 (got["lengths"][0], want["lengths"][0])):
+        assert isinstance(g, torch.Tensor) and g.device.type == "cpu"
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert parallel.shard_batch(batch["mix"], "cpu").dtype == torch.float32
+
+    class Mesh:
+        mesh_dim_names, device_type = ("dp", "sp"), "cpu"
+
+    np.testing.assert_array_equal(parallel.shard_batch(batch["mix"], Mesh()).numpy(), batch["mix"])
+    with pytest.raises(ValueError, match="no axis"):
+        parallel.shard_batch(batch["mix"], Mesh(), axis="tp")
+

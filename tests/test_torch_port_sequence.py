@@ -78,6 +78,28 @@ def test_identity_off_a_mesh():
     np.testing.assert_allclose(var.flatten(), x.reshape(2, -1).var(1, unbiased=False), rtol=1e-5, atol=1e-6)
 
 
+def test_shard_chunks_is_the_identity_off_a_mesh():
+    """``shard_chunks`` returns its input itself without an active mesh, or
+    under one without the axis: the JAX function's no-op off an sp mesh."""
+    x = torch.randn(2, 3, 5, 4)
+    assert parallel.shard_chunks(x) is x and parallel.shard_chunks(x, chunk_axis=2, axis_name="sp") is x
+    with sequence.use_mesh(None):
+        assert parallel.shard_chunks(x, axis_name="dp") is x
+
+
+def test_shard_chunks_gives_each_rank_its_share(tmp_path):
+    """On two gloo ranks of a (1, 2) mesh, each rank's ``shard_chunks`` is
+    ``shard``'s share of the chunk axis (S = 7: 4 and 3 chunks; K = 5
+    through ``chunk_axis=2``: 3 and 2), and the shares make up the tensor;
+    off the mesh, and for an axis the mesh lacks, the tensor itself."""
+    ranks = [res for res, _ in launch("sp_shard", str(tmp_path), world=2)]
+    x = np.random.default_rng(41).standard_normal((2, 3, 5, 7)).astype(np.float32)
+    assert [r["chunks"].shape[-1] for r in ranks] == [4, 3] and [r["positions"].shape[2] for r in ranks] == [3, 2]
+    np.testing.assert_array_equal(np.concatenate([r["chunks"] for r in ranks], axis=-1), x)
+    np.testing.assert_array_equal(np.concatenate([r["positions"] for r in ranks], axis=2), x)
+    assert all(r["off the mesh"] and r["other axis"] for r in ranks)
+
+
 def test_split_sizes_are_uneven_and_refuse_empty_shares():
     assert sequence.split_sizes(7, 2) == [4, 3]
     assert sequence.split_sizes(26, 3) == [9, 9, 8]

@@ -320,3 +320,45 @@ def test_trainer_and_main_default_to_the_card(manifests, tmp_path, monkeypatch):
         audio_train.main(_config(manifests, epochs=1))
     assert Trainer(str(tmp_path / "exp"), device="cpu",
                    logger=CSVLogger(str(tmp_path / "logs"))).device.type == "cpu"
+
+
+def test_make_logger_kinds_match_jax(tmp_path, monkeypatch):
+    """``make_logger`` by kind, beside the JAX package's: "csv" writes the
+    same ``scalars.csv``; "tensorboard" hands its keyword arguments to
+    ``TensorBoardLogger`` and, where that raises ImportError, falls back to
+    a ``CSVLogger`` in the same directory; "comet" raises ImportError
+    without ``comet_ml`` (in ``CometLogger``'s constructor); any other kind
+    raises ValueError.  (A stand-in takes TensorBoardLogger's place: the
+    real one would import TensorFlow here.)"""
+    import audio_only_speech_separation_tpu.train.loggers as jloggers
+
+    for i, mod in enumerate((loggers, jloggers)):
+        d = tmp_path / f"csv{i}"
+        lg = mod.make_logger("csv", str(d))
+        lg.log_scalar("loss", 0.5, 3)
+        lg.log_hyperparams({"lr": 1e-3})
+        lg.close()
+    for name in ("scalars.csv", "hparams.json"):
+        assert (tmp_path / "csv0" / name).read_text() == (tmp_path / "csv1" / name).read_text()
+    for mod in (loggers, jloggers):
+        seen = []
+        monkeypatch.setattr(mod, "TensorBoardLogger", lambda *a, **k: seen.append((a, k)) or "tb")
+        assert mod.make_logger("tensorboard", str(tmp_path / "tb"), name="run", version="1") == "tb"
+        assert seen == [((str(tmp_path / "tb"),), {"name": "run", "version": "1"})]
+
+        def unavailable(*args, **kwargs):
+            raise ImportError("no tensorboard")
+
+        monkeypatch.setattr(mod, "TensorBoardLogger", unavailable)
+        fallback = mod.make_logger("tensorboard", str(tmp_path / "fallback"))
+        assert type(fallback).__name__ == "CSVLogger" and fallback.path == str(tmp_path / "fallback" / "scalars.csv")
+        with pytest.raises(ImportError):
+            mod.make_logger("comet", str(tmp_path), project_name="p")
+        with pytest.raises(ValueError, match="unknown logger kind"):
+            mod.make_logger("wandb", str(tmp_path))
+    from audio_only_speech_separation_tpu_torch.train import CometLogger, make_logger
+
+    assert make_logger is loggers.make_logger and CometLogger is loggers.CometLogger
+    with pytest.raises(ImportError):
+        CometLogger(project_name="p")
+

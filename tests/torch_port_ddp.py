@@ -297,6 +297,23 @@ def job_sp_forward(out, work, sp):
     return res
 
 
+def job_sp_shard(out, work):
+    """``shard_chunks`` of a seeded [B, N, K, S] tensor (S = 7, K = 5) on a
+    (1, world) mesh: this rank's share of the chunk axis (the last, and K
+    through ``chunk_axis=2``), and the tensor itself off the mesh and for
+    an axis the mesh lacks."""
+    from audio_only_speech_separation_tpu_torch import parallel
+
+    parallel.init_distributed(device="cpu")
+    mesh = parallel.make_mesh("cpu", ("dp", "sp"), (1, dist.get_world_size()))
+    x = torch.from_numpy(np.random.default_rng(41).standard_normal((2, 3, 5, 7)).astype(np.float32))
+    res = {"off the mesh": parallel.shard_chunks(x) is x}
+    with parallel.use_mesh(mesh):
+        res["chunks"], res["positions"] = parallel.shard_chunks(x).numpy(), parallel.shard_chunks(x, 2).numpy()
+        res["other axis"] = parallel.shard_chunks(x, axis_name="tp") is x
+    return res
+
+
 def job_sp_train(out, work, sp, device="cpu"):
     """On a (world / ``sp``, ``sp``) mesh, each rank on its dp shard of the
     sp batch, for TasNet-DPRNN and BSRNN in f32 on ``device`` (gloo on the
@@ -373,7 +390,7 @@ if __name__ == "__main__":
     torch.backends.cudnn.allow_tf32 = False
     job, out, work = sys.argv[1:4]
     res = {"step": job_step, "main": job_main, "families": job_families, "card": job_card,
-           "sp_forward": job_sp_forward, "sp_train": job_sp_train}[job](
+           "sp_forward": job_sp_forward, "sp_shard": job_sp_shard, "sp_train": job_sp_train}[job](
         out, work, *sys.argv[4:])
     with open(out, "wb") as f:
         pickle.dump(res, f)
