@@ -59,6 +59,7 @@ from ..ops.kernels.convtasnet_block import (
     pack_convtasnet_full_params_differentiable,
 )
 from ..ops.norms import CumulativeLayerNorm, GlobalLayerNorm
+from ..utils.profiling import span
 from . import register_model
 from .base import BaseModel, normalize_input, restore_output
 
@@ -289,18 +290,21 @@ def fused_inference_forward(model: ConvTasNet, wav: torch.Tensor, packed=None,
             model.state_dict(), model.R, model.X, model.num_spks, device=wav.device
         )
     *weights, dils = packed
-    x, was_one_d = normalize_input(wav)
-    Bsz, T = x.shape
-    win, pad_stride, fb_stride, rest = _pads(model, T)
-    frames = inference_frames(model, x)
-    times = frames.shape[1]
-    dec = separator(
-        frames, *weights, dilations=dils, nspk=model.num_spks,
-        sigmoid=model.activate == "sigmoid",
-    )  # [B, spk, T', win]
-    s = overlap_add(dec.reshape(Bsz * model.num_spks, times, win), fb_stride)
-    s = s[:, win - pad_stride : s.shape[-1] - (rest + win - pad_stride)]
-    return restore_output(s.reshape(Bsz, model.num_spks, -1), was_one_d)
+    with span("forward.frame"):
+        x, was_one_d = normalize_input(wav)
+        Bsz, T = x.shape
+        win, pad_stride, fb_stride, rest = _pads(model, T)
+        frames = inference_frames(model, x)
+        times = frames.shape[1]
+    with span("forward.separator"):
+        dec = separator(
+            frames, *weights, dilations=dils, nspk=model.num_spks,
+            sigmoid=model.activate == "sigmoid",
+        )  # [B, spk, T', win]
+    with span("forward.overlap_add"):
+        s = overlap_add(dec.reshape(Bsz * model.num_spks, times, win), fb_stride)
+        s = s[:, win - pad_stride : s.shape[-1] - (rest + win - pad_stride)]
+        return restore_output(s.reshape(Bsz, model.num_spks, -1), was_one_d)
 
 
 def _packed_train_apply(model: ConvTasNet, chain, carry=torch.bfloat16):
@@ -313,8 +317,9 @@ def _packed_train_apply(model: ConvTasNet, chain, carry=torch.bfloat16):
     bf = torch.bfloat16
 
     def apply_fn(params, wav):
-        we, w1s, wsgs, vecs, cs, alphas, wm, bm, wd, dils = (
-            pack_convtasnet_full_params_differentiable(params, model.R, model.X, nspk))
+        with span("train.pack"):
+            we, w1s, wsgs, vecs, cs, alphas, wm, bm, wd, dils = (
+                pack_convtasnet_full_params_differentiable(params, model.R, model.X, nspk))
         x, was_one_d = normalize_input(wav)
         Bsz, T = x.shape
         win, pad_stride, fb_stride, rest = _pads(model, T)

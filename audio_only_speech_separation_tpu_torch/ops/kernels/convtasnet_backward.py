@@ -21,6 +21,7 @@ from typing import Sequence
 
 import torch
 
+from ...utils.profiling import span
 from .convtasnet_block import _C, _TILE, _check, fused_tcn_separator, tcn_chain_reference
 
 
@@ -123,8 +124,9 @@ class TCNChain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w1s, wsgs, vecs, cs, alphas, dilations):
-        y, y_hist, stats = fused_tcn_separator(x, w1s, wsgs, vecs, cs, alphas, dilations,
-                                               save_state=True)
+        with span("kernels.k2"):
+            y, y_hist, stats = fused_tcn_separator(x, w1s, wsgs, vecs, cs, alphas, dilations,
+                                                   save_state=True)
         ctx.dilations = tuple(dilations)
         ctx.save_for_backward(y_hist, y, stats, w1s, wsgs, vecs, cs, alphas)
         return y
@@ -132,8 +134,9 @@ class TCNChain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         y_hist, y, stats, w1s, wsgs, vecs, cs, alphas = ctx.saved_tensors
-        grads = fused_tcn_backward(g.contiguous(), y_hist, y, stats, w1s, wsgs, vecs, cs, alphas,
-                                   ctx.dilations)
+        with span("kernels.k3"):
+            grads = fused_tcn_backward(g.contiguous(), y_hist, y, stats, w1s, wsgs, vecs, cs, alphas,
+                                       ctx.dilations)
         dtypes = (torch.bfloat16, w1s.dtype, wsgs.dtype, vecs.dtype, cs.dtype, alphas.dtype)
         return (*(d.to(t) for d, t in zip(grads, dtypes)), None)
 

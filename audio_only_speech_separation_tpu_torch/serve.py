@@ -24,6 +24,7 @@ from .models.base import eval_mode
 from .models.convtasnet import fused_forward_eligible, fused_inference_forward
 from .models.tdanet import fast_forward_eligible, fast_inference_forward
 from .ops.kernels.convtasnet_block import pack_convtasnet_full_params
+from .utils.profiling import span
 
 
 def choose_dispatch(model, use_bf16: bool, device) -> str:
@@ -93,13 +94,22 @@ class Server:
         """One batch of 1-D utterances, right-padded with zeros to the next
         multiple of the bucket, one forward, each estimate cropped back to
         its utterance's length: [n_src, T_i] float32 arrays, in order."""
-        T_max = max(w.shape[-1] for w in wavs)
-        T_pad = -(-T_max // self.bucket) * self.bucket
-        mix_in = np.zeros((len(wavs), T_pad), np.float32)
-        for j, w in enumerate(wavs):
-            mix_in[j, : w.shape[-1]] = w
-        est = self.forward(torch.from_numpy(mix_in).to(self.device)).float().cpu().numpy()
-        return [est[j, :, : w.shape[-1]] for j, w in enumerate(wavs)]
+        with span("serve.call"):
+            with span("serve.pad"):
+                T_max = max(w.shape[-1] for w in wavs)
+                T_pad = -(-T_max // self.bucket) * self.bucket
+                mix_in = np.zeros((len(wavs), T_pad), np.float32)
+                for j, w in enumerate(wavs):
+                    mix_in[j, : w.shape[-1]] = w
+            with span("serve.h2d"):
+                staged = [torch.from_numpy(mix_in).to(self.device)]
+            with span("serve.forward"):
+                # popped, not named: the forward's bf16 cast then frees the float32 input
+                est = self.forward(staged.pop())
+            with span("serve.d2h"):
+                est = est.float().cpu().numpy()
+            with span("serve.crop"):
+                return [est[j, :, : w.shape[-1]] for j, w in enumerate(wavs)]
 
 
 def serve(model, wavs: Sequence[np.ndarray], use_bf16: bool, device,

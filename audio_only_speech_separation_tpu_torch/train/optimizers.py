@@ -33,6 +33,8 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 _KNOWN = ("adam", "adamw", "sgd", "rmsprop", "adagrad", "adamax", "radam", "lamb", "novograd", "yogi",
           "lars", "sm3", "adafactor", "adabelief")
 RANGER_FAULT = ("optimizer 'ranger' is not ported: the JAX package's ranger (optax.lookahead over radam) "
@@ -363,8 +365,11 @@ class Optimizer:
         return norm
 
     def step(self) -> None:
-        self.clip_grads()
-        self.opt.step()
+        with span("optim.step"):
+            with span("optim.clip"):
+                self.clip_grads()
+            with span("optim.update"):
+                self.opt.step()
 
     def state_dict(self):
         return self.opt.state_dict()

@@ -79,6 +79,7 @@ from ..models import save_serialized, serialize
 from ..ops.dropout import seed_generators
 from ..parallel import dp_shard_info, local_mesh, local_shard_info, make_mesh, sequence, shard_batch
 from ..utils.console import print_only
+from ..utils.profiling import span
 from .checkpoints import CheckpointManager
 from .loggers import BaseLogger, make_default_logger
 from .optimizers import get_learning_rate, set_learning_rate
@@ -104,10 +105,12 @@ def bf16_forward(model, fused: bool = False, apply_fn=None, **kernel_apply):
         apply_fn = make_kernel_train_apply(model, **kernel_apply)
 
     def forward(mix):
-        cast = {k: p.to(bf) if p.dtype == torch.float32 else p for k, p in params.items()}
+        with span("train.cast"):
+            cast = {k: p.to(bf) if p.dtype == torch.float32 else p for k, p in params.items()}
+            mix = mix.to(bf)
         if apply_fn is not None:
-            return apply_fn(cast, mix.to(bf)).float()
-        return torch.func.functional_call(model, cast, (mix.to(bf),)).float()
+            return apply_fn(cast, mix).float()
+        return torch.func.functional_call(model, cast, (mix,)).float()
 
     return forward
 
@@ -150,9 +153,10 @@ class TrainForward(nn.Module):
             return sequence.share_replicated(self.forward_fn(mix))
 
     def forward(self, mix, step: int):
-        if self.remat:
-            return checkpoint(self._run, mix, step, use_reentrant=False)
-        return self._run(mix, step)
+        with span("train.forward"):
+            if self.remat:
+                return checkpoint(self._run, mix, step, use_reentrant=False)
+            return self._run(mix, step)
 
 
 class EarlyStopping:

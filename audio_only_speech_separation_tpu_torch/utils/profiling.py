@@ -1,5 +1,5 @@
-"""Parameter counts, operation and byte counts, traces and step timing
-(counterpart of ``audio_only_speech_separation_tpu/utils/profiling.py``;
+"""Parameter counts, operation and byte counts, traces and the port's
+spans (counterpart of ``audio_only_speech_separation_tpu/utils/profiling.py``;
 the reference measured MACs with ptflops, unit_tests.py:22,
 evaluated_mac_params.py:49).
 
@@ -15,7 +15,11 @@ evaluated_mac_params.py:49).
   name, and ``idle_share`` reads the device's idle share of a window from
   their total (``chip_smoke.py``'s profiled phases and
   ``profile_trace_ops.py`` both read them);
-- ``StepTimer`` keeps rolling per-step wall-clock statistics.
+- ``span(name)`` marks a stretch of the port's host work (``serve.*``,
+  ``forward.*``, ``train.*``, ``kernels.*``, ``optim.*``) as an event on
+  ``torch.profiler``'s timeline while a profiler records, on the clock of
+  the device operations it issues; with no profiler running it costs one
+  flag read and does nothing else.
 
 The counts are not XLA's ``cost_analysis``, which the JAX package reads:
 
@@ -38,17 +42,27 @@ The counts are not XLA's ``cost_analysis``, which the JAX package reads:
 from __future__ import annotations
 
 import contextlib
-import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Tuple
 
-import numpy as np
 import torch
 from torch import nn
+from torch.autograd import profiler as _autograd_profiler
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
-from torch.utils.flop_counter import FlopCounterMode
 
-from ..ops.rnn import _LSTMParams
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager over a stretch of the port's host work named
+    ``<layer>.<phase>``: ``torch.profiler.record_function(name)`` while a
+    ``torch.profiler`` records (``profile_trace``, the benchmark's traced
+    stretch), else one shared no-op.  Nesting on one thread gives a span
+    its parent.  Names never start with ``bench.`` or ``ProfilerStep``,
+    which the benchmark's trace reader keeps for its own spans."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def count_params(module: nn.Module) -> int:
@@ -56,6 +70,8 @@ def count_params(module: nn.Module) -> int:
     ``nn.LSTM``'s two biases so that look2hear's checkpoints load, but its
     computation takes their sum (``ops/rnn.py``), the one bias of the JAX
     package's tree: the pair counts once."""
+    from ..ops.rnn import _LSTMParams  # here, not at the top: ops/ imports this module for ``span``
+
     n = sum(p.numel() for p in module.parameters())
     for m in module.modules():
         if isinstance(m, _LSTMParams) and m.use_bias:
@@ -84,6 +100,10 @@ def estimate_cost(fn: Callable, *args) -> Dict[str, float]:
     ``{"flops": products' FLOPs, "bytes_accessed": every operation's input
     and output bytes}`` (see the module docstring for how both differ from
     the JAX package's XLA counts)."""
+    # imported here: the serving and training paths import this module for
+    # ``span``, and this import took ≈ 0.35 s on an H100 machine's host (torch 2.11)
+    from torch.utils.flop_counter import FlopCounterMode
+
     flops = FlopCounterMode(display=False)
     moved = _ByteCounter()
     # not under no_grad: FlopCounterMode's module tracker hooks the
@@ -121,30 +141,3 @@ def idle_share(busy_ms: float, wall_ms: float) -> float:
     taken as not overlapping)."""
     return 1.0 - busy_ms / wall_ms
 
-
-class StepTimer:
-    """Rolling per-step wall-clock statistics for a train loop (host clock;
-    the caller synchronises the card inside the step where it needs device
-    time)."""
-
-    def __init__(self, window: int = 50):
-        self.window = window
-        self.times = []
-        self._t0: Optional[float] = None
-
-    def start(self):
-        self._t0 = time.perf_counter()
-
-    def stop(self):
-        if self._t0 is not None:
-            self.times.append(time.perf_counter() - self._t0)
-            self.times = self.times[-self.window:]
-            self._t0 = None
-
-    @property
-    def mean(self) -> float:
-        return float(np.mean(self.times)) if self.times else float("nan")
-
-    @property
-    def p50(self) -> float:
-        return float(np.median(self.times)) if self.times else float("nan")

@@ -1,7 +1,7 @@
 """The port's measurement entry points on the CPU: ``utils/profiling.py``
 against the JAX package's (the parameter count of all 13 configs, the
-FLOPs within the tolerance measured for XLA's count), ``StepTimer`` and
-``profile_trace``, and ``bench``, ``bench_train``, ``evaluated_mac_params``
+FLOPs within the tolerance measured for XLA's count), ``profile_trace``,
+and ``bench``, ``bench_train``, ``evaluated_mac_params``
 and ``unit_tests`` run through their ``main`` at tiny shapes with
 ``--device cpu`` (their kernels' plain versions).  On the card the bench
 and ``bench_train`` run in ``chip_smoke.py`` (phases 44-45).
@@ -40,7 +40,6 @@ from audio_only_speech_separation_tpu_torch import (
 )
 from audio_only_speech_separation_tpu_torch.serve import Server
 from audio_only_speech_separation_tpu_torch.utils.profiling import (
-    StepTimer,
     count_params,
     estimate_cost,
     profile_trace,
@@ -115,14 +114,7 @@ def test_estimate_cost_flops_within_the_measured_tolerance_of_xla(case):
     assert got["bytes_accessed"] >= x.nbytes * (1 + 2)  # the wave in, two speakers out
 
 
-def test_step_timer_and_profile_trace(tmp_path):
-    timer = StepTimer(window=2)
-    assert np.isnan(timer.mean) and np.isnan(timer.p50)
-    for _ in range(3):
-        timer.start()
-        timer.stop()
-    timer.stop()  # no start: nothing recorded
-    assert len(timer.times) == 2 and timer.mean >= 0 and timer.p50 >= 0
+def test_profile_trace(tmp_path):
     with profile_trace(str(tmp_path)):
         torch.ones(4) @ torch.ones(4)
     assert any(name.endswith(".json") for name in os.listdir(tmp_path))

@@ -60,6 +60,8 @@ NOT_PORTED = {
                               "library whenever a source's hash changes (ops/kernels/_build.py)",
     "utils/torch_import.py": "converts look2hear torch checkpoints for the JAX models; the port's modules "
                              "take those state_dicts as they are",
+    "StepTimer": "rolling wall-clock statistics of a train loop that nothing in the port read; the port's "
+                 "timings come from torch.profiler, with utils/profiling.py::span marking its layers",
     "batch_sharding": _SHARDING,
     "replicated_sharding": _SHARDING,
     "maybe_shard": _SHARDING,
