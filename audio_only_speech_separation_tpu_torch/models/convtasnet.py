@@ -311,8 +311,10 @@ def _packed_train_apply(model: ConvTasNet, chain, carry=torch.bfloat16):
     """``apply_fn(params, wav)``: the encoder, the bottleneck gLN + 1x1 in
     the delayed form, ``chain`` over the R*X blocks, the mask head and the
     decoder, on weights packed per call by differentiable folds (gradients
-    reach ``params`` through them).  bf16 operands with f32 products;
-    ``carry`` is the dtype of y between the blocks."""
+    reach ``params`` through them), from ``params`` rounded to bf16 in the
+    packing's one pass (f32 masters or their bf16 casts give the same
+    bits).  bf16 operands with f32 products; ``carry`` is the dtype of y
+    between the blocks."""
     nspk = model.num_spks
     bf = torch.bfloat16
 
@@ -355,9 +357,10 @@ def make_kernel_train_apply(model: ConvTasNet, chain=tcn_chain):
     the JAX package's ``make_kernel_train_apply``).
 
     Returns ``apply_fn(params, wav) -> [B, nspk, T] bf16``, where ``params``
-    is ``{state_dict name: tensor}`` (the trainer passes bf16 casts of the
-    f32 master parameters) and ``wav`` is bf16.  The weights are packed per
-    call by differentiable f32 folds; the encoder, the bottleneck gLN + 1x1
+    is ``{state_dict name: tensor}`` (the trainer passes the f32 master
+    parameters, which the packing rounds to bf16 in one pass; their bf16
+    casts give the same bits) and ``wav`` is bf16.  The weights are packed
+    per call by differentiable f32 folds; the encoder, the bottleneck gLN + 1x1
     (delayed form), the mask head and the decoder are plain ops with bf16
     operands and f32 products; the R*X blocks run as ``chain``, by default
     ``tcn_chain`` (forward and backward kernels on CUDA tensors, their

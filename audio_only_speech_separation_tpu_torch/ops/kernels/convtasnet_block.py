@@ -29,7 +29,6 @@ block's input (``y_hist``) and gLN statistics for the backward
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Sequence
 
 import numpy as np
@@ -126,54 +125,63 @@ def pack_convtasnet_full_params(state_dict, R: int, X: int, num_spks: int, devic
     return we, w1s, wsgs, vecs, cs, alphas, wm, bm, wd, dils
 
 
+# a TCN block's leaves, in the differentiable packer's kind-major order, each with the bottleneck's
+# leaf that takes its place in pseudo-block 0 (None: that row is zeros)
+_BLOCK_LEAVES = {
+    "conv1x1.weight": None, "conv1x1.bias": None, "prelu1.weight": None, "norm1.weight": None,
+    "norm1.bias": None, "dwconv.weight": None, "dwconv.bias": None, "prelu2.weight": None,
+    "norm2.weight": "bottleneck.0.weight", "norm2.bias": "bottleneck.0.bias",
+    "sconv.weight": "bottleneck.1.weight", "sconv.bias": "bottleneck.1.bias",
+}
+_OTHER_LEAVES = ("encoder._filters", "mask.weight", "mask.bias", "decoder._filters")
+
+
 def pack_convtasnet_full_params_differentiable(params, R: int, X: int, num_spks: int):
     """``pack_convtasnet_full_params`` as differentiable torch ops, for
     training (counterpart of the JAX package's
     ``pack_convtasnet_full_params_jnp``): the folds run in f32 from
-    ``params`` (``{state_dict name: tensor}``, any float dtype, e.g. the
-    bf16 casts of a module's parameters), so autograd carries gradients of
-    the packed layout back to them.  Same return layout, on the params'
-    device."""
+    ``params`` (``{state_dict name: tensor}``, a module's f32 parameters or
+    their bf16 casts, rounded to bf16 first), so autograd carries gradients
+    of the packed layout back to them.  Same return layout, on the params'
+    device.
+
+    The leaves are packed in one stacked pass, whatever R*X: each kind of
+    block leaf stacked over the blocks, the bottleneck's in front as
+    pseudo-block 0, then all of them as one flat tensor with the encoder,
+    mask and decoder last, rounded once to bf16 (the mixed precision's cast
+    of f32 leaves, whose backward rounds each gradient to bf16; a no-op on
+    bf16 casts), cast to f32, viewed a kind at a time, and folded batched
+    over the blocks.  Per element that is the arithmetic of a cast and a
+    fold a leaf; the number of ops does not grow with R*X."""
     bf, f32 = torch.bfloat16, torch.float32
+    pad = torch.nn.functional.pad
+    blocks = [f"separation.sep.{r}.tcn.{i}." for r in range(R) for i in range(X)]
+    kinds = {k: torch.stack(([params[b0]] if b0 else []) + [params[pre + k] for pre in blocks])
+             for k, b0 in _BLOCK_LEAVES.items()}  # [nb or nb + 1, *leaf]
+    kinds.update((k, params[k]) for k in _OTHER_LEAVES)
+    flat = torch.cat([t.reshape(-1) for t in kinds.values()]).to(bf)
+    parts = flat.to(f32).split([t.numel() for t in kinds.values()])
+    p = {k: part.view(t.shape) for (k, t), part in zip(kinds.items(), parts)}
 
-    def p(name):
-        return params[name].to(f32)
-
-    w1s, wsgs, vecs, cs, alphas, dils = [], [], [], [], [], []
-    for r in range(R):
-        for i in range(X):
-            pre = f"separation.sep.{r}.tcn.{i}"
-            w1s.append(p(f"{pre}.conv1x1.weight")[:, :, 0].t())  # [C, H]
-            ws = p(f"{pre}.sconv.weight")[:, :, 0].t()  # [H, C]
-            g2, b2 = p(f"{pre}.norm2.weight"), p(f"{pre}.norm2.bias")
-            wsgs.append(ws * g2[:, None])
-            cs.append(torch.stack([b2 @ ws + p(f"{pre}.sconv.bias"), g2 @ ws]))
-            dw = p(f"{pre}.dwconv.weight")  # [H, 1, 3]
-            # rows in _B1/_DWB/_G1/_BT1/_DW0/_DW1/_DW2 order; row 7 is padding
-            vecs.append(torch.stack([
-                p(f"{pre}.conv1x1.bias"), p(f"{pre}.dwconv.bias"),
-                p(f"{pre}.norm1.weight"), p(f"{pre}.norm1.bias"),
-                dw[:, 0, 0], dw[:, 0, 1], dw[:, 0, 2], torch.zeros_like(dw[:, 0, 0]),
-            ]))
-            alphas.append(torch.cat([p(f"{pre}.prelu1.weight"), p(f"{pre}.prelu2.weight")]))
-            dils.append(2**i)
-
-    g, bt = p("bottleneck.0.weight"), p("bottleneck.0.bias")
-    wbn = p("bottleneck.1.weight")[:, :, 0].t()  # [N, C]
-    C, H = w1s[0].shape
-    zeros = functools.partial(torch.zeros, dtype=f32, device=wbn.device)
-    w1s = torch.cat([zeros((1, C, H)), torch.stack(w1s)]).to(bf)
-    wsgs = torch.cat([(wbn * g[:, None])[None], torch.stack(wsgs)]).to(bf)
-    vecs = torch.cat([zeros((1, 8, H)), torch.stack(vecs)])
-    cs = torch.cat([torch.stack([bt @ wbn + p("bottleneck.1.bias"), g @ wbn])[None], torch.stack(cs)])
-    alphas = torch.cat([zeros((1, 2)), torch.stack(alphas)])
-    we = p("encoder._filters")[:, 0, :].t().to(bf)  # [win, N]
-    wm = p("mask.weight")[:, :, 0].t().to(bf)  # [C, nspk*N]
-    bm = p("mask.bias")[None, :]
-    wd = p("decoder._filters")[:, 0, :].to(bf)  # [N, win]
-    if wm.shape != (C, num_spks * wbn.shape[0]):
+    ws = p["sconv.weight"].squeeze(3).transpose(1, 2)  # [nb + 1, H, C]
+    g2, b2 = p["norm2.weight"], p["norm2.bias"]  # [nb + 1, H]
+    wsgs = (ws * g2[:, :, None]).to(bf, memory_format=torch.contiguous_format)  # the kernels take it contiguous
+    cs = torch.stack([torch.bmm(b2[:, None], ws).squeeze(1) + p["sconv.bias"],
+                      torch.bmm(g2[:, None], ws).squeeze(1)], 1)
+    # pseudo-block 0 has no 1x1 in, taps or slopes: zeros
+    w1s = pad(p["conv1x1.weight"].squeeze(3).transpose(1, 2), (0, 0, 0, 0, 1, 0)).to(bf)  # [nb + 1, C, H]
+    # rows in _B1/_DWB/_G1/_BT1/_DW0/_DW1/_DW2 order; row 7 is padding
+    vecs = pad(torch.stack([p["conv1x1.bias"], p["dwconv.bias"], p["norm1.weight"], p["norm1.bias"],
+                            *p["dwconv.weight"].squeeze(2).unbind(2)], 1), (0, 0, 0, 1, 1, 0))
+    alphas = pad(torch.cat([p["prelu1.weight"], p["prelu2.weight"]], 1), (0, 0, 1, 0))
+    we = p["encoder._filters"].squeeze(1).t().to(bf)  # [win, N]
+    wm = p["mask.weight"].squeeze(2).t().to(bf)  # [C, nspk*N]
+    bm = p["mask.bias"][None, :].clone()  # its own allocation: K1 reads it in 16-byte loads
+    wd = p["decoder._filters"].squeeze(1).to(bf)  # [N, win]
+    C = w1s.shape[1]
+    if wm.shape != (C, num_spks * we.shape[1]):
         raise ValueError(f"mask weight {tuple(wm.shape)} does not match {num_spks} speakers")
-    return we, w1s, wsgs, vecs, cs, alphas, wm, bm, wd, tuple(dils)
+    return we, w1s, wsgs, vecs, cs, alphas, wm, bm, wd, tuple(2**i for i in range(X)) * R
 
 
 # ---------------------------------------------------------------------------
@@ -400,6 +408,7 @@ def fused_convtasnet_separator(frames, we, w1s, wsgs, vecs, cs, alphas, wm, bm, 
     _check("alphas", alphas, (nb + 1, 2), f32, dev)
     _check("wm", wm, (_C, nspk * H), bf, dev)
     _check("bm", bm, (1, nspk * H), f32, dev)
+    _check_aligned("bm", bm)
     _check("wd", wd, (H, W), bf, dev)
 
     n_tiles = -(-T // _TILE)

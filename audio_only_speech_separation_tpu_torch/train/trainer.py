@@ -12,8 +12,9 @@ for the reference, written out.
   copy, so on the card the attention and LSTM layers take the kernels K4,
   K5 and K6 (their backwards recompute through the plain versions).  With
   ``fused_forward=True`` a ConvTasNet instead runs
-  ``models.convtasnet.make_kernel_train_apply`` on the same casts (the TCN
-  chain through its forward and backward kernels).
+  ``models.convtasnet.make_kernel_train_apply``, whose weight packing takes
+  the same bf16 casts in one stacked pass (the TCN chain through its
+  forward and backward kernels).
 - Data parallel: under a process group (``parallel.init_distributed``,
   one process a card) the train forward runs under
   ``DistributedDataParallel`` over the ``dp`` mesh, each rank on its own
@@ -92,11 +93,12 @@ def bf16_forward(model, fused: bool = False, apply_fn=None, **kernel_apply):
     """The JAX Trainer's mixed-precision forward: est = forward(mix) in f32
     from bf16 casts of ``model``'s f32 parameters and of the mix (the
     gradients reach the f32 parameters through the casts).  With ``fused``
-    (a ConvTasNet) ``make_kernel_train_apply`` runs on the casts (the TCN
-    chain through its forward and backward kernels; ``kernel_apply`` is
-    passed to it), with ``apply_fn`` (``apply_fn(params, mix)``, e.g. one of
-    ConvTasNet's other train forms) that function, otherwise
-    ``torch.func.functional_call``."""
+    (a ConvTasNet) ``make_kernel_train_apply`` runs on the f32 parameters,
+    which its weight packing rounds to bf16 in one pass (the TCN chain
+    through its forward and backward kernels; ``kernel_apply`` is passed to
+    it); with ``apply_fn`` (``apply_fn(params, mix)``, e.g. one of
+    ConvTasNet's other train forms) that function on the casts, one a
+    parameter; otherwise ``torch.func.functional_call`` on them."""
     bf = torch.bfloat16
     params = dict(model.named_parameters())
     if fused:
@@ -106,7 +108,7 @@ def bf16_forward(model, fused: bool = False, apply_fn=None, **kernel_apply):
 
     def forward(mix):
         with span("train.cast"):
-            cast = {k: p.to(bf) if p.dtype == torch.float32 else p for k, p in params.items()}
+            cast = params if fused else {k: p.to(bf) if p.dtype == torch.float32 else p for k, p in params.items()}
             mix = mix.to(bf)
         if apply_fn is not None:
             return apply_fn(cast, mix).float()

@@ -5,9 +5,12 @@ On the CPU: with no profiler running a span is one shared no-op and never
 enters ``record_function``; under ``torch.profiler`` a ``Server`` call, the
 fused inference forward, and a bf16 train step through the TCN chain's
 kernels (their plain versions here) give each span once, nested as the
-layers call each other; the four ``program_span`` readers of ``port_bench``
-on hand-built traces.  On the card (marker ``cuda``): a traced run of each
-cell reads the four metrics, and no span is counted as device work.  This
+layers call each other, with the parameters' one bf16 rounding inside
+``train.pack``; the five ``program_span`` readers of ``port_bench`` on
+hand-built traces; ``port_bench.launches``' tally of a train step's
+launches by phase, on a hand-built trace and on the train cell at its CPU
+widths.  On the card (marker ``cuda``): a traced run of each
+cell reads the metrics of its own, and no span is counted as device work.  This
 file imports no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_tracing.py
@@ -25,6 +28,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from audio_only_speech_separation_tpu_torch.models import ConvTasNet
 from audio_only_speech_separation_tpu_torch.models.convtasnet import fused_inference_forward
+from audio_only_speech_separation_tpu_torch.ops import kernels
 from audio_only_speech_separation_tpu_torch.ops.kernels.convtasnet_block import (
     convtasnet_separator_reference,
     pack_convtasnet_full_params,
@@ -33,12 +37,14 @@ from audio_only_speech_separation_tpu_torch.serve import Server
 from audio_only_speech_separation_tpu_torch.train import Trainer, make_optimizer
 from audio_only_speech_separation_tpu_torch.train.loggers import BaseLogger
 from audio_only_speech_separation_tpu_torch.utils import profiling
-from port_bench import harness
+from port_bench import harness, launches
 from port_bench import run as bench_run
 from port_bench import trace as tracing
+from port_bench.tests.small import small_cell
 
 PROGRAM = ("serve.", "forward.", "train.", "kernels.", "optim.")
-METRICS = ("serve.host_ms", "serve.forward_issue_ms", "train.forward_issue_ms", "train.optimizer_ms")
+METRICS = ("serve.host_ms", "serve.forward_issue_ms", "train.forward_issue_ms", "train.optimizer_ms",
+           "train.pack_ms")
 SR = 8000
 
 
@@ -152,6 +158,25 @@ def test_train_step_spans(tmp_path):
     assert _within(clip, opt) and _within(update, opt) and clip[1] <= update[0]
 
 
+def test_train_step_rounds_the_leaves_in_the_pack(tmp_path):
+    """(b) On the fused train step ``train.pack`` holds the parameters' bf16
+    rounding, one cast of all of them as one flat tensor, and ``train.cast``
+    (once, inside ``train.forward``) casts the mix alone."""
+    model = _model()
+    n = sum(p.numel() for p in model.parameters())
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        _train_step(model, tmp_path)
+    events = prof.events()
+
+    def inside(name):
+        (span,) = [e for e in events if e.name == name]
+        lo, hi = span.time_range.start, span.time_range.end
+        return [e for e in events if e.name == "aten::_to_copy" and lo <= e.time_range.start and e.time_range.end <= hi]
+
+    assert [e.input_shapes[0] for e in inside("train.cast")] == [[1 * 2, int(0.25 * SR)]]
+    assert [n] in [e.input_shapes[0] for e in inside("train.pack")]
+
+
 MS = 1_000_000  # ns
 
 
@@ -171,6 +196,7 @@ def _serve_ops(t0):
 
 def _train_ops(t0):
     return [("train.forward", t0 * MS, (t0 + 30) * MS), ("train.cast", t0 * MS, (t0 + 5) * MS),
+            ("train.pack", (t0 + 20) * MS, (t0 + 22) * MS),
             ("optim.step", (t0 + 70) * MS, (t0 + 78) * MS), ("optim.clip", (t0 + 70) * MS, (t0 + 72) * MS)]
 
 
@@ -179,6 +205,7 @@ def _train_ops(t0):
     ("serve.forward_issue_ms", _serve_ops(200) + _serve_ops(300), {"requests": 2}, 4.0),
     ("train.forward_issue_ms", _train_ops(200) + _train_ops(400), {"steps": 2}, 30.0),
     ("train.optimizer_ms", _train_ops(200) + _train_ops(400), {"steps": 2}, 8.0),
+    ("train.pack_ms", _train_ops(200) + _train_ops(400), {"steps": 2}, 2.0),
 ])
 def test_readers_on_a_hand_built_trace(metric, ops, per, want):
     """(c) Known spans give the expected mean; spans outside the window (one
@@ -193,6 +220,36 @@ def test_readers_on_a_hand_built_trace(metric, ops, per, want):
     assert reader.read(SimpleNamespace(cell=None, trace=None, read={})) is None
 
 
+
+def test_launch_tally_on_a_hand_built_trace():
+    """(d) ``port_bench.launches`` gives each ``cudaLaunchKernel`` and
+    ``cuLaunchKernel`` call to the phase whose span holds it (the
+    backward's, from autograd's thread, to ``backward``), counts copies
+    and host ops as no launch, and divides by the steps."""
+    spans = [(f"bench.{p}", (100 * i + t0) * MS, (100 * i + t0 + 50) * MS)
+             for t0 in (0, 1000) for i, p in enumerate(launches.PHASES)]
+    host_ops = [("cudaLaunchKernel", 110 * MS, 110 * MS), ("cuLaunchKernelEx", 1120 * MS, 1120 * MS),
+                ("cudaLaunchKernelExC", 1320 * MS, 1320 * MS), ("cudaLaunchKernel", 1330 * MS, 1330 * MS),
+                ("cudaMemcpyAsync", 140 * MS, 140 * MS), ("aten::mm", 130 * MS, 131 * MS),
+                ("cudaLaunchKernel", 470 * MS, 470 * MS)]  # between two steps: no phase
+    tr = tracing.Trace(device=[("k", 0, 1)] * 6, spans=spans, host_ops=host_ops)
+    got = launches.tally(tr, 2)
+    assert got["launches_a_step"] == 2.5 and got["device_ops_a_step"] == 3
+    assert {p: v["launches"] for p, v in got["phases"].items()} == {
+        "zero_grad": 0, "forward": 1, "loss": 0, "backward": 1, "optimizer": 0}
+    assert all(v["host_ms"] == 50 for v in got["phases"].values())
+
+
+def test_launch_counter_runs_the_train_cell_on_the_cpu():
+    """(d) The counter drives the train cell's step at its CPU widths (the
+    TCN chain's plain versions) and finds every phase's span: no CUDA
+    runtime here, so no launch."""
+    cell = small_cell("convtasnet_lrs3.train_b12_2s")
+    with kernels.plain_versions():
+        got = launches.count(cell, 2**31 + 19, 2, torch.device("cpu"))
+    assert got["untraced_step_ms"] > 0 and got["launches_a_step"] == 0
+    assert all(v["host_ms"] > 0 and v["launches"] == 0 for v in got["phases"].values())
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -203,12 +260,12 @@ def card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["convtasnet_lrs3.serve_b8_2s", "convtasnet_lrs3.train_b12_2s"])
 def test_traced_cell_reads_the_span_metrics(card, name, capsys):
-    """A 2 s ``--trace 1`` run of the cell reads each of the four metrics it
-    reports as a finite number, and no span of the port is among the
-    device operations."""
+    """A 2 s ``--trace 1`` run of the cell reads each of the span metrics it
+    reports (two serving, three training) as a finite number, and no span
+    of the port is among the device operations."""
     assert bench_run.main(["--workload", name, "--seed", str(2**31 + 18), "--seconds", "2", "--trace", "1"]) == 0
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     reported = [m["name"] for m in harness.load_cell(name).per_layer if m["name"] in METRICS]
-    assert len(reported) == 2 and line["correct"] is True
+    assert len(reported) == (3 if name.endswith("train_b12_2s") else 2) and line["correct"] is True
     assert all(math.isfinite(line["metrics"][m]["value"]) and line["metrics"][m]["value"] > 0 for m in reported)
     assert not [n for n, _ in line["breakdown"]["device_ops"] if n.startswith(PROGRAM)]

@@ -57,18 +57,23 @@ def _port_grads_as_jax_tree(names, grads, R, X):
 
 
 def test_differentiable_packer_matches_jnp_packer():
-    """Values: the f32 outputs within 1e-5 relative, the bf16 ones within
-    one bf16 rounding (the f32 folds sum in different orders).  VJP: the
-    same random cotangents through both packers give the same parameter
-    gradients, within 1e-5 relative, once the port's are mapped back
-    through utils/torch_import.convert_convtasnet."""
+    """Both packers on the parameters rounded to bf16 (the port's packer
+    rounds its inputs itself; the JAX one is given the rounding, as its
+    training forward's casts have it).  Values: the f32 outputs within 1e-5
+    relative, the bf16 ones within one bf16 rounding (the f32 folds sum in
+    different orders).  VJP: the same random cotangents through both
+    packers give the same parameter gradients, within 1e-5 relative, once
+    the port's are mapped back through utils/torch_import.convert_convtasnet."""
     jm, params, tm = make_pair(seed=21)
     R, X, nspk = tm.R, tm.X, tm.num_spks
     names = [n for n, _ in tm.named_parameters()]
     tparams = {n: p.detach().clone().requires_grad_() for n, p in tm.named_parameters()}
 
+    def rounded(p):
+        return jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16).astype(jnp.float32), p)
+
     jp = jax.tree_util.tree_map(jnp.asarray, params)
-    want, vjp = jax.vjp(lambda p: pack_convtasnet_full_params_jnp(p, R, X, nspk)[:9], jp)
+    want, vjp = jax.vjp(lambda p: pack_convtasnet_full_params_jnp(rounded(p), R, X, nspk)[:9], jp)
     got = pack_convtasnet_full_params_differentiable(tparams, R, X, nspk)
     assert got[9] == tuple(2**i for i in range(X)) * R
     rng = np.random.default_rng(22)
