@@ -50,6 +50,7 @@ from ..ops.conv import frame_signal, overlap_add
 from ..ops.dropout import Dropout
 from ..ops.norms import GlobalLayerNorm
 from ..parallel import sequence
+from ..utils.profiling import span
 from . import register_model
 from .base import BaseModel, _arg_names, normalize_input, restore_output
 
@@ -156,15 +157,19 @@ class DualComputationBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, S: int | None = None) -> torch.Tensor:
         """x [B, N, K, S] -> [B, N, K, S]; under an ``sp`` mesh x holds this
-        rank's chunks of the S (given) and the result its positions of K."""
+        rank's chunks of the S (given) and the result its positions of K.
+        Spans ``sepformer.intra`` and ``sepformer.inter`` cover the host's
+        issue of each transformer stack."""
         B, N, K, S_r = x.shape
         S = S_r if S is None else S
         group = sequence.sp_group()
-        intra = self.intra_mdl(x.permute(0, 3, 2, 1).reshape(B * S_r, K, N))
+        with span("sepformer.intra"):
+            intra = self.intra_mdl(x.permute(0, 3, 2, 1).reshape(B * S_r, K, N))
         intra = intra.reshape(B, S_r, K, N).permute(0, 3, 2, 1)
         intra = sequence.exchange(self.intra_norm(intra, group) + x, 2, 3, S)  # [B, N, K_r, S]
         K_r = intra.shape[2]
-        inter = self.inter_mdl(intra.permute(0, 2, 3, 1).reshape(B * K_r, S, N))
+        with span("sepformer.inter"):
+            inter = self.inter_mdl(intra.permute(0, 2, 3, 1).reshape(B * K_r, S, N))
         inter = inter.reshape(B, K_r, S, N).permute(0, 3, 1, 2)
         return self.inter_norm(inter, group) + intra
 

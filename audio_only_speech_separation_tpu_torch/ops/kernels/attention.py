@@ -24,6 +24,7 @@ import math
 
 import torch
 
+from ...utils.profiling import span
 from . import grad_through_plain
 from .convtasnet_block import _check, _check_aligned
 
@@ -79,13 +80,14 @@ def fused_attention_bdt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     """softmax(q^T k / sqrt(dh)) v on [BH, dh, T] (self-attention, no mask).
 
     A CUDA tensor launches the kernel (one launch, added to
-    ``fused_attention_bdt.launches``) or raises; a CPU tensor runs
-    ``attention_bdt_reference``.  Differentiable."""
+    ``fused_attention_bdt.launches``, under the span ``kernels.k4``) or
+    raises; a CPU tensor runs ``attention_bdt_reference``.  Differentiable."""
     if q.device.type == "cpu":
         return attention_bdt_reference(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
-    return _AttentionBDT.apply(q, k, v)
+    with span("kernels.k4"):
+        return _AttentionBDT.apply(q, k, v)
 
 
 fused_attention_bdt.launches = 0

@@ -16,7 +16,8 @@ evaluated_mac_params.py:49).
   their total (``chip_smoke.py``'s profiled phases and
   ``profile_trace_ops.py`` both read them);
 - ``span(name)`` marks a stretch of the port's host work (``serve.*``,
-  ``forward.*``, ``train.*``, ``kernels.*``, ``optim.*``) as an event on
+  ``forward.*``, ``train.*``, ``kernels.*``, ``optim.*``,
+  ``sepformer.*``) as an event on
   ``torch.profiler``'s timeline while a profiler records, on the clock of
   the device operations it issues; with no profiler running it costs one
   flag read and does nothing else.

@@ -9,8 +9,10 @@ layers call each other, with the parameters' one bf16 rounding inside
 ``train.pack``; the five ``program_span`` readers of ``port_bench`` on
 hand-built traces; ``port_bench.launches``' tally of a train step's
 launches by phase, on a hand-built trace and on the train cell at its CPU
-widths.  On the card (marker ``cuda``): a traced run of each
-cell reads the metrics of its own, and no span is counted as device work.  This
+widths; a small Sepformer's ``sepformer.intra`` and ``sepformer.inter``
+spans, one a stack.  On the card (marker ``cuda``): a traced run of each
+cell reads the metrics of its own, and no span is counted as device work;
+``kernels.k4`` once a transformer layer, inside its stack's span.  This
 file imports no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_tracing.py
@@ -26,7 +28,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from audio_only_speech_separation_tpu_torch.models import ConvTasNet
+from audio_only_speech_separation_tpu_torch.models import ConvTasNet, Sepformer
 from audio_only_speech_separation_tpu_torch.models.convtasnet import fused_inference_forward
 from audio_only_speech_separation_tpu_torch.ops import kernels
 from audio_only_speech_separation_tpu_torch.ops.kernels.convtasnet_block import (
@@ -42,7 +44,7 @@ from port_bench import run as bench_run
 from port_bench import trace as tracing
 from port_bench.tests.small import small_cell
 
-PROGRAM = ("serve.", "forward.", "train.", "kernels.", "optim.")
+PROGRAM = ("serve.", "forward.", "train.", "kernels.", "optim.", "sepformer.")
 METRICS = ("serve.host_ms", "serve.forward_issue_ms", "train.forward_issue_ms", "train.optimizer_ms",
            "train.pack_ms")
 SR = 8000
@@ -52,6 +54,19 @@ def _model():
     """A ConvTasNet inside the fused kernels' envelope, at a small width."""
     return ConvTasNet(N=128, L=16, B=128, H=128, P=3, X=2, R=1, num_spks=2, sample_rate=SR,
                       generator=torch.Generator().manual_seed(0))
+
+
+def _sepformer():
+    """A Sepformer of 2 dual blocks, each stack 2 layers of 4 heads of 8."""
+    return Sepformer(encoder_out_nchannels=32, masknet_chunksize=20, intra_numlayers=2, inter_numlayers=2,
+                     intra_nhead=4, inter_nhead=4, intra_dffn=64, inter_dffn=64, sample_rate=SR,
+                     generator=torch.Generator().manual_seed(0)).eval()
+
+
+def _sepformer_call(model, device="cpu", dtype=torch.float32):
+    wav = torch.from_numpy(np.stack(_wavs(2, 0.25)[:1] * 2)).to(device=device, dtype=dtype)
+    with torch.no_grad():
+        return model(wav)
 
 
 def _wavs(n=2, seconds=0.25):
@@ -112,6 +127,32 @@ def test_no_profiler_no_record_function(monkeypatch, tmp_path):
     assert [o.shape for o in out] == [(2, len(w)) for w in _wavs()]
     est = _train_step(_model(), tmp_path)
     assert torch.isfinite(est).all()
+
+
+def test_sepformer_spans_off_the_profiler(monkeypatch):
+    """Off the profiler a Sepformer forward makes no span object: each
+    ``sepformer.*`` span is the one shared no-op, and ``record_function`` is
+    never entered."""
+    assert profiling.span("sepformer.intra") is profiling.span("kernels.k4")
+
+    def refuse(name, *args, **kwargs):
+        raise AssertionError(f"record_function({name!r}) entered with no profiler running")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    assert torch.isfinite(_sepformer_call(_sepformer())).all()
+
+
+def test_sepformer_stack_spans():
+    """Under the profiler each dual block's intra and inter stacks give one
+    ``sepformer.intra`` and one ``sepformer.inter`` span, in the order the
+    blocks run them, and nothing else of the port's; on the CPU no
+    attention takes K4, so no ``kernels.k4``."""
+    spans = _profiled(_sepformer_call, _sepformer())
+    assert sorted(spans) == ["sepformer.inter", "sepformer.intra"], dict(spans)
+    assert len(spans["sepformer.intra"]) == len(spans["sepformer.inter"]) == 2
+    order = sorted(spans["sepformer.intra"] + spans["sepformer.inter"])
+    assert order[0::2] == sorted(spans["sepformer.intra"]) and order[1::2] == sorted(spans["sepformer.inter"])
+    assert all(a[1] <= b[0] for a, b in zip(order, order[1:]))
 
 
 def test_server_call_spans_in_order():
@@ -255,6 +296,35 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the benchmark measures the card")
     return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_k4_spans_inside_the_stacks(card):
+    """A bf16 Sepformer on the card: one ``kernels.k4`` span a transformer
+    layer (8 a call here), each inside its stack's span, and as many K4
+    launches as spans."""
+    from audio_only_speech_separation_tpu_torch.ops.kernels.attention import fused_attention_bdt
+
+    model = _sepformer().to(device=card, dtype=torch.bfloat16)
+    _sepformer_call(model, card, torch.bfloat16)
+    before = fused_attention_bdt.launches
+    spans = _profiled(_sepformer_call, model, card, torch.bfloat16)
+    assert len(spans["kernels.k4"]) == 8 == fused_attention_bdt.launches - before
+    stacks = spans["sepformer.intra"] + spans["sepformer.inter"]
+    assert len(stacks) == 4 and all(sum(_within(k, st) for st in stacks) == 1 for k in spans["kernels.k4"])
+
+
+@pytest.mark.cuda
+def test_traced_sepformer_cell_reads_its_metrics(card, capsys):
+    """A 2 s ``--trace 1`` run of the Sepformer cell: 32 K4 launches a
+    request, and ``k4_roofline`` and ``serve.transformer_issue_ms`` finite
+    and above 0."""
+    name = "sepformer_base.serve_b8_2s"
+    assert bench_run.main(["--workload", name, "--seed", str(2**31 + 21), "--seconds", "2", "--trace", "1"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    got = {k: v["value"] for k, v in line["metrics"].items()}
+    assert line["correct"] is True and got["serve.k4_launches"] == 32
+    assert 0 < got["k4_roofline"] < 100 and 0 < got["serve.transformer_issue_ms"] < math.inf
 
 
 @pytest.mark.cuda
