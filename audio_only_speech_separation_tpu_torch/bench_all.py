@@ -43,7 +43,7 @@ from . import models as M
 from .bench import LRS3, time_calls
 from .models.convtasnet import fused_inference_forward
 from .ops import kernels
-from .ops.kernels.attention import fused_attention_bdt
+from .ops.kernels.attention import k4_launches
 from .ops.kernels.convtasnet_block import (
     convtasnet_separator_reference,
     fused_convtasnet_separator,
@@ -83,7 +83,7 @@ SECONDS = 2.0
 ITERS = 50
 K2_FRAMES = 8008  # scripts/bench_kernel_only.py's T' at 2 s (scaled with --seconds)
 PEAK_FLOPS = 989e12  # H100 SXM bf16 dense tensor-core peak, FLOP/s
-COUNTERS = {"K1": fused_convtasnet_separator, "K2": fused_tcn_separator, "K4": fused_attention_bdt,
+COUNTERS = {"K1": fused_convtasnet_separator, "K2": fused_tcn_separator, "K4": k4_launches,
             "K5": fused_bilstm, "K6": resident_bilstm}
 
 

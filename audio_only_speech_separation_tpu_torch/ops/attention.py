@@ -9,12 +9,15 @@ Dispatch, per call:
 - bf16 self-attention on a CUDA device (``kernels.kernel_input``), with no
   mask and no training dropout, and a head width the kernel takes
   (``attention_kernel_ok``: dh % 8 == 0, 8 <= dh <= 256): the kernel form.
-  The q, k and v projections are written straight in the kernel's
-  [B*h, dh, T] layout (library matmuls, f32-accumulated, rounded to bf16,
-  as the JAX package leaves them to XLA), attention is the CUDA kernel K4
-  (``ops/kernels/attention.py::fused_attention_bdt``, FlashAttention-2 on
+  On [B, T, E] it is three launches: one library product into the packed
+  in-projection [B*T, 3E], the CUDA kernel K4 reading q, k and v straight
+  from it and writing its output in token order
+  (``ops/kernels/attention.py::fused_attention_packed``, FlashAttention-2 on
   mma.sync, or its plain version inside ``ops.kernels.plain_versions()``),
-  then the output projection.  Any T: the JAX package's TPU gate
+  and the output product.  Each product accumulates in f32 and adds its
+  bias in f32 before its one rounding to bf16, as the layer's FFN
+  ``nn.Linear``s do (the JAX package leaves the products to XLA and adds
+  the biases after the rounding).  Any T: the JAX package's TPU gate
   (``attention_eligible``) is dropped.
 - anything else (f32, a CPU tensor, a mask, cross-attention, training
   dropout, a head width outside the envelope): the plain einsum form, f32
@@ -26,7 +29,8 @@ blocks), self-attention only, with the same dispatch.  Its kernel form
 writes q, k and v straight into K4's [B*K*h, dh, T] layout and the output
 projection straight back to [B, T, K, E], each a batched product over K
 whose operands are strided views of the block tensor, so no transposed
-copy of it is made; its plain form is the JAX einsum path.
+copy of it is made, around K4's [B*h, dh, T] entry ``fused_attention_bdt``;
+its plain form is the JAX einsum path.
 
 Also the fixed sinusoidal positions (``sinusoidal_positions``,
 ``PositionalEncoding``) that Sepformer adds to each transformer stack's
@@ -45,25 +49,30 @@ from torch import nn
 
 from . import kernels
 from .dropout import Dropout
-from .kernels.attention import attention_bdt_reference, attention_kernel_ok, fused_attention_bdt
+from .kernels.attention import (
+    attention_bdt_reference,
+    attention_kernel_ok,
+    attention_packed_reference,
+    fused_attention_bdt,
+    fused_attention_packed,
+)
 
 
-def mha_kernel_form(x, w_in, b_in, w_out, b_out, num_heads: int, attention=fused_attention_bdt):
-    """Self-attention on x [B, T, E] around ``attention`` on [B*h, dh, T]:
-    w_in [3E, E], b_in [3E] or None, w_out [E, E] (torch ``[out, in]``),
-    b_out [E] or None.  Products accumulate in f32 and round to x's dtype."""
+def _linear(x2d, w, b):
+    """x2d @ w^T (+ b): one library product, the bias in its f32 epilogue."""
+    w = w.to(x2d.dtype).t()
+    return torch.mm(x2d, w) if b is None else torch.addmm(b.to(x2d.dtype), x2d, w)
+
+
+def mha_kernel_form(x, w_in, b_in, w_out, b_out, num_heads: int, attention=fused_attention_packed):
+    """Self-attention on x [B, T, E] around ``attention`` (qkv [B, T, 3E],
+    num_heads) -> [B, T, E]: w_in [3E, E], b_in [3E] or None, w_out [E, E]
+    (torch ``[out, in]``), b_out [E] or None.  Products accumulate in f32,
+    add their bias and round once to x's dtype."""
     B, T, E = x.shape
-    dh = E // num_heads
-    xt = x.transpose(1, 2)  # [B, E, T]
-    qkv = []
-    for j in range(3):
-        y = torch.matmul(w_in[j * E:(j + 1) * E].to(x.dtype), xt)  # [B, E, T]
-        if b_in is not None:
-            y = y + b_in[j * E:(j + 1) * E].to(x.dtype)[:, None]
-        qkv.append(y.reshape(B * num_heads, dh, T).contiguous())
-    o = attention(*qkv).reshape(B, E, T)
-    out = torch.matmul(o.transpose(1, 2), w_out.to(o.dtype).t())  # [B, T, E]
-    return out + b_out.to(out.dtype) if b_out is not None else out
+    qkv = _linear(x.reshape(B * T, E), w_in, b_in).view(B, T, 3 * E)
+    o = attention(qkv, num_heads).view(B * T, E)
+    return _linear(o, w_out, b_out).view(B, T, E)
 
 
 def _bmm_into(out: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> None:
@@ -182,16 +191,17 @@ class MultiheadAttention(nn.Module):
         dropping = self.training and self.attn_drop.rate > 0.0
         kernel_form = (self_attention and mask is None and not dropping and kernels.kernel_input(query)
                        and attention_kernel_ok(self.embed_dim // self.num_heads))
-        attention = kernels.pick(fused_attention_bdt, attention_bdt_reference)
         if query.ndim == 4:
             if not self_attention or mask is not None:
                 raise ValueError("a 4-D input [B, T, K, E] takes self-attention without a mask")
             if kernel_form:
-                return mha_batched_axis1_kernel_form(query, *w, self.num_heads, attention)
+                return mha_batched_axis1_kernel_form(
+                    query, *w, self.num_heads, kernels.pick(fused_attention_bdt, attention_bdt_reference))
             return mha_batched_axis1_plain_form(query, *w, self.num_heads,
                                                 self.attn_drop if dropping else None)
         if kernel_form:
-            return mha_kernel_form(query, *w, self.num_heads, attention)
+            return mha_kernel_form(query, *w, self.num_heads,
+                                   kernels.pick(fused_attention_packed, attention_packed_reference))
         key = query if key is None else key
         value = key if value is None else value
         return mha_plain_form(query, key, value, *w, self.num_heads, mask,

@@ -105,6 +105,8 @@ def load_library() -> ctypes.CDLL:
     lib.convtasnet_error_string.restype = ctypes.c_char_p
     lib.attention_bdt.argtypes = [p] * 4 + [i, i, i, p]
     lib.attention_bdt.restype = i
+    lib.attention_packed.argtypes = [p] * 2 + [i] * 4 + [p]
+    lib.attention_packed.restype = i
     lib.lstm_recurrence.argtypes = [p] * 3 + [i] * 4 + [p]
     lib.lstm_recurrence.restype = i
     lib.lstm_recurrence_cluster.argtypes = [i] * 3

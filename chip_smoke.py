@@ -73,9 +73,11 @@ and ``wav_file_separate``.  In phases:
     the thread-block cluster they take, K6 also at K5's batch-1 shape;
 17. Sepformer at full width and depth, seeded weights, at B=2 x 2 s and
     B=1 x 8 s: the kernel path (``serve``'s "kernels" dispatch), the plain
-    bf16 path and the f32 module under the 1.5x rule, exactly 32 K4
-    launches a call; K4 against its plain version at the two shapes of
-    B=2 x 2 s ([544, 32, 250] intra, [4000, 32, 34] inter);
+    bf16 path and the f32 module under the 1.5x rule, exactly 32 launches
+    of K4's packed entry a call and none of its [BH, dh, T] one; both
+    entries against their plain versions at the two attention shapes of
+    B=2 x 2 s ([544, 32, 250] intra, [4000, 32, 34] inter; packed
+    [68, 250, 768] and [500, 34, 768]);
 18. the eval CLI, ``audio_test.main(config, device="cuda")`` with --bf16,
     on phase 8's ConvTasNet-LRS3 experiment (K1), a DPTNet at 8 kHz (K4,
     K5, K6) and phase 17's Sepformer (K4), each on five synthetic
@@ -83,8 +85,8 @@ and ``wav_file_separate``.  In phases:
     port's ``MetricsTracker`` on ``serve()``'s estimates within 1e-3 dB;
 19. time the Sepformer at B=2 x 2 s (kernel path, plain bf16 path, f32
     module; the kernel path profiled: K4, the library matmuls, the rest,
-    the idle share), and K4 alone at its two shapes beside its plain
-    version, SDPA on [B, h, T, dh] and its bound;
+    the idle share), and K4 alone at its two shapes, by both entries,
+    beside their plain versions, SDPA on [B, h, T, dh] and the bound;
 20. BSRNN at full width and depth, seeded weights, at B=1 and 4 x 4 s: the
     kernel path (``serve``'s "kernels"), the plain bf16 path and the f32
     module under the 1.5x rule, exactly 8 K6 (the band-comm RNNs, (8,
@@ -799,7 +801,7 @@ def tasnet_serving(dev, tasnets):
     K6 while serving."""
     from audio_only_speech_separation_tpu_torch.models import from_pretrain, save_serialized, serialize
     from audio_only_speech_separation_tpu_torch.ops.kernels import plain_versions
-    from audio_only_speech_separation_tpu_torch.ops.kernels.attention import fused_attention_bdt
+    from audio_only_speech_separation_tpu_torch.ops.kernels.attention import k4_launches
     from audio_only_speech_separation_tpu_torch.ops.kernels.lstm import fused_bilstm, resident_bilstm
     from audio_only_speech_separation_tpu_torch.serve import serve
 
@@ -826,7 +828,7 @@ def tasnet_serving(dev, tasnets):
             ckpt = os.path.join(tmp, f"{name}.pth")
             save_serialized(serialize(model), ckpt)
             served[name] = from_pretrain(ckpt, device=dev).eval()
-    counters = (fused_attention_bdt, fused_bilstm, resident_bilstm)
+    counters = (k4_launches, fused_bilstm, resident_bilstm)
     for c in counters:
         c.launches = 0
     estimates, per_model = {}, {}
@@ -943,10 +945,10 @@ def time_calls(dev, card, models, batch: int, secs: float, sr: int, reps: int, c
 
 
 def tasnet_counters():
-    from audio_only_speech_separation_tpu_torch.ops.kernels.attention import fused_attention_bdt
+    from audio_only_speech_separation_tpu_torch.ops.kernels.attention import k4_launches
     from audio_only_speech_separation_tpu_torch.ops.kernels.lstm import fused_bilstm, resident_bilstm
 
-    return (("K4", fused_attention_bdt, "attention_kernel"), ("K5", fused_bilstm, "lstm_recurrence_kernel"),
+    return (("K4", k4_launches, "attention_kernel"), ("K5", fused_bilstm, "lstm_recurrence_kernel"),
             ("K6", resident_bilstm, "lstm_resident_kernel"))
 
 
@@ -1050,12 +1052,15 @@ def sepformer_model(seed: int, dev):
 def sepformer_checks(dev, model) -> float:
     """Phase 17: the Sepformer end to end at B=2 x 2 s and B=1 x 8 s (kernel
     path through ``serve``'s dispatch, plain bf16 path, f32 module) under
-    the 1.5x rule, with exactly SEPFORMER_K4 K4 launches a call; then K4
-    against its plain version at the two shapes of B=2 x 2 s.  Returns
-    K4's worst max abs error there."""
+    the 1.5x rule, with exactly SEPFORMER_K4 launches of K4's packed entry
+    a call and none of its [BH, dh, T] one; then both entries against their
+    plain versions at the two attention shapes of B=2 x 2 s.  Returns K4's
+    worst max abs error there."""
     from audio_only_speech_separation_tpu_torch.ops.kernels.attention import (
         attention_bdt_reference,
+        attention_packed_reference,
         fused_attention_bdt,
+        fused_attention_packed,
     )
 
     print("phase 17: Sepformer (sepformer_base, 16 kHz, full width and depth), kernel path vs plain bf16 vs f32")
@@ -1063,25 +1068,41 @@ def sepformer_checks(dev, model) -> float:
     for batch, secs in ((2, 2.0), (1, 8.0)):
         x = torch.from_numpy(np.random.default_rng(28).standard_normal(
             (batch, int(secs * SR))).astype(np.float32)).to(dev)
-        fused_attention_bdt.launches = 0
+        fused_attention_bdt.launches = fused_attention_packed.launches = 0
         got = kernel(x)
         torch.cuda.synchronize()
-        launches = fused_attention_bdt.launches
+        launches, bdt = fused_attention_packed.launches, fused_attention_bdt.launches
         ref, pl = f32(x), plain(x)
         torch.cuda.synchronize()
         for out in (got, pl):
             if out.shape != ref.shape or not torch.isfinite(out.float()).all():
                 raise AssertionError(f"Sepformer: bad output {tuple(out.shape)}")
         print(f"  Sepformer B={batch} x {secs:g} s (output scale {float(ref.abs().max()):.4g}): "
-              f"K4 launches {launches} (want {SEPFORMER_K4})")
-        if launches != SEPFORMER_K4:
-            raise AssertionError(f"Sepformer launched K4 {launches} times, not {SEPFORMER_K4}")
+              f"K4 launches, packed entry {launches} (want {SEPFORMER_K4}), [BH, dh, T] entry {bdt} (want 0)")
+        if (launches, bdt) != (SEPFORMER_K4, 0):
+            raise AssertionError(f"Sepformer launched K4's packed entry {launches} times, not {SEPFORMER_K4}, "
+                                 f"and its [BH, dh, T] entry {bdt} times")
         check_rule(f"Sepformer B={batch} x {secs:g} s", max_err(got, ref), max_err(pl, ref))
     rand = rand_maker(29, dev)
-    print("  K4 vs plain at Sepformer's shapes, unit-normal bf16 q, k, v")
-    return max(kernel_vs_plain(f"{side} [BH, dh, T] = {list(shape)}", fused_attention_bdt,
-                               attention_bdt_reference, [rand(shape) for _ in range(3)], 2e-2)
-               for side, shape in SEPFORMER_SHAPES.items())
+    print("  K4 vs plain at Sepformer's shapes, unit-normal bf16 q, k, v; then the packed entry on the "
+          "in-projection [B, T, 3E]")
+    errs = [kernel_vs_plain(f"{side} [BH, dh, T] = {list(shape)}", fused_attention_bdt,
+                            attention_bdt_reference, [rand(shape) for _ in range(3)], 2e-2)
+            for side, shape in SEPFORMER_SHAPES.items()]
+    errs += [kernel_vs_plain(f"{side} packed [B, T, 3E] = {packed_shape(shape)}, {SEPFORMER['intra_nhead']} heads",
+                             lambda a: fused_attention_packed(a, SEPFORMER["intra_nhead"]),
+                             lambda a: attention_packed_reference(a, SEPFORMER["intra_nhead"]),
+                             [rand(packed_shape(shape))], 2e-2)
+             for side, shape in SEPFORMER_SHAPES.items()]
+    return max(errs)
+
+
+def packed_shape(shape) -> tuple:
+    """The packed in-projection [B, T, 3E] of Sepformer's attention
+    [BH, dh, T] (its 8 heads)."""
+    BH, dh, T = shape
+    heads = SEPFORMER["intra_nhead"]
+    return (BH // heads, T, 3 * heads * dh)
 
 
 def eval_cli_checks(dev, root: str, title: str, experiments: dict) -> dict:
@@ -1165,12 +1186,15 @@ def eval_cli_checks(dev, root: str, title: str, experiments: dict) -> dict:
 def sepformer_timing(dev, card, model) -> dict:
     """Phase 19: the Sepformer at B=2 x 2 s x 16 kHz (the JAX package's
     Sepformer row): kernel path, plain bf16 path, f32 module, the kernel
-    path profiled; then K4 alone at the intra and inter shapes beside its
-    plain version, SDPA on [B, h, T, dh] and its bound.  Returns K4's
-    entries by side."""
+    path profiled; then K4 alone at the intra and inter shapes, by its
+    [BH, dh, T] entry and its packed entry (on the in-projection
+    [B, T, 3E]), beside their plain versions, SDPA on [B, h, T, dh] (the
+    yardstick only) and the bound.  Returns K4's entries by side."""
     from audio_only_speech_separation_tpu_torch.ops.kernels.attention import (
         attention_bdt_reference,
+        attention_packed_reference,
         fused_attention_bdt,
+        fused_attention_packed,
     )
 
     print(f"phase 19: timing, Sepformer at B=2 x 2 s x 16 kHz, on {card}")
@@ -1199,7 +1223,20 @@ def sepformer_timing(dev, card, model) -> dict:
               f"{d['call_ms']:.4f} ms, plain {d['plain_ms']:.4f} ms, SDPA on [{BH // 8}, 8, {T}, {dh}] "
               f"{d['library_ms']:.4f} ms (both back to back), bound {d['bound_ms']:.5f} ms "
               f"({d['bound_by']}); {card}")
+        h = SEPFORMER["intra_nhead"]
+        qkv = rand(packed_shape((BH, dh, T)))
+        with torch.no_grad():
+            p = {"ms": back_to_back_ms(lambda: fused_attention_packed(qkv, h)),
+                 "device_ms": launch_ms(lambda: fused_attention_packed(qkv, h), "attention_kernel", 100),
+                 "call_ms": cuda_time(lambda: fused_attention_packed(qkv, h), reps=20, warmup=3),
+                 "plain_ms": back_to_back_ms(lambda: attention_packed_reference(qkv, h), 10)}
+        traced = "not traced" if p["device_ms"] is None else f"{p['device_ms']:.4f} ms"
+        print(f"  K4 packed {side} [B, T, 3E] = {list(qkv.shape)}, {h} heads: kernel {p['ms']:.4f} ms a launch "
+              f"(CUDA events over 50 back to back), {traced} a launch on the device (torch.profiler, 100 calls), "
+              f"a call {p['call_ms']:.4f} ms, plain {p['plain_ms']:.4f} ms, bound {d['bound_ms']:.5f} ms "
+              f"({d['bound_by']}, the same bytes); {card}")
         out[side] = d
+        out[f"{side} packed"] = p
     return out
 
 
@@ -1303,6 +1340,7 @@ def tdanet_checks(dev, model):
     from audio_only_speech_separation_tpu_torch.ops.kernels.attention import (
         attention_bdt_reference,
         fused_attention_bdt,
+        k4_launches,
     )
     from audio_only_speech_separation_tpu_torch.serve import Server
 
@@ -1316,14 +1354,14 @@ def tdanet_checks(dev, model):
         x = torch.from_numpy(np.random.default_rng(34).standard_normal(
             (batch, 2 * SR)).astype(np.float32)).to(dev)
         with torch.no_grad():
-            fused_attention_bdt.launches = 0
+            k4_launches.launches = 0
             got = module(x.to(torch.bfloat16))
             torch.cuda.synchronize()
-            n_module = fused_attention_bdt.launches
-            fused_attention_bdt.launches = 0
+            n_module = k4_launches.launches
+            k4_launches.launches = 0
             fast = server.forward(x)
             torch.cuda.synchronize()
-            n_fast = fused_attention_bdt.launches
+            n_fast = k4_launches.launches
             with plain_versions():
                 pl = module(x.to(torch.bfloat16))
             ref, fast32 = model(x), fast_inference_forward(model, x)
@@ -1897,6 +1935,7 @@ def counting_plain_versions():
         return lambda *args: calls.__setitem__(label, calls[label] + 1)
 
     with noting_calls([(port_attention, "attention_bdt_reference", count("K4")),
+                       (port_attention, "attention_packed_reference", count("K4")),
                        (port_rnn, "bilstm_reference", count("K5")),
                        (port_rnn, "resident_bilstm_reference", count("K6"))]):
         yield calls
@@ -1905,10 +1944,16 @@ def counting_plain_versions():
 @contextlib.contextmanager
 def recording_kernel_shapes():
     """{"K4": {[BH, dh, T]}, "K5": {(T, D, B, H)}, "K6": {(T, B, Din, H,
-    D)}}: the shapes the models' dispatch hands each kernel's wrapper inside
-    the block."""
+    D)}, "K4 packed": {(B, T, 3E, heads)}}: the shapes the models' dispatch
+    hands each kernel's wrapper inside the block; a call of K4's packed
+    entry is noted under "K4" too, as its [BH, dh, T]."""
     port_attention, port_rnn = dispatch_modules()
-    shapes = {"K4": set(), "K5": set(), "K6": set()}
+    shapes = {"K4": set(), "K5": set(), "K6": set(), "K4 packed": set()}
+
+    def k4_packed(qkv, heads):
+        B, T, E3 = qkv.shape
+        shapes["K4"].add((B * heads, E3 // (3 * heads), T))
+        shapes["K4 packed"].add((B, T, E3, heads))
 
     def k5(xw, w_hh):
         T, D, B, gates = xw.shape
@@ -1919,6 +1964,7 @@ def recording_kernel_shapes():
         shapes["K6"].add((T, B, Din, w_hh.shape[1], w_hh.shape[0]))
 
     with noting_calls([(port_attention, "fused_attention_bdt", lambda q, k, v: shapes["K4"].add(tuple(q.shape))),
+                       (port_attention, "fused_attention_packed", k4_packed),
                        (port_rnn, "fused_bilstm", k5), (port_rnn, "resident_bilstm", k6)]):
         yield shapes
 
@@ -1934,7 +1980,7 @@ def served_model_checks(dev, label: str, model, cases, sr: int = TSR, secs: floa
     kernel, plain, f32 = dualpath_paths(model)
     counters = [c for _, c, _ in tasnet_counters()]
     total = [0, 0, 0]
-    shapes = {"K4": set(), "K5": set(), "K6": set()}
+    shapes = {"K4": set(), "K5": set(), "K6": set(), "K4 packed": set()}
     for batch, want in cases:
         x = torch.from_numpy(np.random.default_rng(90 + batch).standard_normal(
             (batch, int(secs * sr))).astype(np.float32)).to(dev)
@@ -1965,12 +2011,15 @@ def kernels_at_shapes(dev, label: str, shapes, written=None) -> tuple:
     """K4, K5 and K6 against their plain versions at every shape of
     ``shapes`` (``served_model_checks``'s record of a model's calls) on
     seeded inputs as in phases 10-13: unit-normal q, k, v; the validator's
-    LSTM inputs.  ``written``, where given, holds the shapes this script
-    states for the model (the timing phase's): they must be the recorded
-    ones.  Returns the worst max abs errors (0.0 for a kernel not called)."""
+    LSTM inputs; K4's packed entry also at each "K4 packed" shape, where
+    any.  ``written``, where given, holds the shapes this script states for
+    the model (the timing phase's): they must be the recorded ones.
+    Returns the worst max abs errors (0.0 for a kernel not called)."""
     from audio_only_speech_separation_tpu_torch.ops.kernels.attention import (
         attention_bdt_reference,
+        attention_packed_reference,
         fused_attention_bdt,
+        fused_attention_packed,
     )
     from audio_only_speech_separation_tpu_torch.ops.kernels.lstm import (
         bilstm_reference,
@@ -1986,6 +2035,9 @@ def kernels_at_shapes(dev, label: str, shapes, written=None) -> tuple:
     print(f"  K4, K5, K6 vs plain at every shape {label}'s calls gave them")
     k4 = [kernel_vs_plain(f"K4 [BH, dh, T] = {list(s)}", fused_attention_bdt, attention_bdt_reference,
                           [rand(s) for _ in range(3)], 2e-2) for s in sorted(shapes["K4"])]
+    k4 += [kernel_vs_plain(f"K4 packed [B, T, 3E] = {[B, T, E3]}, {h} heads", lambda a, h=h: fused_attention_packed(a, h),
+                           lambda a, h=h: attention_packed_reference(a, h), [rand((B, T, E3))], 2e-2)
+           for B, T, E3, h in sorted(shapes.get("K4 packed", ()))]
     k5 = [kernel_vs_plain(f"K5 (T, D, B, H) = {s}", fused_bilstm, bilstm_reference,
                           lstm_kernel_inputs(rand, k5_shape=s), 1e-2) for s in sorted(shapes["K5"])]
     k6 = [kernel_vs_plain(f"K6 (T, B, Din, H, D) = {s}", resident_bilstm, resident_bilstm_reference,
@@ -3373,15 +3425,15 @@ def trace_and_wav_phase(dev, card: str) -> dict:
     input.  Returns {"K4", "K6": the profiled run's launches}."""
     from audio_only_speech_separation_tpu_torch import profile_trace_ops
     from audio_only_speech_separation_tpu_torch.data.audio_io import read_wav
-    from audio_only_speech_separation_tpu_torch.ops.kernels.attention import fused_attention_bdt
+    from audio_only_speech_separation_tpu_torch.ops.kernels.attention import k4_launches
     from audio_only_speech_separation_tpu_torch.ops.kernels.lstm import resident_bilstm
     from audio_only_speech_separation_tpu_torch.utils.separator import wav_file_separate
 
     print(f"phase 51: profile_trace_ops sandglasset; wav_file_separate; {card}")
     t0 = time.perf_counter()
-    fused_attention_bdt.launches = resident_bilstm.launches = 0
+    k4_launches.launches = resident_bilstm.launches = 0
     result = profile_trace_ops.main(["sandglasset", "--top", "15"])
-    launched = {"K4": fused_attention_bdt.launches, "K6": resident_bilstm.launches}
+    launched = {"K4": k4_launches.launches, "K6": resident_bilstm.launches}
     names = " ".join(name for name, _, _ in result["ops"])
     if (result["dispatch"] != "kernels" or not result["busy"] > 0 or not 0 <= result["idle"] < 1
             or "attention_kernel" not in names or "lstm_resident_kernel" not in names

@@ -90,8 +90,8 @@ def test_bf16_afrcnn_runs_no_kernel(monkeypatch):
         raise AssertionError("a kernel was called")
 
     monkeypatch.setattr(kernels, "kernel_input", lambda x: True)
-    for module, name in ((port_attention, "fused_attention_bdt"), (port_rnn, "fused_bilstm"),
-                         (port_rnn, "resident_bilstm")):
+    for module, name in ((port_attention, "fused_attention_bdt"), (port_attention, "fused_attention_packed"),
+                         (port_rnn, "fused_bilstm"), (port_rnn, "resident_bilstm")):
         monkeypatch.setattr(module, name, no_kernel)
     x = torch.from_numpy(_waves(6, (1, 3000)))
     with torch.no_grad():

@@ -271,7 +271,10 @@ def test_train_step_through_the_kernels(cuda):
 
 from audio_only_speech_separation_tpu_torch.ops.kernels.attention import (  # noqa: E402
     attention_bdt_reference,
+    attention_packed_reference,
     fused_attention_bdt,
+    fused_attention_packed,
+    k4_launches,
 )
 from audio_only_speech_separation_tpu_torch.ops.kernels.lstm import (  # noqa: E402
     bilstm_reference,
@@ -319,6 +322,48 @@ def test_attention_matches_plain_version(cuda, BH, dh, T):
     assert fused_attention_bdt.launches - before == 2
     assert torch.equal(got, again)
     assert float((got.float() - want.float()).abs().max()) < 2e-2
+
+
+# (B, T, heads, dh) of the packed entry: Sepformer's intra and inter passes
+# in the served cell (8 x 2 s x 16 kHz: 272 sequences of 250 chunks' frames,
+# 2000 of 34 chunks; 8 heads of 32), DPTNet's rows and columns at B=8 x 2 s
+# x 8 kHz (336 of 100, 800 of 42; 4 heads of 16), T 13 and T 1, two key
+# chunks at dh 8, one head of 256, and T 129 (a second query block of one
+# token)
+PACKED_CASES = [(272, 250, 8, 32), (2000, 34, 8, 32), (336, 100, 4, 16), (800, 42, 4, 16),
+                (5, 13, 3, 64), (7, 1, 2, 32), (3, 300, 2, 8), (2, 40, 1, 256), (4, 129, 2, 24)]
+
+
+@pytest.mark.parametrize("B,T,heads,dh", PACKED_CASES)
+def test_packed_attention_matches_plain_version(cuda, B, T, heads, dh):
+    """K4's packed entry against its plain version on a unit-normal
+    [B, T, 3E] in-projection: bf16 max abs < 2e-2 (the validator's bound),
+    one launch a call and none of the [B*h, dh, T] entry's, bit-identical
+    runs, the output a contiguous [B, T, E]."""
+    qkv = _bf16(cuda, np.random.default_rng(B + T + dh).standard_normal((B, T, 3 * heads * dh)))
+    before, before_bdt = fused_attention_packed.launches, fused_attention_bdt.launches
+    got = fused_attention_packed(qkv, heads)
+    again = fused_attention_packed(qkv, heads)
+    want = attention_packed_reference(qkv, heads)
+    torch.cuda.synchronize()
+    assert fused_attention_packed.launches - before == 2 and fused_attention_bdt.launches == before_bdt
+    assert got.shape == (B, T, heads * dh) and got.is_contiguous() and torch.equal(got, again)
+    assert float((got.float() - want.float()).abs().max()) < 2e-2
+
+
+def test_packed_attention_refuses_what_the_kernel_does_not_take(cuda):
+    """On the card the packed entry raises on float32, on a ``qkv`` not on
+    a 16-byte boundary and outside the envelope, and launches nothing."""
+    qkv = _bf16(cuda, np.zeros((2, 5, 3 * 2 * 16)))
+    shifted = torch.zeros(1 + qkv.numel(), device=cuda, dtype=torch.bfloat16)[1:].view(qkv.shape)
+    before = fused_attention_packed.launches
+    with pytest.raises(ValueError, match="bfloat16"):
+        fused_attention_packed(qkv.float(), 2)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fused_attention_packed(shifted, 2)
+    with pytest.raises(ValueError, match="dh % 8 == 0"):
+        fused_attention_packed(qkv, 8)  # 8 heads of dh 4
+    assert fused_attention_packed.launches == before
 
 
 # (T, D, B, H): the validator's (scripts/validate_pallas.py:283), the batch-1
@@ -435,6 +480,8 @@ def test_dualpath_kernel_backward_matches_plain_autograd(cuda):
 
     q, k, v = (_bf16(cuda, rng.standard_normal((6, 16, 37))) for _ in range(3))
     check(fused_attention_bdt, attention_bdt_reference, q, k, v)
+    check(lambda a: fused_attention_packed(a, 3), lambda a: attention_packed_reference(a, 3),
+          _bf16(cuda, rng.standard_normal((4, 37, 3 * 3 * 16))))
     xw = _bf16(cuda, rng.standard_normal((11, 2, 5, 64)) * 0.3)
     whh = _bf16(cuda, rng.standard_normal((2, 16, 64)) * 0.05)
     check(fused_bilstm, bilstm_reference, xw, whh)
@@ -461,7 +508,7 @@ def test_tasnet_kernel_path_meets_the_validator_rule(cuda, module, batch):
                sample_rate=8000, generator=torch.Generator().manual_seed(3)).to(cuda).eval()
     mk = copy.deepcopy(m).to(torch.bfloat16)
     x = torch.from_numpy(np.random.default_rng(5).standard_normal((batch, 12000)).astype(np.float32)).to(cuda)
-    counters = (fused_attention_bdt, fused_bilstm, resident_bilstm)
+    counters = (k4_launches, fused_bilstm, resident_bilstm)
     before = [c.launches for c in counters]
     with torch.no_grad():
         ref = m(x)
@@ -490,8 +537,9 @@ SMALL_SEPFORMER = dict(encoder_out_nchannels=64, masknet_chunksize=50, masknet_n
 
 def test_sepformer_kernel_path_meets_the_validator_rule(cuda):
     """A small Sepformer cast to bf16 on the card, in eval mode, runs every
-    attention through K4 (2 dual blocks x (2 + 2) a call) and stays within
-    1.5 * (plain bf16 error) + 1e-3 of the f32 module."""
+    attention through K4's packed entry (2 dual blocks x (2 + 2) a call;
+    none through the [B*h, dh, T] one) and stays within 1.5 * (plain bf16
+    error) + 1e-3 of the f32 module."""
     import copy
 
     from audio_only_speech_separation_tpu_torch.ops.kernels import plain_versions
@@ -499,17 +547,43 @@ def test_sepformer_kernel_path_meets_the_validator_rule(cuda):
     m = Sepformer(**SMALL_SEPFORMER, generator=torch.Generator().manual_seed(4)).to(cuda).eval()
     mk = copy.deepcopy(m).to(torch.bfloat16)
     x = torch.from_numpy(np.random.default_rng(8).standard_normal((2, 12000)).astype(np.float32)).to(cuda)
-    before = fused_attention_bdt.launches
+    before, before_bdt = fused_attention_packed.launches, fused_attention_bdt.launches
     with torch.no_grad():
         ref = m(x)
         got = mk(x.to(torch.bfloat16))
         with plain_versions():
             plain = mk(x.to(torch.bfloat16))
     torch.cuda.synchronize()
-    assert fused_attention_bdt.launches - before == 2 * (2 + 2)
+    assert fused_attention_packed.launches - before == 2 * (2 + 2)
+    assert fused_attention_bdt.launches == before_bdt
     assert got.shape == ref.shape and bool(torch.isfinite(got.float()).all())
     err, plain_err = float((got.float() - ref).abs().max()), float((plain.float() - ref).abs().max())
     assert err <= 1.5 * plain_err + 1e-3, (err, plain_err)
+
+
+def test_served_sepformer_base_launches_the_packed_entry(cuda):
+    """sepformer_base (the served cell's configuration) through ``Server``'s
+    "kernels" dispatch at B=2 x 2 s x 16 kHz: K4's packed entry 32 times a
+    call (2 dual blocks x (8 intra + 8 inter)), its [B*h, dh, T] entry
+    never, and a finite output of the f32 module's shape."""
+    import json
+    from pathlib import Path
+
+    from audio_only_speech_separation_tpu_torch.serve import Server
+
+    cfg = json.loads((Path(__file__).resolve().parents[1] / "port_bench/configs/sepformer_base.json").read_text())
+    m = Sepformer(**cfg["model_args"], sample_rate=cfg["sample_rate"],
+                  generator=torch.Generator().manual_seed(5)).to(cuda).eval()
+    server = Server(m, True, cuda)
+    assert server.dispatch == "kernels"
+    x = _waves(cuda, 9, 2, 2 * cfg["sample_rate"])
+    server.forward(x)
+    torch.cuda.synchronize()
+    before, before_bdt = fused_attention_packed.launches, fused_attention_bdt.launches
+    out = server.forward(x)
+    torch.cuda.synchronize()
+    assert fused_attention_packed.launches - before == 32 and fused_attention_bdt.launches == before_bdt
+    assert out.shape == (2, 2, x.shape[1]) and bool(torch.isfinite(out.float()).all())
 
 
 def test_eval_cli_on_the_card(cuda, tmp_path):
@@ -547,9 +621,9 @@ def test_eval_cli_on_the_card(cuda, tmp_path):
             n_src=2, sample_rate=8000, segment=0.5)},
         "main_args": {"exp_dir": str(exp), "bf16": True},
     }
-    before = fused_attention_bdt.launches
+    before = fused_attention_packed.launches
     path = audio_test.main(config, device="cuda")
-    assert fused_attention_bdt.launches - before == len(lengths) * 2 * (2 + 2)
+    assert fused_attention_packed.launches - before == len(lengths) * 2 * (2 + 2)
     with open(path) as f:
         rows = list(csv.reader(f))
     assert rows[0] == ["snt_id", "sdr", "sdr_i", "si-snr", "si-snr_i"]
@@ -598,7 +672,7 @@ def test_bsrnn_kernel_path_meets_the_validator_rule(cuda):
 
     m = BSRNN(feature_dim=128, num_repeat=2, sample_rate=8000,
               generator=torch.Generator().manual_seed(11)).to(cuda).eval()
-    launched = _validator_rule(m, _waves(cuda, 12, 2, 8000), (fused_attention_bdt, fused_bilstm, resident_bilstm))
+    launched = _validator_rule(m, _waves(cuda, 12, 2, 8000), (k4_launches, fused_bilstm, resident_bilstm))
     assert launched == [0, 2, 2]
 
 
@@ -610,7 +684,7 @@ def test_tdanet_module_path_meets_the_validator_rule(cuda):
 
     m = TDANet(out_channels=32, in_channels=128, num_blocks=3, upsampling_depth=3, enc_kernel_size=4,
                generator=torch.Generator().manual_seed(13)).to(cuda).eval()
-    launched = _validator_rule(m, _waves(cuda, 14, 2, 8000), (fused_attention_bdt, fused_bilstm, resident_bilstm))
+    launched = _validator_rule(m, _waves(cuda, 14, 2, 8000), (k4_launches, fused_bilstm, resident_bilstm))
     assert launched == [3, 0, 0]
 
 
@@ -621,7 +695,7 @@ def test_afrcnn_bf16_module_meets_the_validator_rule(cuda):
 
     m = AFRCNN(out_channels=64, in_channels=128, num_blocks=3, upsampling_depth=4,
                generator=torch.Generator().manual_seed(15)).to(cuda).eval()
-    launched = _validator_rule(m, _waves(cuda, 16, 1, 8000), (fused_attention_bdt, fused_bilstm, resident_bilstm))
+    launched = _validator_rule(m, _waves(cuda, 16, 1, 8000), (k4_launches, fused_bilstm, resident_bilstm))
     assert launched == [0, 0, 0]
 
 
@@ -927,7 +1001,7 @@ def test_sandglasset_kernel_path_meets_the_validator_rule(cuda):
 
     m = Sandglasset(n_feats=32, bn_chan=64, hid_size=64, chunk_size=50, hop_size=25, n_repeats=4, n_head=4,
                     sample_rate=8000, generator=torch.Generator().manual_seed(17)).to(cuda).eval()
-    launched = _validator_rule(m, _waves(cuda, 18, 2, 8000), (fused_attention_bdt, fused_bilstm, resident_bilstm))
+    launched = _validator_rule(m, _waves(cuda, 18, 2, 8000), (k4_launches, fused_bilstm, resident_bilstm))
     assert launched == [4, 0, 4]
 
 
@@ -964,7 +1038,7 @@ def test_dprnn_tasnet_kernel_path_meets_the_validator_rule(cuda, batch, launched
 
     m = DPRNNTasNet(feature_dim=64, hidden_dim=128, sample_rate=8000, layer=2,
                     generator=torch.Generator().manual_seed(20)).to(cuda).eval()
-    counters = (fused_attention_bdt, fused_bilstm, resident_bilstm)
+    counters = (k4_launches, fused_bilstm, resident_bilstm)
     assert _validator_rule(m, _waves(cuda, 21, batch, 8000), counters) == launched
 
 
@@ -985,7 +1059,7 @@ def test_tasnet_modules_meet_the_validator_rule(cuda, module, group_size, launch
 
     m = TasNet(enc_dim=64, bn_dim=64, hidden_dim=128, layer=2, module=module, group_size=group_size,
                block_size=50, sample_rate=8000, generator=torch.Generator().manual_seed(22)).to(cuda).eval()
-    counters = (fused_attention_bdt, fused_bilstm, resident_bilstm)
+    counters = (k4_launches, fused_bilstm, resident_bilstm)
     assert _validator_rule(m, _waves(cuda, 23, 4, 8000), counters) == launched
 
 
@@ -1235,7 +1309,7 @@ def test_layer_blocks_take_the_kernels_under_the_validator_rule(cuda, case):
     torch.manual_seed(len(case))
     m = ctor().to(cuda).eval()
     x = torch.from_numpy(np.random.default_rng(23).standard_normal(shape).astype(np.float32)).to(cuda)
-    assert _validator_rule(m, x, (fused_attention_bdt, fused_bilstm, resident_bilstm)) == launched
+    assert _validator_rule(m, x, (k4_launches, fused_bilstm, resident_bilstm)) == launched
 
 
 def test_stfts_on_the_card_match_the_cpu(cuda):

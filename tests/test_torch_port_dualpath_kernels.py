@@ -14,9 +14,12 @@ import torch
 
 from audio_only_speech_separation_tpu.ops.pallas.attention import _einsum_attention_bdt
 from audio_only_speech_separation_tpu.ops.pallas.lstm import _xla_bilstm, _xla_resident_ref
+from audio_only_speech_separation_tpu_torch.ops.kernels import attention as k4
 from audio_only_speech_separation_tpu_torch.ops.kernels.attention import (
     attention_bdt_reference,
+    attention_packed_reference,
     fused_attention_bdt,
+    fused_attention_packed,
 )
 from audio_only_speech_separation_tpu_torch.ops.kernels.lstm import (
     bilstm_reference,
@@ -63,6 +66,76 @@ def test_attention_plain_version_matches_jax(BH, dh, T):
     got_b = attention_bdt_reference(t(q, bf), t(k, bf), t(v, bf)).float().numpy()
     assert max_err(got_b, want_b) < 2e-2
 
+
+
+def _tokens(a, B, h):
+    """[B*h, dh, T] -> [B, T, E], head j in columns j*dh : (j+1)*dh."""
+    _, dh, T = a.shape
+    return a.reshape(B, h, dh, T).permute(0, 3, 1, 2).reshape(B, T, h * dh)
+
+
+def _packed(q, k, v, B, h):
+    """[B*h, dh, T] q, k, v -> the packed in-projection [B, T, 3E]."""
+    return torch.cat([_tokens(a, B, h) for a in (q, k, v)], -1)
+
+
+def _unpacked(o, h):
+    """[B, T, E] -> [B*h, dh, T]."""
+    B, T, E = o.shape
+    return o.reshape(B, T, h, E // h).permute(0, 2, 3, 1).reshape(B * h, E // h, T)
+
+
+@pytest.mark.parametrize("dh", [8, 16, 32, 64])
+@pytest.mark.parametrize("T", [1, 13, 34, 250])
+def test_packed_plain_version_is_the_bdt_one_permuted(T, dh):
+    """The packed entry's plain version on [B, T, 3E] is bit for bit
+    ``attention_bdt_reference`` on the same q, k and v in [B*h, dh, T], in
+    float32 and bfloat16; on a CPU tensor the wrapper runs it."""
+    B, h = 2, 3
+    rng = np.random.default_rng(T * dh)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (t(rng.standard_normal((B * h, dh, T)), dtype) for _ in range(3))
+        qkv = _packed(q, k, v, B, h)
+        got = attention_packed_reference(qkv, h)
+        assert got.shape == (B, T, h * dh) and got.dtype == dtype
+        assert torch.equal(_unpacked(got, h), attention_bdt_reference(q, k, v))
+        assert torch.equal(fused_attention_packed(qkv, h), got)
+
+
+def test_packed_attention_gradients_match_jax_vjp(monkeypatch):
+    """Autograd of the packed entry on the CPU (its plain version) against
+    the VJP of the JAX kernel entry on the same q, k and v in [B*h, dh, T];
+    and the entry's own backward (recomputing through the plain version,
+    the launch replaced by it) equal to autograd of the plain version."""
+    B, h, dh, T = 2, 2, 16, 21
+    rng = np.random.default_rng(3)
+    q, k, v, g = (rng.standard_normal((B * h, dh, T)).astype(np.float32) for _ in range(4))
+    qkv = _packed(t(q), t(k), t(v), B, h).requires_grad_()
+    (got,) = torch.autograd.grad(fused_attention_packed(qkv, h), qkv, _tokens(t(g), B, h))
+    _, vjp = jax.vjp(_einsum_attention_bdt, q, k, v)
+    want = _packed(*(t(np.array(a)) for a in vjp(g)), B, h)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-5)
+
+    monkeypatch.setattr(k4, "_launch_packed", attention_packed_reference)
+    go = torch.from_numpy(rng.standard_normal((B, T, h * dh)).astype(np.float32))
+    (through_entry,) = torch.autograd.grad(k4._AttentionPacked.apply(qkv, h), qkv, go)
+    (plain,) = torch.autograd.grad(attention_packed_reference(qkv, h), qkv, go)
+    assert torch.equal(through_entry, plain)
+
+
+@pytest.mark.parametrize("qkv,heads,match", [
+    (torch.zeros(2, 5, 3 * 2 * 4), 2, "dh % 8 == 0"),  # dh 4
+    (torch.zeros(2, 5, 3 * 264), 1, "dh % 8 == 0"),  # dh 264
+    (torch.zeros(2, 5, 50), 2, "3 \\* 2 \\* dh"),  # 50 is no 3 * 2 * dh
+    (torch.zeros(2, 0, 3 * 2 * 16), 2, "T >= 1"),
+    (torch.zeros(2, 3 * 2 * 16, 5).transpose(1, 2), 2, "contiguous"),
+], ids=["dh4", "dh264", "not3E", "T0", "strided"])
+def test_packed_wrapper_refuses_what_the_kernel_does_not_take(qkv, heads, match):
+    """The packed entry raises on a head width outside the envelope, on a
+    last axis that is not 3 * heads * dh, on T = 0 and on a non-contiguous
+    ``qkv``, on any device."""
+    with pytest.raises(ValueError, match=match):
+        fused_attention_packed(qkv, heads)
 
 # (T, D, B, H): one and two directions, an odd batch; the kernel's edges:
 # T = 1, a partial 16-row tile (B 17), the batch-1 column pass's 100
@@ -155,10 +228,11 @@ def _meta(*shape, dtype=torch.bfloat16):
 
 @pytest.mark.parametrize("call", [
     lambda: fused_attention_bdt(_meta(2, 16, 10), _meta(2, 16, 10), _meta(2, 16, 10)),
+    lambda: fused_attention_packed(_meta(2, 10, 3 * 2 * 16), 2),
     lambda: fused_bilstm(_meta(5, 2, 3, 64), _meta(2, 16, 64)),
     lambda: resident_bilstm(_meta(3, 5, 16), _meta(2, 16, 64), _meta(2, 16, 64),
                             _meta(2, 64, dtype=torch.float32)),
-], ids=["attention", "bilstm", "resident"])
+], ids=["attention", "attention_packed", "bilstm", "resident"])
 def test_wrapper_refuses_a_device_without_kernel(call):
     """No silent fallback: a tensor on neither the CPU nor a CUDA device
     raises instead of running the plain version."""

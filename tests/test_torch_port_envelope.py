@@ -83,7 +83,7 @@ def as_on_card(monkeypatch):
     are stand-ins that raise."""
     monkeypatch.setattr(kernels, "kernel_input", lambda x: True)
     for module, name in ((port_rnn, "fused_bilstm"), (port_rnn, "resident_bilstm"),
-                         (port_attention, "fused_attention_bdt")):
+                         (port_attention, "fused_attention_bdt"), (port_attention, "fused_attention_packed")):
         monkeypatch.setattr(module, name, _raise)
 
 

@@ -19,7 +19,7 @@ from audio_only_speech_separation_tpu_torch.models import Sepformer, from_pretra
 from audio_only_speech_separation_tpu_torch.ops import attention as port_attention
 from audio_only_speech_separation_tpu_torch.ops import kernels
 from audio_only_speech_separation_tpu_torch.ops.attention import sinusoidal_positions
-from audio_only_speech_separation_tpu_torch.ops.kernels.attention import attention_bdt_reference
+from audio_only_speech_separation_tpu_torch.ops.kernels.attention import attention_packed_reference
 from audio_only_speech_separation_tpu_torch.serve import choose_dispatch, serve
 from audio_only_speech_separation_tpu_torch.utils.jax_import import sepformer_from_jax
 from audio_only_speech_separation_tpu_torch.utils.separator import separate
@@ -152,16 +152,18 @@ def test_separated_from_a_training_mode_module_in_eval_mode(jax_checkpoint):
 
 @pytest.fixture
 def attention_calls(monkeypatch):
-    """Dispatch treats every tensor as a kernel input; the attention kernel
-    is a stand-in that counts its calls and returns the plain result."""
+    """Dispatch treats every tensor as a kernel input; K4's packed entry,
+    which the attention layers call, is a stand-in that records each call
+    as its [B*h, dh, T] and returns the plain result."""
     calls = []
 
-    def stand_in(q, k, v):
-        calls.append(tuple(q.shape))
-        return attention_bdt_reference(q, k, v)
+    def stand_in(qkv, num_heads):
+        B, T, E3 = qkv.shape
+        calls.append((B * num_heads, E3 // (3 * num_heads), T))  # as [B*h, dh, T]
+        return attention_packed_reference(qkv, num_heads)
 
     monkeypatch.setattr(kernels, "kernel_input", lambda x: True)
-    monkeypatch.setattr(port_attention, "fused_attention_bdt", stand_in)
+    monkeypatch.setattr(port_attention, "fused_attention_packed", stand_in)
     return calls
 
 

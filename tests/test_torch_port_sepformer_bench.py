@@ -18,7 +18,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from audio_only_speech_separation_tpu_torch.ops import attention as port_attention
 from audio_only_speech_separation_tpu_torch.ops import kernels
-from audio_only_speech_separation_tpu_torch.ops.kernels.attention import attention_bdt_reference
+from audio_only_speech_separation_tpu_torch.ops.kernels.attention import attention_packed_reference
 from port_bench import calibrate, harness, run as bench_run, serve_faults
 from port_bench.attention_work import attention_work
 from port_bench.modes import serve
@@ -74,20 +74,20 @@ def test_port_is_the_reference_in_float32(T):
 def test_kernel_form_in_bf16_is_the_reference(monkeypatch, seed):
     """The served form: the module cast to bf16 as ``Server`` casts it,
     the card forced (``kernel_input``) so that every attention takes K4's
-    kernel form, and ``plain_versions()`` gives it K4's plain version
-    (counted: 8 a call at the cut).
+    kernel form, and ``plain_versions()`` gives it the plain version of K4's
+    packed entry (counted, as [B*h, dh, T]: 8 a call at the cut).
     Tolerance 0.025 relative l2 a source: bf16 keeps 8 significant bits,
     about 0.2 % a rounding, and over the cut's 8 layers, 6 gLNs and the
     gate the answers read 1.1-1.3 % on 6 seeds; the float8 control reads
     10-12 %, four times the tolerance and more."""
     calls = []
 
-    def counted(*args):
-        calls.append(args[0].shape)
-        return attention_bdt_reference(*args)
+    def counted(qkv, num_heads):
+        calls.append((qkv.shape[0] * num_heads, qkv.shape[2] // (3 * num_heads), qkv.shape[1]))
+        return attention_packed_reference(qkv, num_heads)
 
     monkeypatch.setattr(kernels, "kernel_input", lambda x: True)
-    monkeypatch.setattr(port_attention, "attention_bdt_reference", counted)
+    monkeypatch.setattr(port_attention, "attention_packed_reference", counted)
     cfg, model, sd = _model_and_sd(seed)
     x = _wave(2, 8000, seed)
     with torch.no_grad(), kernels.plain_versions():

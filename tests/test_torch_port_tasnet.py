@@ -27,6 +27,7 @@ from audio_only_speech_separation_tpu_torch.ops.chunk import merge_feature, spli
 from audio_only_speech_separation_tpu_torch.ops.kernels.attention import (
     attention_bdt_reference,
     fused_attention_bdt,
+    fused_attention_packed,
 )
 from audio_only_speech_separation_tpu_torch.ops.norms import GlobalLayerNorm
 from audio_only_speech_separation_tpu_torch.ops.rnn import (
@@ -140,8 +141,8 @@ def _mha_pair(E, h, rng):
 def test_multihead_attention_matches_jax(T):
     """DPTNet's self-attention (E 64, 4 heads, dh 16) with the same weights:
     the plain form (what f32 and CPU tensors run) and the kernel form around
-    ``fused_attention_bdt`` (its plain version on the CPU), both within 1e-5
-    of the JAX module."""
+    ``fused_attention_packed`` (its plain version on the CPU), both within
+    1e-5 of the JAX module."""
     rng = np.random.default_rng(T)
     jm, p, m = _mha_pair(64, 4, rng)
     x = rng.standard_normal((3, T, 64)).astype(np.float32)
@@ -149,7 +150,7 @@ def test_multihead_attention_matches_jax(T):
     with torch.no_grad():
         np.testing.assert_allclose(m(t(x)).numpy(), want, rtol=1e-5, atol=1e-5)
         w = (m.in_proj_weight, m.in_proj_bias, m.out_proj.weight, m.out_proj.bias)
-        got = mha_kernel_form(t(x), *w, 4, fused_attention_bdt)
+        got = mha_kernel_form(t(x), *w, 4, fused_attention_packed)
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 

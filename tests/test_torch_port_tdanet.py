@@ -27,7 +27,7 @@ from audio_only_speech_separation_tpu_torch.ops import attention as port_attenti
 from audio_only_speech_separation_tpu_torch.ops import kernels
 from audio_only_speech_separation_tpu_torch.ops.attention import mha_plain_form
 from audio_only_speech_separation_tpu_torch.ops.dropout import DropPath
-from audio_only_speech_separation_tpu_torch.ops.kernels.attention import attention_bdt_reference
+from audio_only_speech_separation_tpu_torch.ops.kernels.attention import attention_packed_reference
 from audio_only_speech_separation_tpu_torch.ops.resample import (
     adaptive_avg_pool1d,
     interpolate_nearest,
@@ -246,16 +246,18 @@ def test_tdanet_from_jax_round_trip():
 
 @pytest.fixture
 def attention_calls(monkeypatch):
-    """Dispatch treats every tensor as a kernel input; K4 is a stand-in
-    that records its shapes and returns the plain result."""
+    """Dispatch treats every tensor as a kernel input; K4's packed entry
+    is a stand-in that records its shapes as [B*h, dh, T] and returns the
+    plain result."""
     calls = []
 
-    def stand_in(q, k, v):
-        calls.append(tuple(q.shape))
-        return attention_bdt_reference(q, k, v)
+    def stand_in(qkv, num_heads):
+        B, T, E3 = qkv.shape
+        calls.append((B * num_heads, E3 // (3 * num_heads), T))  # as [B*h, dh, T]
+        return attention_packed_reference(qkv, num_heads)
 
     monkeypatch.setattr(kernels, "kernel_input", lambda x: True)
-    monkeypatch.setattr(port_attention, "fused_attention_bdt", stand_in)
+    monkeypatch.setattr(port_attention, "fused_attention_packed", stand_in)
     return calls
 
 

@@ -301,15 +301,15 @@ def card():
 @pytest.mark.cuda
 def test_k4_spans_inside_the_stacks(card):
     """A bf16 Sepformer on the card: one ``kernels.k4`` span a transformer
-    layer (8 a call here), each inside its stack's span, and as many K4
-    launches as spans."""
-    from audio_only_speech_separation_tpu_torch.ops.kernels.attention import fused_attention_bdt
+    layer (8 a call here), each inside its stack's span, and as many
+    launches of K4's packed entry as spans."""
+    from audio_only_speech_separation_tpu_torch.ops.kernels.attention import fused_attention_packed
 
     model = _sepformer().to(device=card, dtype=torch.bfloat16)
     _sepformer_call(model, card, torch.bfloat16)
-    before = fused_attention_bdt.launches
+    before = fused_attention_packed.launches
     spans = _profiled(_sepformer_call, model, card, torch.bfloat16)
-    assert len(spans["kernels.k4"]) == 8 == fused_attention_bdt.launches - before
+    assert len(spans["kernels.k4"]) == 8 == fused_attention_packed.launches - before
     stacks = spans["sepformer.intra"] + spans["sepformer.inter"]
     assert len(stacks) == 4 and all(sum(_within(k, st) for st in stacks) == 1 for k in spans["kernels.k4"])
 

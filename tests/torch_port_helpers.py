@@ -159,13 +159,16 @@ def train_step_against_jax(jax_model, model, to_jax, mix, sources):
 
 def count_kernel_launches(monkeypatch, fn):
     """Run ``fn`` as if its tensors were bf16 on the card
-    (``kernels.kernel_input`` forced true), with K4, K5 and K6 replaced by
-    their plain versions counting their calls; returns (result, {"K4": n,
-    "K5": n, "K6": n})."""
+    (``kernels.kernel_input`` forced true), with K4 (either entry), K5 and
+    K6 replaced by their plain versions counting their calls; returns
+    (result, {"K4": n, "K5": n, "K6": n})."""
     from audio_only_speech_separation_tpu_torch.ops import attention as port_attention
     from audio_only_speech_separation_tpu_torch.ops import kernels
     from audio_only_speech_separation_tpu_torch.ops import rnn as port_rnn
-    from audio_only_speech_separation_tpu_torch.ops.kernels.attention import attention_bdt_reference
+    from audio_only_speech_separation_tpu_torch.ops.kernels.attention import (
+        attention_bdt_reference,
+        attention_packed_reference,
+    )
     from audio_only_speech_separation_tpu_torch.ops.kernels.lstm import (
         bilstm_reference,
         resident_bilstm_reference,
@@ -181,6 +184,7 @@ def count_kernel_launches(monkeypatch, fn):
 
     monkeypatch.setattr(kernels, "kernel_input", lambda x: True)
     monkeypatch.setattr(port_attention, "fused_attention_bdt", counting("K4", attention_bdt_reference))
+    monkeypatch.setattr(port_attention, "fused_attention_packed", counting("K4", attention_packed_reference))
     monkeypatch.setattr(port_rnn, "fused_bilstm", counting("K5", bilstm_reference))
     monkeypatch.setattr(port_rnn, "resident_bilstm", counting("K6", resident_bilstm_reference))
     with torch.no_grad():
