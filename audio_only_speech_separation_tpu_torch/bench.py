@@ -15,8 +15,9 @@ width (3 speakers, relu mask), seeded weights packed once, bf16 through
 
 On the card the bench first checks K1 against its plain version on the
 bench's frames, once, and raises if they differ by more than
-``K1_PLAIN_REL`` of the plain output's largest magnitude (``chip_smoke.py``
-phase 2's rule).  That check takes the place of the root bench's refusal
+``K1_PLAIN_REL`` of the plain output's largest magnitude (the rule
+``tests/test_torch_port_cuda_paths.py::test_k1_at_the_published_width``
+holds K1 to).  That check takes the place of the root bench's refusal
 of kernels whose validation record is stale (``bench.py:49-84``): it costs
 one plain call, so the port keeps no record of source hashes.  Then
 ``ITERS`` calls run back to back between two CUDA events, after a warm-up,
@@ -60,7 +61,7 @@ LRS3 = dict(N=512, L=16, B=128, H=512, P=3, X=8, R=3, norm="gLN", num_spks=3, ac
             causal=False, sample_rate=SAMPLE_RATE)
 
 # K1 against its plain version: the largest difference within this share of
-# the plain output's largest magnitude (chip_smoke.py's K1_PLAIN_REL)
+# the plain output's largest magnitude (the card tests read it too)
 K1_PLAIN_REL = 3e-2
 
 

@@ -78,9 +78,11 @@ def kernel_choice(T: int, B: int, Din: int, H: int, D: int) -> str:
     The last clause is not the grid's: at Din < 128, T >= 128 and 16 < B
     <= 128 K6 is faster (by up to 1.67x at 128 sequences).  Those shapes
     keep the JAX package's gate because sending them to K6 moves the 12 s
-    batch-1 DPRNN of ``chip_smoke.py``'s phase 14 off the 1.5x rule at its
-    one fixed input (1.57x the plain path's error), though over 16 inputs
-    the two paths' errors agree (median ratio 1.00; PERF.md).  With it, the
+    batch-1 DPRNN off the 1.5x rule at its one fixed input (1.57x the plain
+    path's error; the card test ``tests/test_torch_port_cuda_paths.py::
+    test_served_model_at_published_width``, case "DPRNN B=1 x 12 s", reads
+    the rule there), though over 16 inputs the two paths' errors agree
+    (median ratio 1.00; PERF.md).  With it, the
     rule takes a path more than 10 % slower than the faster at 62 of the
     grid's 936 points (10 without it), none a shape of ``measure_gates``'
     table."""

@@ -9,13 +9,14 @@ rates and batches, served through ``serve.Server``'s dispatch with bf16
 (on the card: "fused" for ConvTasNet, "fast_tdanet" for TDANet, "kernels"
 for the rest).  After ``--iters`` warm-up calls and ``--iters`` timed
 ones (host clock, the device synchronised), ``--iters`` calls run under
-the profiler (CPU and CUDA activity); then the top operations by self
-device time, with their calls, and the device's idle share over the
-profiled window and against the unprofiled time
-(``utils/profiling.py::device_events`` and ``idle_share``, as
-``chip_smoke.py``'s profiled phases read them).  ``--device cpu`` profiles
-the host's operations by self CPU time: a check of the control flow, not a
-measurement of the card.
+the profiler (CPU and CUDA activity); then the device's busy time (the
+sum of its operations' self device times, ``utils/profiling.py::
+device_events``) beside the wall times with and without the profiler, and
+the top operations by self device time, with their calls.  The sum counts
+operations that overlap twice, so it gives no idle share: the traced idle
+share is the benchmark's ``device.idle_share.serve`` (``port_bench``).
+``--device cpu`` profiles the host's operations by self CPU time: a check
+of the control flow, not a measurement of the card.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 from .bench_all import CASES as CASES_ALL
 from .bench_all import device_name
 from .serve import Server
-from .utils.profiling import device_events, idle_share
+from .utils.profiling import device_events
 
 # name -> (model constructor, sample rate, batch): scripts/profile_trace_ops.py:32-42, the configs and
 # batches of bench_all's rows
@@ -44,9 +45,9 @@ CASES = {"convtasnet": _ROWS["ConvTasNet (lrs3)"], "dprnn": _ROWS["TasNet-DPRNN 
 def profile_case(case: str, device="cuda", iters: int = 10, top: int = 30, seconds: float = 2.0,
                  batch=None) -> dict:
     """Profile ``iters`` served calls of ``case``; prints the table and
-    returns {"dispatch", "ops": [(name, ms a call, calls a call)], "busy",
-    "wall" (ms a call under the profiler), "call" (ms a call without it),
-    "idle" (the profiled window's)} ("busy" and "idle" None on the CPU)."""
+    returns {"dispatch", "ops": [(name, ms a call, calls a call)], "busy"
+    (the device operations' self ms a call, None on the CPU), "wall" (ms a
+    call under the profiler), "call" (ms a call without it)}."""
     from torch.profiler import ProfilerActivity, profile
 
     ctor, sr, default_batch = CASES[case]
@@ -74,24 +75,22 @@ def profile_case(case: str, device="cuda", iters: int = 10, top: int = 30, secon
     if cuda:
         events = device_events(prof)
         ops = sorted(((k, ms / iters, n / iters) for k, (ms, n) in events.items()), key=lambda r: -r[1])
-        busy = sum(ms for _, ms, _ in ops)
-        idle, clock = idle_share(busy, wall), "self device"
+        busy, clock = sum(ms for _, ms, _ in ops), "self device"
     else:
         ops = sorted(((e.key, e.self_cpu_time_total / 1e3 / iters, e.count / iters) for e in prof.key_averages()),
                      key=lambda r: -r[1])
-        busy = idle = None
-        clock = "self CPU"
+        busy, clock = None, "self CPU"
     print(f"{case} [{server.dispatch}] B={B} x {seconds:g} s x {sr // 1000} kHz, {iters} calls, on {card}")
     if cuda:
-        print(f"device work {busy:.4f} ms a call; {wall:.4f} ms a call with the profiler on, idle share "
-              f"{idle:.4f}; {call_ms:.4f} ms a call without it, idle share {idle_share(busy, call_ms):.4f}")
+        print(f"device work {busy:.4f} ms a call (the operations' self times summed); {wall:.4f} ms a call with "
+              f"the profiler on, {call_ms:.4f} without it (host clock)")
     else:
-        print(f"{wall:.4f} ms a call with the profiler on, {call_ms:.4f} without it (host clock); idle share: "
+        print(f"{wall:.4f} ms a call with the profiler on, {call_ms:.4f} without it (host clock); device work: "
               f"not measured (no device)")
     print(f"{'ms a call':>12} {'calls':>8}  operation ({clock} time)")
     for name, ms, n in ops[:top]:
         print(f"{ms:12.4f} {n:8g}  {name[:110]}")
-    return {"dispatch": server.dispatch, "ops": ops, "busy": busy, "wall": wall, "call": call_ms, "idle": idle}
+    return {"dispatch": server.dispatch, "ops": ops, "busy": busy, "wall": wall, "call": call_ms}
 
 
 def main(argv=None) -> dict:

@@ -12,9 +12,7 @@ evaluated_mac_params.py:49).
 - ``profile_trace`` captures a ``torch.profiler`` trace (CPU and, on the
   card, CUDA activity) for TensorBoard or a Chrome trace viewer;
 - ``device_events`` sums a ``torch.profiler`` run's device operations by
-  name, and ``idle_share`` reads the device's idle share of a window from
-  their total (``chip_smoke.py``'s profiled phases and
-  ``profile_trace_ops.py`` both read them);
+  name (``profile_trace_ops.py`` reads it);
 - ``span(name)`` marks a stretch of the port's host work (``serve.*``,
   ``forward.*``, ``train.*``, ``kernels.*``, ``optim.*``,
   ``sepformer.*``) as an event on
@@ -134,11 +132,3 @@ def device_events(prof) -> Dict[str, Tuple[float, int]]:
     whole run."""
     return {e.key: (e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA}
-
-
-def idle_share(busy_ms: float, wall_ms: float) -> float:
-    """The share of a ``wall_ms`` window in which the device ran none of the
-    ``busy_ms`` of its operations (``device_events``' total; operations
-    taken as not overlapping)."""
-    return 1.0 - busy_ms / wall_ms
-

@@ -19,8 +19,10 @@ them on one card.  Prints the card's name and power limit, then:
   (torch.profiler, 5 calls);
 - DPTNet and DPRNN (wsj0 configs, full width and depth, seeded weights) at
   B=8 x 2 s and B=1 x 12 s x 8 kHz through the bf16 kernel path: the
-  median call time, the device time of K4, K5, K6 and of all device work a
-  call (torch.profiler, 3 calls), and the idle share against the call time.
+  median call time, and the device time of K4, K5, K6 and of all device
+  work a call (torch.profiler, 3 calls).  The device's idle share is
+  ``port_bench``'s (``device.idle_share.serve``), read from the traced
+  timeline: a sum of device times counts overlapping operations twice.
 """
 
 from __future__ import annotations
@@ -75,7 +77,7 @@ def main() -> None:
                   f"(torch.profiler): {by_kernel(fn, 5)}")
 
     for module, seed in (("DPTNet", 21), ("DPRNN", 22)):
-        kernel_path = cs.tasnet_paths(cs.tasnet_model(module, seed, dev))[0]
+        kernel_path = cs.dualpath_paths(cs.tasnet_model(module, seed, dev))[0]
         for batch, secs in ((8, 2.0), (1, 12.0)):
             x = torch.from_numpy(np.random.default_rng(25).standard_normal(
                 (batch, int(secs * cs.TSR))).astype(np.float32)).to(dev)
@@ -83,8 +85,8 @@ def main() -> None:
             rows = cs.profile_kernels(lambda: kernel_path(x), 3)
             busy = sum(t for t, _ in rows.values())
             print(f"{module} B={batch} x {secs:g} s kernel path: {ms:.4f} ms a call (median of {args.reps}, "
-                  f"{batch * secs / (ms / 1000):.2f} audio-sec/s, {card}); device work {busy:.4f} ms a call, "
-                  f"idle share {1 - busy / ms:.4f}; dual-path kernels (torch.profiler, per call): "
+                  f"{batch * secs / (ms / 1000):.2f} audio-sec/s, {card}); device work {busy:.4f} ms a call; "
+                  f"dual-path kernels (torch.profiler, per call): "
                   + ", ".join(f"{k} {t:.4f} ms ({n:g} launches)" for k, (t, n) in rows.items()
                               if any(s in k for s in KERNEL_NAMES)))
 

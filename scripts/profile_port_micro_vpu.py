@@ -21,7 +21,7 @@ then timed ``--rounds`` times (200 calls in one CUDA graph,
 drift falls on all of them alike.  A plan whose grid is not co-resident
 with stats is outside the kernel and is reported so.  Prints the card's
 name and power limit, each variant's times in µs a call with their median
-and share of the bound (``chip_smoke.py`` phase 25's), and the split of the
+and share of the bound (``chip_smoke.py::micro_vpu_bounds``), and the split of the
 default's time into the fixed cost (the 0-step build) and a cost a step.
 """
 

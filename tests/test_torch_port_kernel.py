@@ -2,7 +2,7 @@
 package's plain references, on the CPU.
 
 The CUDA kernel itself runs only on the card (``test_torch_port_cuda.py``
-and ``chip_smoke.py``); here its plain version, which a CPU tensor selects,
+and ``test_torch_port_cuda_paths.py``); here its plain version, which a CPU tensor selects,
 is held against the JAX package.
 """
 

@@ -3,8 +3,9 @@ against the JAX package's (the parameter count of all 13 configs, the
 FLOPs within the tolerance measured for XLA's count), ``profile_trace``,
 and ``bench``, ``bench_train``, ``evaluated_mac_params``
 and ``unit_tests`` run through their ``main`` at tiny shapes with
-``--device cpu`` (their kernels' plain versions).  On the card the bench
-and ``bench_train`` run in ``chip_smoke.py`` (phases 44-45).
+``--device cpu`` (their kernels' plain versions).  On the card they run
+in ``test_torch_port_cuda.py::test_bench_checks_k1_then_times_it`` and
+``test_torch_port_cuda_paths.py::test_measurement_entry_point_on_the_card``.
 
 Also the JAX scripts' measurement entry points: ``bench_all``,
 ``bench_batch_sweep`` and ``profile_trace_ops`` on ``--device cpu`` at
@@ -282,9 +283,9 @@ def test_profile_trace_ops_prints_the_top_operations(capsys):
     result = profile_trace_ops.main(["dprnn", "--device", "cpu", "--batch", "1", "--seconds", "0.05", "--iters", "1",
                                      "--top", "5"])
     out = capsys.readouterr().out
-    assert result["dispatch"] == "eager" and result["idle"] is None and result["wall"] > 0
+    assert result["dispatch"] == "eager" and result["busy"] is None and result["wall"] > 0 and "idle" not in result
     assert len(result["ops"]) > 5 and all(ms >= 0 and n > 0 for _, ms, n in result["ops"])
-    assert "idle share: not measured (no device)" in out
+    assert "device work: not measured (no device)" in out and "idle" not in out
     assert sum(line.endswith(name[:110]) for line in out.splitlines() for name, _, _ in result["ops"][:5]) >= 5
 
 

@@ -3,7 +3,7 @@ wrapper runs for a CPU tensor, against the JAX package's Pallas body
 (``scripts/micro_vpu.py::make_kernel``) run through ``pl.pallas_call`` in
 interpret mode, at [64, 128] for f32 and bf16, with and without stats.
 The CUDA kernel itself is held against the plain version on the card
-(``test_torch_port_cuda.py``, ``chip_smoke.py``)."""
+(``test_torch_port_cuda.py``)."""
 
 import importlib.util
 import os

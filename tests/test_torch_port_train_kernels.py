@@ -3,7 +3,7 @@ plain versions: the differentiable packer, the TCN chain's forward (K2)
 and backward (K3), and ``make_kernel_train_apply``, each against the JAX
 package on the same seeded inputs.  The CUDA kernels themselves are held
 against these plain versions on the card (``test_torch_port_cuda.py``,
-``chip_smoke.py``)."""
+``test_torch_port_cuda_paths.py``)."""
 
 import jax
 import jax.numpy as jnp

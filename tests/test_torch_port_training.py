@@ -5,7 +5,8 @@ dropout, each family's f32 loss and gradients against
 ``audio_train.main`` epoch of each family that serves its best_model.pth.
 
 The kernels K4-K6 run here as their plain versions; on the card
-``chip_smoke.py`` drives the same train steps through them."""
+``test_torch_port_cuda_paths.py`` drives the same train steps through
+them."""
 
 import copy
 import json

@@ -2,7 +2,7 @@
 JAX package's ``scripts/validate_pallas.py::kernel_train_quality`` and
 ``::bf16_quality_study``) at a tiny size on the CPU, where the TCN chain's
 kernels and the whole-separator kernel run as their plain versions.  The
-full-width study runs on the card in ``chip_smoke.py`` phase 35."""
+full-width study runs on the card through ``validate.py``'s command line."""
 
 import ast
 import os

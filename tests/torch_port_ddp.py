@@ -343,6 +343,67 @@ def job_sp_train(out, work, sp, device="cpu"):
     return res
 
 
+# the sp card job's families at their published widths: (batch, seconds, sample rate, a train step too)
+SP_CARD = {"TasNet-DPRNN": (2, 4.0, 8000, True), "Sepformer": (1, 2.0, 16000, False), "BSRNN": (1, 4.0, 8000, True)}
+
+
+def sp_card_model(family, dev):
+    import torch_port_card as card
+
+    if family == "TasNet-DPRNN":
+        return card.tasnet_model("DPRNN", 61, dev)
+    if family == "Sepformer":
+        return card.seeded_model("Sepformer", card.SEPFORMER, card.SR, 62, dev)
+    return card.seeded_model("BSRNN", card.BSRNN_WSJ0, card.TSR, 63, dev)
+
+
+def sp_card_batch(family, dev):
+    batch, secs, sr, _ = SP_CARD[family]
+    sources = (0.3 * np.random.default_rng(64).standard_normal((batch, 2, int(secs * sr)))).astype(np.float32)
+    return torch.from_numpy(sources.sum(1)).to(dev), torch.from_numpy(sources).to(dev)
+
+
+def sp_card_runs(dev, work, mesh=None):
+    """Each family of SP_CARD on the kernel path (under ``mesh`` if given):
+    the bf16 forward and, where SP_CARD says, one bf16 train step's
+    gradients (``Trainer(sp=2)`` on the mesh), with the launches and shapes."""
+    import torch_port_card as card
+
+    from audio_only_speech_separation_tpu_torch.losses import PITLossWrapper, pairwise_neg_snr
+    from audio_only_speech_separation_tpu_torch.parallel import use_mesh
+    from audio_only_speech_separation_tpu_torch.train import CSVLogger, Trainer
+
+    res = {}
+    for family, (_, _, _, step) in SP_CARD.items():
+        model = sp_card_model(family, dev)
+        mix, sources = sp_card_batch(family, dev)
+        kernel = card.dualpath_paths(model)[0]
+        with card.counting() as n, card.recording_kernel_shapes() as shapes, use_mesh(mesh):
+            entry = {"out": kernel(mix).float().cpu(), "launches": n()}
+        entry["shapes"] = {g: sorted(v) for g, v in shapes.items()}
+        if step:
+            trainer = Trainer(os.path.join(work, family), precision="bfloat16", sp=1 if mesh is None else 2,
+                              device=dev, logger=CSVLogger(os.path.join(work, family, "logs")))
+            module = trainer.train_module(model.train())
+            with card.recording_kernel_shapes() as step_shapes:
+                PITLossWrapper(pairwise_neg_snr, threshold_byloss=False)(module(mix, 0), sources).backward()
+                torch.cuda.synchronize()
+            entry.update(step_shapes={g: sorted(v) for g, v in step_shapes.items()},
+                         grads=torch.cat([p.grad.flatten().float() for p in model.parameters()]).cpu())
+        res[family] = entry
+        del model
+    return res
+
+
+def job_sp_card(out, work):
+    """``sp_card_runs`` on a (1, world) mesh of gloo ranks on one card."""
+    from audio_only_speech_separation_tpu_torch import parallel
+
+    parallel.init_distributed(device="cuda", backend="gloo")
+    mesh = parallel.make_mesh("cuda", ("dp", "sp"), (1, dist.get_world_size()))
+    return sp_card_runs(torch.device("cuda"), work, mesh)
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -390,7 +451,8 @@ if __name__ == "__main__":
     torch.backends.cudnn.allow_tf32 = False
     job, out, work = sys.argv[1:4]
     res = {"step": job_step, "main": job_main, "families": job_families, "card": job_card,
-           "sp_forward": job_sp_forward, "sp_shard": job_sp_shard, "sp_train": job_sp_train}[job](
+           "sp_forward": job_sp_forward, "sp_shard": job_sp_shard, "sp_train": job_sp_train,
+           "sp_card": job_sp_card}[job](
         out, work, *sys.argv[4:])
     with open(out, "wb") as f:
         pickle.dump(res, f)
