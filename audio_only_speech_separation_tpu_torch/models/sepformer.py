@@ -17,7 +17,13 @@ branches and inside the feed-forward) acts only while training.
 Serving through the kernels is this module itself, cast to bf16 on a CUDA
 device, in eval mode: every unmasked attention takes K4 from inside
 ``ops/attention.py``.  A mask (``*_causal``) or training dropout takes the
-plain attention form, as in the JAX package.
+plain attention form, as in the JAX package.  A pre-norm stack on such an
+input, recording no gradient and with its dropout inactive, runs each
+residual add with the LayerNorm that follows it as one launch of K8
+(``ops/kernels/add_layer_norm.py``): ``x + positions`` with the first
+``norm1``, each attention's sum with ``norm2``, each feed-forward's sum
+with the next layer's ``norm1`` or, at the last layer, the stack's final
+``norm`` (``_LayerStack.forward``); everything else keeps the plain path.
 
 The ``state_dict`` uses look2hear's keys (the JAX package's
 ``utils/torch_import.py::convert_sepformer``): ``encoder.conv1d.weight``
@@ -43,11 +49,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops import kernels
 from ..ops.activations import PReLU
-from ..ops.attention import MultiheadAttention, PositionalEncoding
+from ..ops.attention import MultiheadAttention, PositionalEncoding, positions_table
 from ..ops.chunk import merge_feature, split_feature
 from ..ops.conv import frame_signal, overlap_add
 from ..ops.dropout import Dropout
+from ..ops.kernels.add_layer_norm import add_layer_norm_ok, add_layer_norm_reference, fused_add_layer_norm
 from ..ops.norms import GlobalLayerNorm
 from ..parallel import sequence
 from ..utils.profiling import span
@@ -106,6 +114,26 @@ class SBTransformerLayer(nn.Module):
         return self.norm2(x + self.dropout2(self.pos_ffn(x)))
 
 
+def fuses_add_norm(stack: "_LayerStack", x: torch.Tensor) -> bool:
+    """Whether ``stack`` runs its residual adds and LayerNorms through K8 on
+    ``x`` [B, T, d]: pre-norm layers; x a contiguous bf16 CUDA tensor
+    (``kernels.kernel_input``) with d inside ``add_layer_norm_ok`` and the
+    norms' affines bf16; dropout inactive (eval mode, or rate 0); and no
+    gradient recorded (grad mode off, or nothing requiring one)."""
+    if not stack.layers:
+        return False
+    layer = stack.layers[0]
+    return (layer.norm_before and kernels.kernel_input(x) and x.is_contiguous()
+            and add_layer_norm_ok(x.shape[-1]) and stack.norm.weight.dtype == torch.bfloat16
+            and not (layer.dropout1.training and layer.dropout1.rate > 0)
+            and not (torch.is_grad_enabled()
+                     and (x.requires_grad or any(p.requires_grad for p in stack.parameters()))))
+
+
+def _affine(norm: nn.LayerNorm):
+    return norm.weight, norm.bias, norm.eps
+
+
 class _LayerStack(nn.Module):
     """The layers under ``.layers`` and the final LayerNorm ``.norm``."""
 
@@ -114,10 +142,27 @@ class _LayerStack(nn.Module):
         self.layers = nn.ModuleList([make_layer() for _ in range(num_layers)])
         self.norm = nn.LayerNorm(d_model, eps=1e-6, device=device)
 
-    def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
-        for layer in self.layers:
-            x = layer(x, mask)
-        return self.norm(x)
+    def forward(self, x: torch.Tensor, mask=None, pos=None) -> torch.Tensor:
+        """The stack on x [B, T, d], the position table ``pos`` [T, d] (or
+        None) added first.  Where ``fuses_add_norm`` holds, the stack carries
+        (x, h = the next LayerNorm of x) from site to site, each site one
+        add and LayerNorm (K8, or its plain version inside
+        ``kernels.plain_versions()``): the same operations in the same
+        order as the layers' own forward."""
+        if not fuses_add_norm(self, x):
+            x = x if pos is None else x + pos
+            for layer in self.layers:
+                x = layer(x, mask)
+            return self.norm(x)
+        add_norm = kernels.pick(fused_add_layer_norm, add_layer_norm_reference)
+        first = self.layers[0].norm1
+        x, h = (x, first(x)) if pos is None else add_norm(x, pos, *_affine(first))
+        last = len(self.layers) - 1
+        for i, layer in enumerate(self.layers):
+            x, h = add_norm(x, layer.self_att(h, mask), *_affine(layer.norm2))
+            if i == last:
+                return add_norm(x, layer.pos_ffn(h), *_affine(self.norm), final=True)
+            x, h = add_norm(x, layer.pos_ffn(h), *_affine(self.layers[i + 1].norm1))
 
 
 class SBTransformerBlock(nn.Module):
@@ -139,9 +184,10 @@ class SBTransformerBlock(nn.Module):
         if self.is_causal:
             T = x.shape[1]
             mask = torch.tril(torch.ones(T, T, dtype=torch.bool, device=x.device))[None, None]
-        if self.pos_enc is not None:
-            x = self.pos_enc(x)
-        return self.mdl(x, mask)
+        pos = None
+        if self.pos_enc is not None:  # added by the stack: at its first site under K8
+            pos = positions_table(x.shape[1], self.pos_enc.d_model, x.dtype, x.device)
+        return self.mdl(x, mask, pos)
 
 
 class DualComputationBlock(nn.Module):

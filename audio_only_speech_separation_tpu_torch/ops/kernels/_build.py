@@ -107,6 +107,8 @@ def load_library() -> ctypes.CDLL:
     lib.attention_bdt.restype = i
     lib.attention_packed.argtypes = [p] * 2 + [i] * 4 + [p]
     lib.attention_packed.restype = i
+    lib.add_layer_norm.argtypes = [p] * 6 + [i] * 3 + [ctypes.c_float, i, p]
+    lib.add_layer_norm.restype = i
     lib.lstm_recurrence.argtypes = [p] * 3 + [i] * 4 + [p]
     lib.lstm_recurrence.restype = i
     lib.lstm_recurrence_cluster.argtypes = [i] * 3

@@ -13,7 +13,7 @@ Drives each path once, its launch counters set to 0 just before it:
   K3 in the backward;
 - Sepformer (sepformer_base) served at B=8 x 2 s (the
   ``sepformer_base.serve_b8_2s`` cell, "kernels"): 32 launches of K4's
-  packed entry, none of its [BH, dh, T] entry;
+  packed entry, none of its [BH, dh, T] entry, 68 of K8;
 - the wsj0 DPTNet served at B=1 x 12 s x 8 kHz ("kernels"): 12 of K4's
   packed entry, 6 of K5 and 6 of K6;
 - Sandglasset served at B=8 x 2 s x 8 kHz ("kernels"): 2 of K4's
@@ -62,6 +62,7 @@ from torch_port_card import (  # noqa: E402,F401 (re-exported for the profile sc
     SEPFORMER,
     SANDGLASSET,
     SEPFORMER_K4,
+    SEPFORMER_K8,
     SR,
     TRAIN_B,
     TSR,
@@ -247,7 +248,7 @@ def _entry(name, source, replaces, shape, launches, err, kernel, plain, args, wo
             return cuda_time(fn, reps, warmup=3)
 
     bound, by = least_time(*work)
-    return {"name": name, "route": "cuda", "source": CSRC + source, "replaces": PALLAS + replaces,
+    return {"name": name, "route": "cuda", "source": CSRC + source, "replaces": PALLAS + replaces if replaces else None,
             "shape": list(shape), "launches": launches, "max_abs_err": err, "ms": timed(lambda: kernel(*args)),
             "plain_ms": timed(lambda: plain(*args), 3), "bound_ms": bound, "bound_by": by,
             "library_ms": None if library is None else timed(library)}
@@ -379,6 +380,28 @@ def dualpath_serve(dev, label, model, x, want) -> list:
     return entries
 
 
+def add_norm_entries(dev, sepformer_path) -> list:
+    """``sepformer_path()``'s entries with its 68 K8 launches counted from 0;
+    then K8's residual form at the cell's two stack shapes: s the plain add, h
+    within 2e-2 of the plain LayerNorm, timed beside them (``device_ms``: under
+    the profiler)."""
+    from audio_only_speech_separation_tpu_torch.ops.kernels import add_layer_norm as k8
+    from port_bench.addnorm_work import addnorm_work
+
+    (counter,), rand = _zeroed(k8.add_layer_norm_launches), rand_maker(92, dev)
+    entries, launches = sepformer_path(), counter.launches
+    assert launches == SEPFORMER_K8, launches
+    for B, T, d in ((272, 250, 256), (2000, 34, 256)):
+        args = (rand((B, T, d)), rand((B, T, d)), 1 + rand((d,), 0.2), rand((d,), 0.1), 1e-6)
+        (s, h), (s_ref, h_ref) = _held(k8.fused_add_layer_norm, k8.add_layer_norm_reference, args)
+        assert torch.equal(s, s_ref) and max_err(h, h_ref) < 2e-2, (B, T, max_err(h, h_ref))
+        entry = _entry("add_layer_norm", "add_layer_norm.cu", None, (B, T, d), launches, max_err(h, h_ref),
+                       k8.fused_add_layer_norm, k8.add_layer_norm_reference, args, addnorm_work(B * T, d, B * T, True))
+        ops = profile_kernels(lambda: k8.fused_add_layer_norm(*args), 20)
+        entries.append(dict(entry, device_ms=sum(ms for k, (ms, _) in ops.items() if "add_layer_norm" in k)))
+    return entries
+
+
 def micro_vpu_probe() -> list:
     """K7 at its probe's [2048, 512] in bf16 with statistics: bit-equal to
     its plain version, the sum of squares within 1e-5 relative; its timed
@@ -410,8 +433,8 @@ def main() -> None:
     dev = torch.device("cuda")
     card = card_identity()
     kernels = convtasnet_serve(dev) + convtasnet_train(dev)
-    kernels += dualpath_serve(dev, "Sepformer B=8 x 2 s", seeded_model("Sepformer", SEPFORMER, SR, 90, dev),
-                              waves(dev, 98, 8, 2 * SR), (0, SEPFORMER_K4, 0, 0))
+    kernels += add_norm_entries(dev, lambda: dualpath_serve(dev, "Sepformer B=8 x 2 s", seeded_model(
+        "Sepformer", SEPFORMER, SR, 90, dev), waves(dev, 98, 8, 2 * SR), (0, SEPFORMER_K4, 0, 0)))
     kernels += dualpath_serve(dev, "DPTNet B=1 x 12 s", tasnet_model("DPTNet", 21, dev), waves(dev, 23, 1, 12 * TSR),
                               (0, 12, 6, 6))
     kernels += dualpath_serve(dev, "Sandglasset B=8 x 2 s", seeded_model("Sandglasset", SANDGLASSET, TSR, 94, dev),

@@ -1,7 +1,8 @@
 """The CUDA kernels (the whole separator K1, the TCN chain's forward K2 and
 backward K3, attention K4, the LSTM recurrences K5 and K6, the elementwise
-probe K7) against their plain versions, on the card, and K5/K6 inside a
-layer trained on bf16 casts of its f32 parameters.
+probe K7, the residual add and LayerNorm K8) against their plain versions,
+on the card, and K5/K6 inside a layer trained on bf16 casts of its f32
+parameters.
 
 ``test_torch_port_cuda_paths.py`` holds the served, trained and measured
 paths at the published configurations' widths.
@@ -595,6 +596,112 @@ def test_served_sepformer_base_launches_the_packed_entry(cuda):
     assert fused_attention_packed.launches - before == 32 and fused_attention_bdt.launches == before_bdt
     assert out.shape == (2, 2, x.shape[1]) and bool(torch.isfinite(out.float()).all())
 
+
+
+# ---------------------------------------------------------------------------
+# The residual add and LayerNorm of Sepformer's pre-norm stacks (K8)
+# ---------------------------------------------------------------------------
+
+from audio_only_speech_separation_tpu_torch.ops.kernels.add_layer_norm import (  # noqa: E402
+    add_layer_norm_launches,
+    add_layer_norm_reference,
+    fused_add_layer_norm,
+)
+
+
+def _within_one_bf16_unit(got, want) -> bool:
+    """|got - want| within one bf16 unit in the last place of the larger
+    magnitude of the two, magnitudes under 2^-8 taken as 2^-8 (near 0 the
+    f32 round-off of gamma * n + beta is the whole difference)."""
+    g, w = got.float(), want.float()
+    mag = torch.clamp(torch.maximum(g.abs(), w.abs()), min=2.0 ** -8)
+    return bool(((g - w).abs() <= torch.exp2(torch.floor(torch.log2(mag)) - 7)).all())
+
+
+# x's shape [B, T, d]: the served cell's intra and inter stacks (8 x 2 s x
+# 16 kHz: 272 sequences of 250 frames, 2000 of 34 chunks; d 256), then d 64,
+# 256 and 1024 at row counts that are not a multiple of a block's 8 rows
+ADD_NORM_SHAPES = [(272, 250, 256), (2000, 34, 256), (3, 7, 64), (5, 13, 256), (1, 9, 1024), (2, 3, 1024)]
+
+
+@pytest.mark.parametrize("form", ["residual", "positions", "final"])
+@pytest.mark.parametrize("shape", ADD_NORM_SHAPES)
+def test_add_layer_norm_matches_plain_version(cuda, shape, form):
+    """K8 against its plain version (torch's bf16 add, then ``F.layer_norm``
+    on the card): s bit-identical to the add, h within one bf16 unit of the
+    plain LayerNorm of it; one launch a call, bit-identical runs."""
+    B, T, d = shape
+    rng = np.random.default_rng(B + T + d)
+    x = _bf16(cuda, rng.standard_normal(shape) * 2.0)
+    a = _bf16(cuda, rng.standard_normal((T, d) if form == "positions" else shape))
+    w, b = _bf16(cuda, 1 + 0.2 * rng.standard_normal(d)), _bf16(cuda, 0.1 * rng.standard_normal(d))
+    final = form == "final"
+    before = add_layer_norm_launches.launches
+    got, again = (fused_add_layer_norm(x, a, w, b, 1e-6, final=final) for _ in range(2))
+    s, h = add_layer_norm_reference(x, a, w, b, 1e-6)
+    torch.cuda.synchronize()
+    assert add_layer_norm_launches.launches - before == 2
+    if final:
+        got, again = (None, got), (None, again)
+    else:
+        assert torch.equal(got[0], s) and torch.equal(got[0], again[0])
+    assert got[1].shape == shape and got[1].is_contiguous() and torch.equal(got[1], again[1])
+    assert _within_one_bf16_unit(got[1], h), float((got[1].float() - h.float()).abs().max())
+
+
+def test_add_layer_norm_refuses_what_the_kernel_does_not_take(cuda):
+    """On the card K8's wrapper raises outside d % 8 == 0, d <= 1024, on
+    float32, on an input off a 16-byte boundary and on an addend of another
+    shape, and launches nothing."""
+    def args(d, rows=6):
+        return _bf16(cuda, np.ones((rows, d))), _bf16(cuda, np.ones((rows, d))), _bf16(cuda, np.ones(d)), \
+            _bf16(cuda, np.zeros(d))
+
+    before = add_layer_norm_launches.launches
+    for d in (12, 1032):
+        with pytest.raises(ValueError, match="d % 8 == 0"):
+            fused_add_layer_norm(*args(d), 1e-6)
+    x, a, w, b = args(64)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fused_add_layer_norm(x.float(), a, w, b, 1e-6)
+    shifted = torch.zeros(1 + x.numel(), device=cuda, dtype=torch.bfloat16)[1:].view(x.shape)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fused_add_layer_norm(shifted, a, w, b, 1e-6)
+    with pytest.raises(ValueError, match="addend"):
+        fused_add_layer_norm(x, a[:5], w, b, 1e-6)
+    assert add_layer_norm_launches.launches == before
+
+
+def test_served_sepformer_base_takes_k8_at_every_site(cuda):
+    """sepformer_base served through ``Server`` at the cell's 8 x 2 s x 16 kHz:
+    on the device, 68 launches of K8 (4 stacks x (1 + 2 x 8) sites), 32 of
+    K4 and none of torch's LayerNorm kernels (``vectorized_layer_norm_kernel``
+    among them); every answer within the cell's
+    ``serve_rel_err`` limit (0.035) of the f32 module's, relative l2."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio_only_speech_separation_tpu_torch.serve import Server
+    from torch_port_card import SEPFORMER, SEPFORMER_K4, SEPFORMER_K8, SR, seeded_model
+
+    m = seeded_model("Sepformer", SEPFORMER, SR, 24, cuda)
+    server = Server(m, True, cuda)
+    x = waves(cuda, 25, 8, 2 * SR) * 0.1
+    server.forward(x)
+    torch.cuda.synchronize()
+    before, before_k4 = add_layer_norm_launches.launches, k4_launches.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = server.forward(x)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert add_layer_norm_launches.launches - before == SEPFORMER_K8 == 68
+    assert k4_launches.launches - before_k4 == SEPFORMER_K4 == 32
+    assert sum("add_layer_norm_kernel" in n for n in names) == 68
+    assert sum("attention_kernel" in n for n in names) == 32
+    assert not any(("layer_norm" in n or "LayerNorm" in n) and "add_layer_norm_kernel" not in n for n in names)
+    with torch.no_grad():
+        ref = m(x)
+    err = [float((out[i].float() - ref[i]).norm() / ref[i].norm()) for i in range(8)]
+    assert max(err) < 0.035, err
 
 def test_eval_cli_on_the_card(cuda, tmp_path):
     """``audio_test.main`` with ``device="cuda"`` and ``--bf16`` on a tiny

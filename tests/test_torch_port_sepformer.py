@@ -15,10 +15,16 @@ from audio_only_speech_separation_tpu.models import serialize as jax_serialize
 from audio_only_speech_separation_tpu.ops.attention import sinusoidal_positions as jax_positions
 from audio_only_speech_separation_tpu.utils.separator import separate as jax_separate
 from audio_only_speech_separation_tpu.utils.torch_import import convert
-from audio_only_speech_separation_tpu_torch.models import Sepformer, from_pretrain
+from audio_only_speech_separation_tpu_torch.models import Sepformer, from_pretrain, sepformer
 from audio_only_speech_separation_tpu_torch.ops import attention as port_attention
 from audio_only_speech_separation_tpu_torch.ops import kernels
 from audio_only_speech_separation_tpu_torch.ops.attention import sinusoidal_positions
+from audio_only_speech_separation_tpu_torch.ops.kernels.add_layer_norm import (
+    add_layer_norm_launches,
+    add_layer_norm_ok,
+    add_layer_norm_reference,
+    fused_add_layer_norm,
+)
 from audio_only_speech_separation_tpu_torch.ops.kernels.attention import attention_packed_reference
 from audio_only_speech_separation_tpu_torch.serve import choose_dispatch, serve
 from audio_only_speech_separation_tpu_torch.utils.jax_import import sepformer_from_jax
@@ -195,3 +201,163 @@ def test_choose_dispatch_serves_sepformer_through_the_kernels():
     assert choose_dispatch(model, True, "cuda") == "kernels"
     assert choose_dispatch(model, False, "cuda") == "eager"
     assert choose_dispatch(model, True, "cpu") == "eager"
+
+
+# ---------------------------------------------------------------------------
+# The residual add and LayerNorm sites (K8) of the pre-norm stacks
+# ---------------------------------------------------------------------------
+
+
+class _Seen:
+    """What ``fuses_add_norm`` reads of an input [2, 5, d], so that a CUDA
+    tensor's edges can be set on a host without a card."""
+
+    def __init__(self, d=32, is_cuda=True, dtype=torch.bfloat16, requires_grad=False, contiguous=True):
+        self.shape, self.is_cuda, self.dtype, self.requires_grad = (2, 5, d), is_cuda, dtype, requires_grad
+        self._contiguous = contiguous
+
+    def is_contiguous(self):
+        return self._contiguous
+
+
+def _stack(d=32, norm_before=True, dropout=0.1, dtype=torch.bfloat16, training=False, frozen=False, layers=2):
+    block = sepformer.SBTransformerBlock(layers, d, 4, 64, use_positional_encoding=True, norm_before=norm_before,
+                                         dropout=dropout)
+    block = block.to(dtype).train(training).requires_grad_(not frozen)
+    return block.mdl
+
+
+# (stack, input, grad mode, taken): the envelope's edges, each changing one
+# thing from the first case
+FUSE_EDGES = {
+    "taken": (dict(), dict(), False, True),
+    "cpu": (dict(), dict(is_cuda=False), False, False),
+    "float32 input": (dict(), dict(dtype=torch.float32), False, False),
+    "float32 norms": (dict(dtype=torch.float32), dict(), False, False),
+    "not contiguous": (dict(), dict(contiguous=False), False, False),
+    "grad recorded": (dict(), dict(), True, False),
+    "grad mode, nothing requires it": (dict(frozen=True), dict(), True, True),
+    "grad mode, the input requires it": (dict(frozen=True), dict(requires_grad=True), True, False),
+    "training, dropout 0.1": (dict(training=True), dict(), False, False),
+    "training, dropout 0": (dict(training=True, dropout=0.0), dict(), False, True),
+    "post-norm": (dict(norm_before=False), dict(), False, False),
+    "d 1024": (dict(d=1024, layers=1), dict(d=1024), False, True),
+    "d 1032": (dict(d=1032, layers=1), dict(d=1032), False, False),
+    "d 36": (dict(d=36), dict(d=36), False, False),
+    "no layers": (dict(layers=0), dict(), False, False),
+}
+
+
+@pytest.mark.parametrize("case", list(FUSE_EDGES))
+def test_add_norm_fusion_rule_at_its_edges(case):
+    """K8 takes a stack's sites only for a contiguous bf16 CUDA input with
+    bf16 norms, d % 8 == 0 and d <= 1024, pre-norm layers, dropout inactive
+    and no gradient recorded: each edge alone turns it off."""
+    stack_kw, seen_kw, grad, taken = FUSE_EDGES[case]
+    stack = _stack(**stack_kw)
+    with torch.set_grad_enabled(grad):
+        assert sepformer.fuses_add_norm(stack, _Seen(**seen_kw)) is taken
+
+
+@pytest.fixture
+def add_norm_calls(monkeypatch):
+    """K8's wrapper as the stacks call it, replaced by a stand-in that
+    records each call as (x's shape, the addend's, final) and returns the
+    plain result."""
+    calls = []
+
+    def stand_in(x, addend, weight, bias, eps, final=False):
+        calls.append((tuple(x.shape), tuple(addend.shape), final))
+        return add_layer_norm_reference(x, addend, weight, bias, eps, final)
+
+    monkeypatch.setattr(sepformer, "fused_add_layer_norm", stand_in)
+    return calls
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("norm_before", [True, False])
+def test_add_norm_sites_keep_the_stack_bit_for_bit(add_norm_calls, monkeypatch, norm_before, causal):
+    """With the card forced, a bf16 stack in eval mode through the fused
+    sites (K8's plain version) gives bit for bit what its layers' own
+    forward gives after the positions are added (the stack before the
+    fusion): pre-norm through 1 + 2 x layers sites, the last one final,
+    post-norm through none."""
+    monkeypatch.setattr(kernels, "kernel_input", lambda x: True)
+    block = sepformer.SBTransformerBlock(3, 32, 4, 64, use_positional_encoding=True, norm_before=norm_before,
+                                         is_causal=causal)
+    rng = np.random.default_rng(11)
+    with torch.no_grad():
+        for p in block.parameters():
+            p.add_(torch.from_numpy((0.1 * rng.standard_normal(p.shape)).astype(np.float32)))
+    block = block.to(torch.bfloat16).eval()
+    x = torch.from_numpy(rng.standard_normal((3, 20, 32)).astype(np.float32)).to(torch.bfloat16)
+    with torch.no_grad():
+        got = block(x)
+        mask = torch.tril(torch.ones(20, 20, dtype=torch.bool))[None, None] if causal else None
+        want = block.pos_enc(x)
+        for layer in block.mdl.layers:
+            want = layer(want, mask)
+        want = block.mdl.norm(want)
+    assert torch.equal(got, want)
+    if norm_before:
+        assert add_norm_calls == [((3, 20, 32), (20, 32), False)] + [((3, 20, 32), (3, 20, 32), False)] * 5 + [
+            ((3, 20, 32), (3, 20, 32), True)]
+    else:
+        assert add_norm_calls == []
+
+
+@pytest.mark.parametrize("norm_before", [True, False])
+def test_add_norm_sites_keep_the_model_bit_for_bit(add_norm_calls, monkeypatch, norm_before):
+    """The whole bf16 Sepformer with the card forced: the same output bit
+    for bit with the fused sites and with the rule turned off, through
+    2 dual blocks x 2 stacks x (1 + 2 x 2) sites pre-norm, none post-norm."""
+    monkeypatch.setattr(kernels, "kernel_input", lambda x: True)
+    model = _port_model(12, intra_norm_before=norm_before, inter_norm_before=norm_before).to(torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(13).standard_normal((2, 1000)).astype(np.float32))
+    with torch.no_grad():
+        got = model(x.to(torch.bfloat16))
+        monkeypatch.setattr(sepformer, "fuses_add_norm", lambda stack, x: False)
+        want = model(x.to(torch.bfloat16))
+    assert torch.equal(got, want)
+    assert len(add_norm_calls) == (2 * 2 * 5 if norm_before else 0)
+
+
+@pytest.mark.parametrize("path", ["cpu eval", "forced training", "forced eval with gradients"])
+def test_cpu_and_training_paths_take_no_add_norm_kernel(add_norm_calls, monkeypatch, path):
+    """A bf16 Sepformer on the CPU, or with the card forced but training
+    (dropout 0.1) or recording gradients, calls K8's wrapper at no site and
+    launches nothing."""
+    model = _port_model(14).to(torch.bfloat16)
+    if path != "cpu eval":
+        monkeypatch.setattr(kernels, "kernel_input", lambda x: True)
+    model.train(path == "forced training")
+    before = add_layer_norm_launches.launches
+    x = torch.from_numpy(np.random.default_rng(15).standard_normal((2, 1000)).astype(np.float32))
+    with torch.set_grad_enabled(path == "forced eval with gradients"):
+        out = model(x.to(torch.bfloat16))
+    assert torch.isfinite(out.float()).all()
+    assert add_norm_calls == [] and add_layer_norm_launches.launches == before
+
+
+@pytest.mark.parametrize("final", [False, True])
+@pytest.mark.parametrize("addend", ["residual", "positions"])
+def test_add_layer_norm_on_the_cpu_is_its_plain_version(final, addend):
+    """On a CPU tensor K8's wrapper runs its plain version: torch's add and
+    ``F.layer_norm``, s returned unless ``final``; a bad width or addend
+    raises only on the card, where the kernel is."""
+    rng = np.random.default_rng(16)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
+
+    x, w, b = t(3, 7, 24), t(24), t(24)
+    a = t(3, 7, 24) if addend == "residual" else t(7, 24)
+    got = fused_add_layer_norm(x, a, w, b, 1e-6, final=final)
+    s = x + a
+    h = torch.nn.functional.layer_norm(s, (24,), w, b, 1e-6)
+    if final:
+        assert torch.equal(got, h)
+    else:
+        assert torch.equal(got[0], s) and torch.equal(got[1], h)
+    assert add_layer_norm_ok(24) and add_layer_norm_ok(1024) and not add_layer_norm_ok(1032)
+    assert not add_layer_norm_ok(12) and not add_layer_norm_ok(0)

@@ -30,6 +30,7 @@ SEPFORMER = dict(encoder_kernel_size=16, encoder_in_nchannels=1, encoder_out_nch
                  inter_dffn=1024, intra_use_positional=True, inter_use_positional=True,
                  intra_norm_before=True, inter_norm_before=True, intra_causal=False, inter_causal=False)
 SEPFORMER_K4 = 2 * (8 + 8)  # K4's packed entry a call: 2 dual blocks x (8 intra + 8 inter) attentions
+SEPFORMER_K8 = 2 * 2 * (1 + 2 * 8)  # K8 a call: 4 stacks x (positions + 2 sites a layer)
 # configs/bsrnn_wsj0.yml audionet_config; 8 kHz (8 bands)
 BSRNN_WSJ0 = dict(win=256, stride=64, feature_dim=128, num_spks=2, num_layer=1, num_repeat=8, context=0,
                   dropout=0.0, bi_comm=True)
