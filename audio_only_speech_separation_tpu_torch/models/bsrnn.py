@@ -22,6 +22,11 @@ The LSTMs are the port's (``ops/rnn.py``): in bf16 on the card the band
 RNN (B*nband sequences of T frames) takes the recurrence kernel K5 and the
 band-comm RNN (B*T sequences of nband bands) the resident kernel K6.
 
+Spans (``utils/profiling.py::span``): ``bsrnn.split`` (the STFT and the
+bottleneck), ``bsrnn.band_rnn`` and ``bsrnn.band_comm`` in each BSNet
+(the two RNN stages), ``bsrnn.mask`` (the mask heads, the mask product and
+the iSTFT).
+
 The ``state_dict`` uses look2hear's keys: ``BN.{i}.{0,1}``,
 ``separator.{r}.band_rnn.{j}.{norm,rnn,proj}``,
 ``separator.{r}.band_comm.{norm,rnn,proj}`` and ``mask.{i}.{0,1,3,5,6,7}``.
@@ -48,6 +53,7 @@ from ..ops.norms import GlobalLayerNorm
 from ..ops.rnn import BiLSTM, LSTM
 from ..ops.stft import hann_window, istft, stft
 from ..parallel import sequence
+from ..utils.profiling import span
 from . import register_model
 from .base import BaseModel, normalize_input, restore_output, seeded_init_
 
@@ -125,12 +131,14 @@ class BSNet(nn.Module):
         B, _, T = x.shape
         N, nband = self.feature_dim, self.nband
         h = x.reshape(-1, N, T)  # [B * nb, N, T]
-        for layer in self.band_rnn:
-            h = layer(h)
+        with span("bsrnn.band_rnn"):
+            for layer in self.band_rnn:
+                h = layer(h)
         # band comm: sequences along the band axis, batched over B*T (this rank's frames under sp)
         h = sequence.exchange(h.reshape(B, -1, N, T), 3, 1, nband)  # [B, nband, N, T_r]
         T_r = h.shape[3]
-        h = self.band_comm(h.permute(0, 3, 2, 1).reshape(B * T_r, N, nband))
+        with span("bsrnn.band_comm"):
+            h = self.band_comm(h.permute(0, 3, 2, 1).reshape(B * T_r, N, nband))
         h = sequence.exchange(h.reshape(B, T_r, N, nband).permute(0, 3, 2, 1), 1, 3, T)
         return h.reshape(B, -1, T)
 
@@ -237,64 +245,66 @@ class BSRNN(BaseModel):
         bw_max, ratio, spk = max(band_width), 2 * self.context + 1, self.num_spks
         window = hann_window(self.win, torch.float32, x.device)
 
-        spec = stft(x, self.win, self.stride, window)  # [B, F, T] complex
-        T = spec.shape[-1]
-        if self.context > 0:  # context stack [B, K, F, T]
-            c = self.context
-            ctx = [F.pad(spec[:, :-i], (0, 0, i, 0)) for i in range(c, 0, -1)] + [spec]
-            ctx += [F.pad(spec[:, i:], (0, 0, 0, i)) for i in range(1, c + 1)]
-            mixture_context = torch.stack(ctx, dim=1)
-        else:
-            mixture_context = spec[:, None]
-        spec_ri = torch.stack([spec.real, spec.imag], dim=1)  # [B, 2, F, T]
+        with span("bsrnn.split"):  # the STFT and the band bottleneck
+            spec = stft(x, self.win, self.stride, window)  # [B, F, T] complex
+            T = spec.shape[-1]
+            if self.context > 0:  # context stack [B, K, F, T]
+                c = self.context
+                ctx = [F.pad(spec[:, :-i], (0, 0, i, 0)) for i in range(c, 0, -1)] + [spec]
+                ctx += [F.pad(spec[:, i:], (0, 0, 0, i)) for i in range(1, c + 1)]
+                mixture_context = torch.stack(ctx, dim=1)
+            else:
+                mixture_context = spec[:, None]
+            spec_ri = torch.stack([spec.real, spec.imag], dim=1)  # [B, 2, F, T]
 
-        # band-batched bottleneck: bands zero-padded to bw_max and stacked
-        subs, ctxs, idx = [], [], 0
-        for bw in band_width:
-            subs.append(F.pad(spec_ri[:, :, idx: idx + bw], (0, 0, 0, bw_max - bw)))
-            ctxs.append(F.pad(mixture_context[:, :, idx: idx + bw], (0, 0, 0, bw_max - bw)))
-            idx += bw
-        sub_stack = torch.stack(subs, dim=1)  # [B, nband, 2, bw_max, T]
-        ctx_stack = torch.stack(ctxs, dim=1)  # [B, nband, K, bw_max, T] complex
-        flat = sub_stack.reshape(B, nband, 2 * bw_max, T).to(in_dtype)
+            # band-batched bottleneck: bands zero-padded to bw_max and stacked
+            subs, ctxs, idx = [], [], 0
+            for bw in band_width:
+                subs.append(F.pad(spec_ri[:, :, idx: idx + bw], (0, 0, 0, bw_max - bw)))
+                ctxs.append(F.pad(mixture_context[:, :, idx: idx + bw], (0, 0, 0, bw_max - bw)))
+                idx += bw
+            sub_stack = torch.stack(subs, dim=1)  # [B, nband, 2, bw_max, T]
+            ctx_stack = torch.stack(ctxs, dim=1)  # [B, nband, K, bw_max, T] complex
+            flat = sub_stack.reshape(B, nband, 2 * bw_max, T).to(in_dtype)
 
-        gamma, beta, kern, bias = self._bottleneck_params()
-        # masked gLN statistics: padded entries are zero, so the sums are
-        # exact; each band divides by its true element count
-        cnt = _band_widths_on(tuple(band_width), x.device) * (2 * T)
-        f32 = flat.float()
-        mean = f32.sum(dim=(2, 3)) / cnt  # [B, nband]
-        var = torch.clamp(f32.square().sum(dim=(2, 3)) / cnt - mean.square(), min=0.0)
-        norm = ((f32 - mean[..., None, None]) / torch.sqrt(var + _F32_EPS)[..., None, None]).to(flat.dtype)
-        # the padded gamma rows are zero, so the padded rows of h are zero
-        h = norm * gamma[None, :, :, None].to(flat.dtype) + beta[None, :, :, None].to(flat.dtype)
-        sep = sequence.shard(_band_conv(h, kern, bias), 1).reshape(B, -1, T)  # this rank's bands under sp
+            gamma, beta, kern, bias = self._bottleneck_params()
+            # masked gLN statistics: padded entries are zero, so the sums are
+            # exact; each band divides by its true element count
+            cnt = _band_widths_on(tuple(band_width), x.device) * (2 * T)
+            f32 = flat.float()
+            mean = f32.sum(dim=(2, 3)) / cnt  # [B, nband]
+            var = torch.clamp(f32.square().sum(dim=(2, 3)) / cnt - mean.square(), min=0.0)
+            norm = ((f32 - mean[..., None, None]) / torch.sqrt(var + _F32_EPS)[..., None, None]).to(flat.dtype)
+            # the padded gamma rows are zero, so the padded rows of h are zero
+            h = norm * gamma[None, :, :, None].to(flat.dtype) + beta[None, :, :, None].to(flat.dtype)
+            sep = sequence.shard(_band_conv(h, kern, bias), 1).reshape(B, -1, T)  # this rank's bands under sp
 
         for bsnet in self.separator:
             sep = bsnet(sep)
         sep = sequence.gather(sep.reshape(B, -1, N, T), 1, nband)
 
-        # band-batched gated complex mask heads
-        p = self._mask_params()
-        hm = sep.float()
-        mean = hm.mean(dim=(2, 3), keepdim=True)
-        var = (hm - mean).square().mean(dim=(2, 3), keepdim=True)
-        hm = ((hm - mean) / torch.sqrt(var + _F32_EPS)).to(sep.dtype)
-        hm = hm * p["g"][None, :, :, None].to(hm.dtype) + p["b"][None, :, :, None].to(hm.dtype)
-        hm = torch.tanh(_band_conv(hm, p["k1"], p["b1"]))
-        hm = torch.tanh(_band_conv(hm, p["k2"], p["b2"]))
-        h3 = _band_conv(hm, p["k3"], p["b3"])
-        h3 = torch.where(h3 >= 0, h3, p["a"][None, :, None, None].to(h3.dtype) * h3)
-        h4 = _band_conv(h3, p["k4"], p["b4"]).reshape(B, nband, 2, 2, spk, ratio, bw_max, T)
-        mask = h4[:, :, 0] * torch.sigmoid(h4[:, :, 1])
-        m_re, m_im = mask[:, :, 0], mask[:, :, 1]  # [B, nband, spk, K, bw_max, T]
-        # the mask in the body's dtype times the float32 context: float32
-        ctx_re, ctx_im = ctx_stack.real[:, :, None], ctx_stack.imag[:, :, None]
-        est_re = (ctx_re * m_re).mean(dim=3) - (ctx_im * m_im).mean(dim=3)
-        est_im = (ctx_re * m_im).mean(dim=3) + (ctx_im * m_re).mean(dim=3)
-        est = torch.complex(est_re, est_im)  # [B, nband, spk, bw_max, T]
-        est_spec = torch.cat([est[:, i, :, :bw] for i, bw in enumerate(band_width)], dim=2)
+        with span("bsrnn.mask"):  # the mask heads, the mask product and the iSTFT
+            # band-batched gated complex mask heads
+            p = self._mask_params()
+            hm = sep.float()
+            mean = hm.mean(dim=(2, 3), keepdim=True)
+            var = (hm - mean).square().mean(dim=(2, 3), keepdim=True)
+            hm = ((hm - mean) / torch.sqrt(var + _F32_EPS)).to(sep.dtype)
+            hm = hm * p["g"][None, :, :, None].to(hm.dtype) + p["b"][None, :, :, None].to(hm.dtype)
+            hm = torch.tanh(_band_conv(hm, p["k1"], p["b1"]))
+            hm = torch.tanh(_band_conv(hm, p["k2"], p["b2"]))
+            h3 = _band_conv(hm, p["k3"], p["b3"])
+            h3 = torch.where(h3 >= 0, h3, p["a"][None, :, None, None].to(h3.dtype) * h3)
+            h4 = _band_conv(h3, p["k4"], p["b4"]).reshape(B, nband, 2, 2, spk, ratio, bw_max, T)
+            mask = h4[:, :, 0] * torch.sigmoid(h4[:, :, 1])
+            m_re, m_im = mask[:, :, 0], mask[:, :, 1]  # [B, nband, spk, K, bw_max, T]
+            # the mask in the body's dtype times the float32 context: float32
+            ctx_re, ctx_im = ctx_stack.real[:, :, None], ctx_stack.imag[:, :, None]
+            est_re = (ctx_re * m_re).mean(dim=3) - (ctx_im * m_im).mean(dim=3)
+            est_im = (ctx_re * m_im).mean(dim=3) + (ctx_im * m_re).mean(dim=3)
+            est = torch.complex(est_re, est_im)  # [B, nband, spk, bw_max, T]
+            est_spec = torch.cat([est[:, i, :, :bw] for i, bw in enumerate(band_width)], dim=2)
 
-        out = istft(est_spec.reshape(B * spk, self.enc_dim, T), self.win, self.stride, window,
-                    length=nsample)
+            out = istft(est_spec.reshape(B * spk, self.enc_dim, T), self.win, self.stride, window,
+                        length=nsample)
         return restore_output(out.reshape(B, spk, -1).to(in_dtype), was_one_d)

@@ -38,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from ...utils.profiling import span
 from . import grad_through_plain
 from .convtasnet_block import _check, _check_aligned
 
@@ -220,13 +221,15 @@ def fused_bilstm(xw: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     directions; the backward one pre-reversed in time).
 
     A CUDA tensor launches the kernel (one launch, added to
-    ``fused_bilstm.launches``, after one gather that packs w_hh) or raises;
-    a CPU tensor runs ``bilstm_reference``.  Differentiable."""
+    ``fused_bilstm.launches``, after one gather that packs w_hh, under the
+    span ``kernels.k5``) or raises; a CPU tensor runs ``bilstm_reference``.
+    Differentiable."""
     if xw.device.type == "cpu":
         return bilstm_reference(xw, w_hh)
     if xw.device.type != "cuda":
         raise ValueError(f"no LSTM kernel for device {xw.device}")
-    return _Recurrence.apply(xw, w_hh)
+    with span("kernels.k5"):
+        return _Recurrence.apply(xw, w_hh)
 
 
 fused_bilstm.launches = 0
@@ -239,13 +242,15 @@ def resident_bilstm(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
     None -> [T, D, B, H] bf16, both directions aligned to input time.
 
     A CUDA tensor launches the kernel (``resident_launches()`` launches,
-    added to ``resident_bilstm.launches``) or raises; a CPU tensor runs
-    ``resident_bilstm_reference``.  Differentiable."""
+    added to ``resident_bilstm.launches``, under the span ``kernels.k6``)
+    or raises; a CPU tensor runs ``resident_bilstm_reference``.
+    Differentiable."""
     if x.device.type == "cpu":
         return resident_bilstm_reference(x, w_ih, w_hh, bias)
     if x.device.type != "cuda":
         raise ValueError(f"no LSTM kernel for device {x.device}")
-    return _Resident.apply(x, w_ih, w_hh, bias)
+    with span("kernels.k6"):
+        return _Resident.apply(x, w_ih, w_hh, bias)
 
 
 resident_bilstm.launches = 0

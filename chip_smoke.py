@@ -18,6 +18,9 @@ Drives each path once, its launch counters set to 0 just before it:
   packed entry, 6 of K5 and 6 of K6;
 - Sandglasset served at B=8 x 2 s x 8 kHz ("kernels"): 2 of K4's
   [BH, dh, T] entry (its 4-D blocks), 4 of the packed entry, 6 of K6;
+- BSRNN-WSJ0 served at B=1 x 6 s x 8 kHz (the
+  ``bsrnn_wsj0.serve_b1_wsj0len`` cell, "kernels"): 8 of K5 at
+  (751, 2, 8, 256) and 8 of K6 at (8, 751, 128, 256, 2);
 - K7 at its probe's [2048, 512] in bf16 with statistics (no model serves it).
 
 Each path asserts its exact launches and that no plain version of a kernel
@@ -26,9 +29,10 @@ its gradients meet PERF.md section 2's rule).  Then each kernel is held
 against its plain version on the same inputs at each shape the path gave
 it, and timed beside it (CUDA events, median of 20; the plain version of
 3), beside a library call where one computes the same (SDPA, a bf16
-``nn.LSTM``) and its least time (``port_bench/bounds.py``).  Prints one JSON
-line ``{"kernels": [...]}``, an entry per kernel and shape, the card's name
-and power limit, and ``{"ok": true, "device": ...}``.  Raises on any
+``nn.LSTM``) and its least time (``port_bench/bounds.py``; K5's and K6's
+work from ``port_bench/lstm_work.py``, as the cell's rooflines count it).
+Prints one JSON line ``{"kernels": [...]}``, an entry per kernel and shape,
+the card's name and power limit, and ``{"ok": true, "device": ...}``.  Raises on any
 failure.  The port's on-card test suite is the ``cuda``-marked tests
 (``.claude/skills/verify/SKILL.md`` names the command); this run is the
 one-call account of the kernels on the benchmark's paths.
@@ -57,7 +61,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tes
 from port_bench.attention_work import attention_work  # noqa: E402
 from port_bench.bounds import PEAK_BYTES, chain_work, separator_work  # noqa: E402,F401 (re-exported)
 from port_bench.bounds import least_time as _least_seconds  # noqa: E402
+from port_bench.lstm_work import recurrence_work, resident_work  # noqa: E402
 from torch_port_card import (  # noqa: E402,F401 (re-exported for the profile scripts)
+    BSRNN_WSJ0,
     LRS3,
     SEPFORMER,
     SANDGLASSET,
@@ -342,14 +348,12 @@ def _dualpath_costs(name, shape, args):
         B, T, E3, h = shape
         q, k, v = (a.reshape(B, T, h, E3 // (3 * h)).transpose(1, 2).contiguous() for a in args[0].chunk(3, -1))
         return "attention.cu", "attention.py:43", attention_work(B * h, E3 // (3 * h), T), lambda: sdpa(q, k, v)
-    if name == "lstm_recurrence":  # xw and w_hh in, h out
-        T, D, B, H = shape
-        return "lstm.cu", "lstm.py:42", ((5 * T * D * B * H + D * H * 4 * H) * 2, 2 * T * D * B * H * 4 * H), None
-    T, B, Din, H, D = shape  # x, w_ih, w_hh and the f32 bias in, h out
+    if name == "lstm_recurrence":
+        return "lstm.cu", "lstm.py:42", recurrence_work(*shape), None
+    T, B, Din, H, D = shape
     lib = torch.nn.LSTM(Din, H, batch_first=True, bidirectional=D == 2).to(args[0].device, torch.bfloat16)
     lib.flatten_parameters()
-    return ("lstm.cu", "lstm.py:211", ((B * T * Din + D * (Din + H + 2) * 4 * H + T * D * B * H) * 2,
-                                       2 * T * D * B * (Din + H) * 4 * H), lambda: lib(args[0]))
+    return "lstm.cu", "lstm.py:211", resident_work(*shape), lambda: lib(args[0])
 
 
 def dualpath_serve(dev, label, model, x, want) -> list:
@@ -439,6 +443,8 @@ def main() -> None:
                               (0, 12, 6, 6))
     kernels += dualpath_serve(dev, "Sandglasset B=8 x 2 s", seeded_model("Sandglasset", SANDGLASSET, TSR, 94, dev),
                               waves(dev, 98, 8, 2 * TSR), (2, 4, 0, 6))
+    kernels += dualpath_serve(dev, "BSRNN B=1 x 6 s", seeded_model("BSRNN", BSRNN_WSJ0, TSR, 95, dev),
+                              waves(dev, 99, 1, 6 * TSR), (0, 0, 8, 8))
     kernels += micro_vpu_probe()
     print(json.dumps({"kernels": kernels}))
     print(card)
