@@ -16,42 +16,64 @@
 // h = bf16(o * tanh(f*c + i*g)).  The state starts at zero; rows past B
 // are neither kept in h nor stored.  One launch a call.
 //
-// What bounds them on this card.  Each of the T steps is a [16, H] x
-// [H, 4H] product per 16 batch rows, the gate math and a hand-over of h;
-// nothing of step t + 1 but its gate inputs can be made ready before h_t
-// exists.  So the time is T times the latency of one step, far above the
-// bytes (a few MB) and the FLOPs (a few GFLOP) of a call at the dual-path
-// shapes.
+// What bounds them on this card.  Each of the T steps is a product of h
+// [B, H] with W_hh [H, 4H], the gate math and a hand-over of h; nothing of
+// step t + 1 but its gate inputs can be made ready before h_t exists.  So
+// the time is T times the latency of one step, far above the bytes (a few
+// MB) and the FLOPs (a few GFLOP) of a call at the dual-path shapes.
 //
-// What the design does about it.  Both kernels run one step body
-// (lstm_steps) and differ only in where a step's gate inputs come from.
-// - mma.sync m16n8k16 with its documented fragment layout.  The wrappers
-//   pack W_hh (and K6's W_ih) in fragment order with the gate columns
-//   interleaved (ops/kernels/lstm.py::pack_gate_fragments): n-tile 2p holds
-//   (i, f) and n-tile 2p + 1 holds (g, o) of hidden units 4p .. 4p + 3, so a
-//   thread's accumulators hold all four gates of its own cells (two rows,
-//   one unit, for each pair p of the warp).  The gate math reads registers:
-//   no shared-memory round trip of the products.  A lane's B fragment is
-//   one 8-byte word, and a warp's 32 words are contiguous.
+// K6, and K5 above 16 sequences: one step body (lstm_steps), differing
+// only in where a step's gate inputs come from.
+// - mma.sync m16n8k16 with 16 batch rows as M and the gate columns as N.
+//   The wrappers pack W_hh (and K6's W_ih) in B-fragment order with the
+//   gate columns interleaved (ops/kernels/lstm.py::pack_gate_fragments):
+//   n-tile 2p holds (i, f) and n-tile 2p + 1 holds (g, o) of hidden units
+//   4p .. 4p + 3, so a thread's accumulators hold all four gates of its own
+//   cells (two rows, one unit, for each pair p of the warp).  The gate math
+//   reads registers: no shared-memory round trip of the products.
 // - A step is spread over a thread-block cluster of 1, 2 or 4 CTAs (as many
 //   as fit on the card at once for the call's shape): each CTA owns 1/cl of
 //   the gate pairs and its slice of the packed weights, and writes its part
 //   of h_t into every CTA's h buffer through distributed shared memory.
 //   Where a CTA has at most 256 threads (H <= 128), each warp holds its
 //   W_hh fragments in registers; otherwise W_hh, and K6's W_ih, sit in
-//   shared memory where they fit (W_hh first), else are read from L2 in the
-//   same order.
+//   shared memory where they fit (W_hh first), else are read from L2.
 // - One barrier a step, the cluster's, split in two: h is double-buffered,
 //   and between arriving and waiting each CTA makes the next step's gate
-//   inputs ready in registers, which needs nothing of h_t: K6 computes
-//   x(t + 1) @ W_ih, K5 reads its own gate columns of xw(t + 1).  Those
-//   inputs are prefetched 3 steps ahead with cp.async into a 4-slot ring:
-//   K6's x rows, or K5's four runs of H/cl gate columns of the CTA's 16
-//   rows, one run a gate (the CTA's hidden units are contiguous, so its
-//   columns of each gate are too).  No read of device memory stays on a
-//   step's critical path.  K6's bias sits in registers.
-// - 2 gate pairs (8 columns of each of the four gates) per warp up to H
-//   128, 4 pairs per warp above.
+//   inputs ready in registers: K6 computes x(t + 1) @ W_ih, K5 reads its
+//   own gate columns of xw(t + 1), prefetched 3 steps ahead with cp.async
+//   into a 4-slot ring.  No read of device memory stays on the critical path.
+//
+// K5 at 16 sequences or fewer (small_batch_steps; the wrapper's
+// small_batch_body decides).  There the batch cannot fill the mma's 16 rows:
+// the body above computed zeros in half of every product at B 8, read its
+// W_hh slice (128 KB a CTA at H 256) from shared memory every step, and met
+// every thread of the cluster at barrier.cluster once a step; it took 4.19
+// us a step at BSRNN's band RNNs (T 751, D 2, B 8, H 256).  What paces a
+// step there is the chain of dependent mma.sync on one warp (on an H100
+// each link of an accumulator chain costs some 250 cycles, and a warp
+// issues an m16n8k16 every ~30), then the gate math and the hand-over.  So:
+// - The roles swap: gates^T [4H, B] = W_hh^T [4H, H] . h^T [H, B], the gate
+//   rows as M, the batch as N (one n-tile of 8 up to B 8, two up to 16).
+//   W_hh^T is packed as A fragments (pack_gate_rows) with the gate rows
+//   interleaved: tile 0 of slice j holds i and f, tile 1 g and o, of hidden
+//   units 8j .. 8j + 7, so a thread again holds all four gates of its cells.
+// - Each slice belongs to a pair of warps that split K in halves and hold
+//   their A fragments in registers (no weight byte read inside the loop);
+//   each half runs up to 4 accumulators a tile (chains of 2 at H 256), hands
+//   its partner the partial sums of the partner's cells through shared
+//   memory (a 64-thread named barrier) and finishes the cells of its own
+//   parity: the product's chain and the gate math a warp are both halved.
+// - The H/8 slices are spread over a cluster of up to 8 CTAs (4 slices, 8
+//   warps, a CTA: two warps on each scheduler), 16 SMs at the BSRNN shape.
+// - h is handed over point to point: each warp sends its rows of h_t to
+//   every CTA's double-buffered h in 16-byte st.async pieces, completed on
+//   the receiver's mbarrier, which expects one step's bytes; a CTA waits on
+//   its own mbarrier.  No barrier across the cluster inside the loop.
+// - Each warp prefetches its own gate inputs 3 steps ahead with cp.async and
+//   reads the next step's between handing over and waiting.
+// It takes 0.90 us a step at (751, 2, 8, 256) on an H100 (0.68 ms a launch).
+//
 // The first port's K5 (one block per direction and 16 rows, WMMA products
 // stored to shared memory as f32 and read back, two barriers and 8 cells of
 // serial exact-expf gate math a thread a step, xw read from device memory
@@ -355,12 +377,280 @@ __device__ __forceinline__ void lstm_steps(unsigned char* smem, const bf16* __re
   cluster_wait();  // no CTA leaves while another may still write into it
 }
 
-template <int PPW, bool kRegW>
-__global__ void __launch_bounds__(kRegW ? 256 : 512)
+// ---- K5's few-sequence body (B <= 16) ----
+
+constexpr int XROW = 40;  // bf16 a batch row of a warp's input slot: 4 gates x 8 units, 8 of padding
+
+// Shared memory of a CTA of the few-sequence body with wpc warps (two a
+// slice) and up to kw k-steps a warp: two mbarriers; h [2][4 kw][NB][8][8]
+// bf16 (slice j: hidden units 8j .. 8j + 7, batch-major; slices past H/8
+// stay zero); each warp's partial gate sums for its partner [wpc][32][4 NB]
+// f32; each warp's input ring [NX][4 NB][XROW] bf16 (its batch rows) and
+// its staging rows [4 NB][8] bf16.
+struct SmallLayout {
+  size_t hbuf, part, ring, stage, total;
+};
+
+__host__ __device__ inline SmallLayout small_layout(int nb, int wpc, int kw) {
+  SmallLayout L;
+  L.hbuf = 128;  // the mbarriers first
+  L.part = L.hbuf + (size_t)2 * 4 * kw * nb * 128;
+  L.ring = L.part + (size_t)wpc * 32 * 4 * nb * 4;
+  L.stage = L.ring + (size_t)wpc * NX * 4 * nb * XROW * 2;
+  L.total = L.stage + (size_t)wpc * 4 * nb * 16;
+  return L;
+}
+
+__device__ __forceinline__ void mma_bf16_a(float (&c)[4], const uint4& a, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// 16 bytes from global memory, or zeros where src_bytes is 0
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, int src_bytes) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n\t.reg .pred P1;\n\t"
+      "LAB_WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n\t"
+      "@P1 bra DONE;\n\t"
+      "bra LAB_WAIT;\n\t"
+      "DONE:\n\t}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// The shared::cluster address of ``addr`` (a shared::cta address) in CTA ``rank``
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// 16 bytes into another CTA's shared memory, counted on its mbarrier
+__device__ __forceinline__ void st_async16(uint32_t addr, const uint4& v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];\n"
+               ::"r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+               : "memory");
+}
+
+// The two warps of a slice meet (named barrier 1 + pair, 64 threads)
+__device__ __forceinline__ void pair_sync(int pair) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + pair) : "memory");
+}
+
+// K5's step body at B <= 16: gates^T [4H, B] = W_hh^T [4H, H] . h^T [H, B]
+// with the gate rows as the mma's M and the batch as its N (NB n-tiles of
+// 8).  A slice of 8 hidden units (32 gate rows, two m16 tiles: rows g and
+// g + 8 of tile 0 are i and f of unit 8j + g, of tile 1 g and o) belongs to
+// a pair of warps, each holding W_hh^T's A fragments of those rows over one
+// half of K (up to KW k-steps) in registers, its products in S independent
+// accumulators a tile.  Each warp hands its partner the partial sums of the
+// partner's cells through shared memory, and finishes the cells of its own
+// parity: thread (g, q) of warp half e owns unit 8j + g at batches
+// 8 nt + 2q + e, whose i, f, g and o it holds in registers.  The H/8 slices
+// are split among the cl CTAs of the direction's cluster; after the gate
+// math a warp sends its rows of h_t to every CTA's h buffer in 16-byte
+// st.async pieces counted on that CTA's mbarrier, and a CTA waits on its
+// own mbarrier for the bytes of step t - 1: no barrier across the cluster
+// within the loop.  Each warp prefetches its own gate inputs 3 steps ahead
+// with cp.async (a 16-byte piece a lane) and reads the next step's into
+// registers between handing over and waiting.
+template <int NB, int KW>
+__device__ __forceinline__ void small_batch_steps(unsigned char* smem, const bf16* __restrict__ xw,
+                                                  const uint4* __restrict__ whh_p,
+                                                  bf16* __restrict__ out, int T, int D, int B, int H,
+                                                  int cl) {
+  constexpr int S = KW < 4 ? KW : 4;  // accumulators a tile and n-tile
+  constexpr int ROWS_W = 4 * NB;      // batch rows a warp finishes (one parity)
+  constexpr int HS = 4 * KW;          // slices of an h buffer, the zero ones past H/8 included
+  const int J = H / 8, ks_n = H / 16, wpc = blockDim.x / 32;
+  const SmallLayout L = small_layout(NB, wpc, KW);
+  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const uint32_t bars = base;  // two mbarriers, one for each h buffer
+  bf16* hbuf = reinterpret_cast<bf16*>(smem + L.hbuf);
+  const int rank = cl > 1 ? (int)cooperative_groups::this_cluster().block_rank() : 0;
+  const int d = blockIdx.y, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // this CTA's slices: an even split of the J slices among the cl CTAs
+  const int j0 = rank * J / cl, nslices = (rank + 1) * J / cl - j0;
+  const int pair = warp >> 1, half = warp & 1;
+  const bool active = pair < nslices;
+  const int j = j0 + pair;
+  const int kh = (ks_n + 1) / 2, ks0 = half ? kh : 0, nks = half ? ks_n - kh : kh;  // this warp's k-steps
+  const uint32_t h_bytes = (uint32_t)J * NB * 128;  // one step's h, every slice
+
+  if (tid == 0) {
+    mbar_init(bars, 1);
+    mbar_init(bars + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < 2 * HS * NB * 64; i += blockDim.x) hbuf[i] = __float2bfloat16(0.f);  // h_{-1}, pads
+  __syncthreads();
+  if (tid == 0) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bars) : "memory");  // buffer 0 ready
+    mbar_arrive_expect_tx(bars + 8, h_bytes);                                             // h_0 into buffer 1
+  }
+  cluster_arrive();  // every CTA's barriers initialised before any piece is sent
+  cluster_wait();
+
+  if (active) {
+    bf16* ring = reinterpret_cast<bf16*>(smem + L.ring) + (size_t)warp * NX * ROWS_W * XROW;
+    bf16* stage = reinterpret_cast<bf16*>(smem + L.stage) + warp * ROWS_W * 8;
+    float* part_out = reinterpret_cast<float*>(smem + L.part) + (size_t)(warp * 32 + lane) * 4 * NB;
+    const float* part_in = reinterpret_cast<const float*>(smem + L.part) + (size_t)((warp ^ 1) * 32 + lane) * 4 * NB;
+    const int g = lane >> 2, q = lane & 3;
+
+    uint4 wr[2][KW];  // A fragments of this warp's two tiles of W_hh^T over its k-steps
+    const uint4* wsrc = whh_p + ((size_t)(d * J + j) * 2 * ks_n + ks0) * 32 + lane;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int ks = 0; ks < KW; ++ks)
+        wr[mt][ks] = ks < nks ? wsrc[((size_t)mt * ks_n + ks) * 32] : make_uint4(0u, 0u, 0u, 0u);
+
+    // the gate inputs of step s: xw[s, d, b, gate*H + 8j ..] of this warp's
+    // rows b = 8 nt + 2 r + half (local row 4 nt + r), one piece a lane
+    auto fetch = [&](int s) {
+      if (s < T && lane < ROWS_W * 4) {
+        bf16* slot = ring + (s % NX) * ROWS_W * XROW;
+        const int rl = lane >> 2, gate = lane & 3, b = (rl >> 2) * 8 + 2 * (rl & 3) + half;
+        const bf16* src = xw + (((size_t)s * D + d) * B + (b < B ? b : 0)) * 4 * H + gate * H + 8 * j;
+        cp_async16_zfill(slot + rl * XROW + gate * 8, src, b < B ? 16 : 0);
+      }
+      cp_async_commit();
+    };
+    auto inputs = [&](float (&ax)[NB][4], int s) {
+      const bf16* slot = ring + (s % NX) * ROWS_W * XROW;
+#pragma unroll
+      for (int nt = 0; nt < NB; ++nt)
+#pragma unroll
+        for (int gate = 0; gate < 4; ++gate)
+          ax[nt][gate] = __bfloat162float(slot[(nt * 4 + q) * XROW + gate * 8 + g]);
+    };
+
+#pragma unroll
+    for (int s = 0; s < NX - 1; ++s) fetch(s);
+    float c[NB], ax[NB][4];
+#pragma unroll
+    for (int nt = 0; nt < NB; ++nt) c[nt] = 0.f;
+    cp_async_wait<NX - 2>();
+    __syncwarp();
+    inputs(ax, 0);
+
+    for (int t = 0; t < T; ++t) {
+      const int cur = t & 1, nxt = cur ^ 1;
+      mbar_wait(bars + 8 * cur, (t >> 1) & 1);  // h_{t-1} in buffer cur, every slice
+      if (tid == 0) mbar_arrive_expect_tx(bars + 8 * cur, h_bytes);  // its next use: h_{t+1}
+      const bf16* hprev = hbuf + (size_t)cur * HS * NB * 64;
+
+      // B fragments of this warp's k-steps: slices 2 (ks0 + ks) and + 1, rows of n-tile nt
+      uint32_t bf[NB][KW][2];
+#pragma unroll
+      for (int ks = 0; ks < KW; ks += 2)
+#pragma unroll
+        for (int nt = 0; nt < NB; ++nt) {
+          uint32_t b4[4];
+          ldmatrix_x4(b4, hprev + (((2 * (ks0 + ks) + (lane >> 3)) * NB + nt) * 8 + (lane & 7)) * 8);
+          bf[nt][ks][0] = b4[0];
+          bf[nt][ks][1] = b4[1];
+          bf[nt][ks + 1][0] = b4[2];
+          bf[nt][ks + 1][1] = b4[3];
+        }
+      float acc[2][NB][S][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NB; ++nt)
+#pragma unroll
+          for (int sp = 0; sp < S; ++sp) acc[mt][nt][sp][0] = acc[mt][nt][sp][1] = acc[mt][nt][sp][2] = acc[mt][nt][sp][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KW; ++ks)
+#pragma unroll
+        for (int nt = 0; nt < NB; ++nt)
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) mma_bf16_a(acc[mt][nt][ks % S], wr[mt][ks], bf[nt][ks][0], bf[nt][ks][1]);
+
+      // this half of K's sums: element 2 (gate & 1) + e of tile gate >> 1 is
+      // gate (i, f, g, o) of the cell at batch 8 nt + 2q + e
+      float own[NB][4], give[NB][4];
+#pragma unroll
+      for (int nt = 0; nt < NB; ++nt)
+#pragma unroll
+        for (int gate = 0; gate < 4; ++gate)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float v = acc[gate >> 1][nt][0][2 * (gate & 1) + e];
+#pragma unroll
+            for (int sp = 1; sp < S; ++sp) v += acc[gate >> 1][nt][sp][2 * (gate & 1) + e];
+            if (e == half) own[nt][gate] = v; else give[nt][gate] = v;
+          }
+#pragma unroll
+      for (int nt = 0; nt < NB; ++nt)
+        *reinterpret_cast<float4*>(part_out + 4 * nt) = make_float4(give[nt][0], give[nt][1], give[nt][2], give[nt][3]);
+      pair_sync(pair);
+#pragma unroll
+      for (int nt = 0; nt < NB; ++nt) {
+        const float4 other = *reinterpret_cast<const float4*>(part_in + 4 * nt);
+        const float sum[4] = {own[nt][0] + other.x, own[nt][1] + other.y, own[nt][2] + other.z, own[nt][3] + other.w};
+        float gate[4];
+#pragma unroll
+        for (int gi = 0; gi < 4; ++gi) gate[gi] = round_bf16(ax[nt][gi] + round_bf16(sum[gi]));
+        const float ig = fast_sigmoid(gate[0]), fg = fast_sigmoid(gate[1]);
+        const float gg = fast_tanh(gate[2]), og = fast_sigmoid(gate[3]);
+        const float c32 = fg * c[nt] + ig * gg;
+        const bf16 h = __float2bfloat16(og * fast_tanh(c32));
+        const bool valid = nt * 8 + 2 * q + half < B;
+        c[nt] = valid ? round_bf16(c32) : 0.f;
+        stage[(nt * 4 + q) * 8 + g] = valid ? h : __float2bfloat16(0.f);
+      }
+      __syncwarp();
+      const int p = lane % ROWS_W;                       // a local row: batch row b of the slice
+      const int b = (p >> 2) * 8 + 2 * (p & 3) + half;
+      const uint4 piece = reinterpret_cast<const uint4*>(stage)[p];
+      if (t + 1 < T) {  // h_t to every CTA of the cluster, this one included
+        const uint32_t off = base + (uint32_t)(L.hbuf + (((size_t)nxt * HS + j) * NB * 8 + b) * 16);
+        for (int k = lane / ROWS_W; k < cl; k += 32 / ROWS_W)
+          st_async16(map_rank(off, k), piece, map_rank(bars + 8 * nxt, k));
+      }
+      if (lane < ROWS_W && b < B)
+        *reinterpret_cast<uint4*>(out + (((size_t)t * D + d) * B + b) * H + 8 * j) = piece;
+      fetch(t + NX - 1);
+      cp_async_wait<NX - 2>();  // this lane's piece of step t + 1
+      __syncwarp();
+      if (t + 1 < T) inputs(ax, t + 1);
+    }
+  }
+  cluster_arrive();  // no CTA leaves while another may still send to it
+  cluster_wait();
+}
+
+// K5.  NB 0: the step body shared with K6 (lstm_steps), W_hh packed by
+// pack_gate_fragments; NB 1 or 2: the few-sequence body for B <= 8 NB with
+// up to KW k-steps a warp (small_batch_steps), W_hh packed by
+// pack_gate_rows.
+template <int PPW, bool kRegW, int NB = 0, int KW = 0>
+__global__ void __launch_bounds__(NB > 0 || kRegW ? 256 : 512)
 lstm_recurrence_kernel(const bf16* __restrict__ xw, const uint2* __restrict__ whh_p,
                        bf16* __restrict__ out, int T, int D, int B, int H, int cl, int whh_smem) {
   extern __shared__ __align__(128) unsigned char smem[];
-  lstm_steps<PPW, kRegW, true>(smem, xw, nullptr, whh_p, nullptr, out, T, D, B, 0, H, cl, whh_smem, 0);
+  if constexpr (NB > 0)
+    small_batch_steps<NB, KW>(smem, xw, reinterpret_cast<const uint4*>(whh_p), out, T, D, B, H, cl);
+  else
+    lstm_steps<PPW, kRegW, true>(smem, xw, nullptr, whh_p, nullptr, out, T, D, B, 0, H, cl, whh_smem, 0);
 }
 
 template <int PPW, bool kRegW>
@@ -404,83 +694,136 @@ struct Kernel {
 
 Kernel pick_kernel(int H, int cl, bool pre) {
   if (H > 128)
-    return {pre ? (const void*)lstm_recurrence_kernel<4, false> : (const void*)lstm_resident_kernel<4, false>,
+    return {pre ? (const void*)lstm_recurrence_kernel<4, false, 0> : (const void*)lstm_resident_kernel<4, false>,
             32 * H / (16 * cl), false};
   const int threads = 32 * H / (8 * cl);
   if (threads <= 256)
-    return {pre ? (const void*)lstm_recurrence_kernel<2, true> : (const void*)lstm_resident_kernel<2, true>,
+    return {pre ? (const void*)lstm_recurrence_kernel<2, true, 0> : (const void*)lstm_resident_kernel<2, true>,
             threads, true};
-  return {pre ? (const void*)lstm_recurrence_kernel<2, false> : (const void*)lstm_resident_kernel<2, false>,
+  return {pre ? (const void*)lstm_recurrence_kernel<2, false, 0> : (const void*)lstm_resident_kernel<2, false>,
           threads, false};
 }
 
-// The launch of a kernel for (H, cl) over B rows and D directions.
-cudaLaunchConfig_t launch_config(const Kernel& k, const Plan& plan, int cl, int B, int D,
+// K5's few-sequence kernel for B rows and cl CTAs a direction: one n-tile
+// of 8 rows up to B 8, two up to 16; a pair of warps a slice of 8 hidden
+// units, the H/8 slices split evenly among the CTAs, each warp up to KW of
+// the H/16 k-steps (half of them, rounded up to 2, 4 or 8).
+int small_kw(int H) {
+  const int half = (H / 16 + 1) / 2;
+  return half <= 2 ? 2 : half <= 4 ? 4 : 8;
+}
+
+Kernel pick_small_kernel(int H, int B, int cl) {
+  static const void* const fns[2][3] = {
+      {(const void*)lstm_recurrence_kernel<0, true, 1, 2>, (const void*)lstm_recurrence_kernel<0, true, 1, 4>,
+       (const void*)lstm_recurrence_kernel<0, true, 1, 8>},
+      {(const void*)lstm_recurrence_kernel<0, true, 2, 2>, (const void*)lstm_recurrence_kernel<0, true, 2, 4>,
+       (const void*)lstm_recurrence_kernel<0, true, 2, 8>}};
+  const int kw = small_kw(H);
+  return {fns[B <= 8 ? 0 : 1][kw == 2 ? 0 : kw == 4 ? 1 : 2], 2 * 32 * ((H / 8 + cl - 1) / cl), true};
+}
+
+size_t small_smem(int H, int B, int cl) {
+  return small_layout(B <= 8 ? 1 : 2, 2 * ((H / 8 + cl - 1) / cl), small_kw(H)).total;
+}
+
+// The launch of a kernel with cl-CTA clusters: grid (cl * groups, D).
+cudaLaunchConfig_t launch_config(const Kernel& k, size_t smem, int cl, int groups, int D,
                                  cudaStream_t stream, cudaLaunchAttribute* attr) {
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = cl;
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cl * ((B + ROWS - 1) / ROWS), D);
+  cfg.gridDim = dim3(cl * groups, D);
   cfg.blockDim = dim3(k.threads);
-  cfg.dynamicSmemBytes = plan.smem;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cfg;
 }
 
-// The cluster size of a call: the largest of 4, 2, 1 that splits the gate
-// pairs evenly among whole warps and whose clusters all fit on the card at
-// once (a cluster of 1 otherwise).  Probed once for each shape, kernel and
-// device.
-int choose_cluster(int H, int Din, int D, int B, bool pre, int* cl_out) {
-  static std::map<std::array<int, 6>, int> known;  // (device, H, Din, D, B, pre) -> cluster size
+// How many of the plan's clusters fit on the card at once (0 if none).
+int clusters_that_fit(const Kernel& k, size_t smem, int cl, int groups, int D, int* fit) {
+  cudaError_t err = cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(k, smem, cl, groups, D, nullptr, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(fit, k.fn, &cfg);
+}
+
+// The cluster size of a call.  The step body shared with K6: the largest of
+// 4, 2, 1 that splits the gate pairs evenly among whole warps and whose
+// clusters all fit on the card at once (a cluster of 1 otherwise).  K5's
+// few-sequence body: the smallest of 1, 2, 4, 8 that gives each CTA at most
+// 4 slices (8 warps, two on each scheduler of the SM), if its D clusters
+// fit at once.  Probed once for each shape, body and device.
+int choose_cluster(int H, int Din, int D, int B, bool pre, bool small, int* cl_out) {
+  static std::map<std::array<int, 7>, int> known;  // (device, H, Din, D, B, pre, small) -> cluster size
   int dev, sms;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const std::array<int, 6> key{dev, H, Din, D, B, pre ? 1 : 0};
+  const std::array<int, 7> key{dev, H, Din, D, B, pre ? 1 : 0, small ? 1 : 0};
   const auto hit = known.find(key);
   if (hit != known.end()) {
     *cl_out = hit->second;
     return 0;
   }
-  const int tiles = (B + ROWS - 1) / ROWS, P = H / 4, ppw = H > 128 ? 4 : 2;
-  int chosen = 1;
-  for (int cl = 4; cl > 1 && chosen == 1; cl /= 2) {
-    if (P % (cl * ppw) != 0 || cl * tiles * D > sms) continue;
-    const Kernel k = pick_kernel(H, cl, pre);
-    const Plan plan = lstm_plan(H, ring_cols(H, Din, cl, pre), cl, k.reg_whh, !pre);
-    err = cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
-    if (err != cudaSuccess) return (int)err;
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = launch_config(k, plan, cl, B, D, nullptr, &attr);
+  int chosen = 0;
+  if (small) {
+    int cl = 1;
+    while ((H / 8 + cl - 1) / cl > 4) cl *= 2;
     int fit = 0;
-    err = cudaOccupancyMaxActiveClusters(&fit, k.fn, &cfg);
-    if (err != cudaSuccess) return (int)err;
-    if (fit >= tiles * D) chosen = cl;
+    const int rc = clusters_that_fit(pick_small_kernel(H, B, cl), small_smem(H, B, cl), cl, 1, D, &fit);
+    if (rc != 0) return rc;
+    if (fit < D || cl * D > sms) return (int)cudaErrorInvalidConfiguration;
+    chosen = cl;
+  } else {
+    const int tiles = (B + ROWS - 1) / ROWS, P = H / 4, ppw = H > 128 ? 4 : 2;
+    chosen = 1;
+    for (int cl = 4; cl > 1 && chosen == 1; cl /= 2) {
+      if (P % (cl * ppw) != 0 || cl * tiles * D > sms) continue;
+      const Kernel k = pick_kernel(H, cl, pre);
+      const Plan plan = lstm_plan(H, ring_cols(H, Din, cl, pre), cl, k.reg_whh, !pre);
+      int fit = 0;
+      const int rc = clusters_that_fit(k, plan.smem, cl, tiles, D, &fit);
+      if (rc != 0) return rc;
+      if (fit >= tiles * D) chosen = cl;
+    }
   }
   known[key] = chosen;
   *cl_out = chosen;
   return 0;
 }
 
-// One launch of K5 (pre: in = xw, no W_ih or bias) or K6 (in = x).
-int launch(bool pre, const bf16* in, const uint2* wih_p, const uint2* whh_p, const float* bias,
+// One launch of K5 (pre: in = xw, no W_ih or bias; small: the few-sequence
+// body) or K6 (in = x).
+int launch(bool pre, bool small, const bf16* in, const uint2* wih_p, const uint2* whh_p, const float* bias,
            bf16* out, int T, int D, int B, int Din, int H, cudaStream_t stream) {
   int cl;
-  const int rc = choose_cluster(H, Din, D, B, pre, &cl);
+  const int rc = choose_cluster(H, Din, D, B, pre, small, &cl);
   if (rc != 0) return rc;
-  const Kernel k = pick_kernel(H, cl, pre);
-  const Plan plan = lstm_plan(H, ring_cols(H, Din, cl, pre), cl, k.reg_whh, !pre);
-  cudaError_t err =
-      cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
+  Kernel k;
+  size_t smem;
+  int groups, whh_smem = 0, wih_smem = 0;
+  if (small) {
+    k = pick_small_kernel(H, B, cl);
+    smem = small_smem(H, B, cl);
+    groups = 1;
+  } else {
+    k = pick_kernel(H, cl, pre);
+    const Plan plan = lstm_plan(H, ring_cols(H, Din, cl, pre), cl, k.reg_whh, !pre);
+    smem = plan.smem;
+    groups = (B + ROWS - 1) / ROWS;
+    whh_smem = plan.whh_smem;
+    wih_smem = plan.wih_smem;
+  }
+  cudaError_t err = cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config(k, plan, cl, B, D, stream, &attr);
-  int whh_smem = plan.whh_smem, wih_smem = plan.wih_smem;
+  const cudaLaunchConfig_t cfg = launch_config(k, smem, cl, groups, D, stream, &attr);
   if (pre) {
     void* args[] = {&in, &whh_p, &out, &T, &D, &B, &H, &cl, &whh_smem};
     err = cudaLaunchKernelExC(&cfg, k.fn, args);
@@ -495,20 +838,25 @@ int launch(bool pre, const bf16* in, const uint2* wih_p, const uint2* whh_p, con
 }  // namespace
 
 // h [T, D, B, H] from pre-projected gates xw [T, D, B, 4H] bf16 and the
-// packed w_hh (uint2 words [D, 4H/8, H/16, 32] of pack_gate_fragments), all
-// contiguous device tensors, xw 16-byte aligned; H % 16 == 0,
-// 16 <= H <= 256.  One launch on ``stream``.  Returns a cudaError_t.
+// packed w_hh, all contiguous device tensors, xw 16-byte aligned;
+// H % 16 == 0, 16 <= H <= 256.  small (B <= 16; the wrapper's
+// small_batch_body decides): the few-sequence body, w_hh as uint4 words
+// [D, H/8, 2, H/16, 32] of pack_gate_rows; otherwise the step body shared
+// with K6, w_hh as uint2 words [D, 4H/8, H/16, 32] of pack_gate_fragments.
+// One launch on ``stream``.  Returns a cudaError_t.
 extern "C" int lstm_recurrence(const void* xw, const void* w_hh_packed, void* out, int T, int D,
-                               int B, int H, void* stream_ptr) {
-  return launch(true, static_cast<const bf16*>(xw), nullptr, static_cast<const uint2*>(w_hh_packed),
-                nullptr, static_cast<bf16*>(out), T, D, B, 0, H, static_cast<cudaStream_t>(stream_ptr));
+                               int B, int H, int small, void* stream_ptr) {
+  if (small && B > 16) return (int)cudaErrorInvalidValue;
+  return launch(true, small != 0, static_cast<const bf16*>(xw), nullptr,
+                static_cast<const uint2*>(w_hh_packed), nullptr, static_cast<bf16*>(out), T, D, B, 0, H,
+                static_cast<cudaStream_t>(stream_ptr));
 }
 
-// The cluster size lstm_recurrence takes for (B, D, H) on the current
-// device, or -1 on a CUDA error.
-extern "C" int lstm_recurrence_cluster(int B, int D, int H) {
+// The cluster size lstm_recurrence takes for (B, D, H) and the body
+// ``small`` on the current device, or -1 on a CUDA error.
+extern "C" int lstm_recurrence_cluster(int B, int D, int H, int small) {
   int cl;
-  return choose_cluster(H, 0, D, B, true, &cl) == 0 ? cl : -1;
+  return choose_cluster(H, 0, D, B, true, small != 0, &cl) == 0 ? cl : -1;
 }
 
 // Launches of one lstm_resident call (the wrappers count with this).
@@ -518,7 +866,7 @@ extern "C" int lstm_resident_launches() { return 1; }
 // device, or -1 on a CUDA error.
 extern "C" int lstm_resident_cluster(int B, int D, int Din, int H) {
   int cl;
-  return choose_cluster(H, Din, D, B, false, &cl) == 0 ? cl : -1;
+  return choose_cluster(H, Din, D, B, false, false, &cl) == 0 ? cl : -1;
 }
 
 // h [T, D, B, H] from x [B, T, Din] bf16, the packed w_ih and w_hh (uint2
@@ -530,7 +878,7 @@ extern "C" int lstm_resident_cluster(int B, int D, int Din, int H) {
 extern "C" int lstm_resident(const void* x, const void* w_ih_packed, const void* w_hh_packed,
                              const void* bias, void* out, int T, int D, int B, int Din, int H,
                              void* stream_ptr) {
-  return launch(false, static_cast<const bf16*>(x), static_cast<const uint2*>(w_ih_packed),
+  return launch(false, false, static_cast<const bf16*>(x), static_cast<const uint2*>(w_ih_packed),
                 static_cast<const uint2*>(w_hh_packed), static_cast<const float*>(bias),
                 static_cast<bf16*>(out), T, D, B, Din, H, static_cast<cudaStream_t>(stream_ptr));
 }

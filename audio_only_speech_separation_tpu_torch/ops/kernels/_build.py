@@ -109,9 +109,9 @@ def load_library() -> ctypes.CDLL:
     lib.attention_packed.restype = i
     lib.add_layer_norm.argtypes = [p] * 6 + [i] * 3 + [ctypes.c_float, i, p]
     lib.add_layer_norm.restype = i
-    lib.lstm_recurrence.argtypes = [p] * 3 + [i] * 4 + [p]
+    lib.lstm_recurrence.argtypes = [p] * 3 + [i] * 5 + [p]
     lib.lstm_recurrence.restype = i
-    lib.lstm_recurrence_cluster.argtypes = [i] * 3
+    lib.lstm_recurrence_cluster.argtypes = [i] * 4
     lib.lstm_recurrence_cluster.restype = i
     lib.lstm_resident.argtypes = [p] * 5 + [i] * 5 + [p]
     lib.lstm_resident.restype = i

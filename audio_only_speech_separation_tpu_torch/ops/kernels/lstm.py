@@ -17,18 +17,23 @@ resident form; sigmoid and tanh in f32; ``c = bf16(f*c + i*g)``,
 and the plain versions are the JAX package's ``_xla_bilstm`` and
 ``_xla_resident_ref``.
 
-Both kernels live in ``csrc/lstm.cu`` and run one step body (bf16; the
-envelope ``lstm_kernel_ok``: H % 16 == 0, 16 <= H <= 256, and for the
-resident form Din % 16 == 0).  Each wrapper packs W_hh (and the resident
-form W_ih) by ``pack_gate_fragments``, one gather on the device: gate
-columns interleaved so that one thread's mma accumulators hold i, f, g and
-o of its own cells, in the fragment order of ``mma.sync.m16n8k16``.  A step
-is spread over a thread-block cluster of 1, 2 or 4 blocks
-(``recurrence_cluster``, ``resident_cluster``).  Dispatch (``ops/rnn.py``)
-takes the kernels only inside the envelope; on a CUDA tensor outside it
-the wrappers raise.  Their backward recomputes through the plain version
-under autograd, as the JAX package's custom VJPs do; no backward kernel
-exists there to port.
+Both kernels live in ``csrc/lstm.cu`` (bf16; the envelope
+``lstm_kernel_ok``: H % 16 == 0, 16 <= H <= 256, and for the resident form
+Din % 16 == 0).  K6, and K5 at more than 16 sequences, run one step body:
+the wrapper packs W_hh (and the resident form W_ih) by
+``pack_gate_fragments``, one gather on the device: gate columns
+interleaved so that one thread's mma accumulators hold i, f, g and o of its
+own cells, in the B-fragment order of ``mma.sync.m16n8k16``, the batch as
+the product's M; a step is spread over a thread-block cluster of 1, 2 or 4
+blocks.  K5 at 16 sequences or fewer (``small_batch_body``) runs a body of
+its own: W_hh^T packed by ``pack_gate_rows`` as the product's A operand
+(gate rows interleaved, the batch as N), held in registers across a
+cluster of up to 8 blocks, h handed over block to block without a barrier
+across the cluster.  ``recurrence_cluster`` and ``resident_cluster`` say
+which cluster a shape takes.  Dispatch (``ops/rnn.py``) takes the kernels
+only inside the envelope; on a CUDA tensor outside it the wrappers raise.
+Their backward recomputes through the plain version under autograd, as
+the JAX package's custom VJPs do; no backward kernel exists there to port.
 """
 
 from __future__ import annotations
@@ -131,6 +136,57 @@ def unpack_gate_fragments(packed: torch.Tensor) -> torch.Tensor:
     return wp[:, :, torch.argsort(gate_interleave(G // 4)).to(packed.device)]
 
 
+def _row_order(w: torch.Tensor) -> torch.Tensor:
+    D, K, G = w.shape
+    H = G // 4
+    # k = 16 ks + 8 khi + 2 q + half; gate column (2 mt + rlo) H + 8 j + g; lane = 4 g + q, e = 4 khi + 2 rlo + half
+    wr = w.reshape(D, K // 16, 2, 4, 2, 2, 2, H // 8, 8)
+    return wr.permute(0, 7, 5, 1, 8, 3, 2, 6, 4).reshape(D, H // 8, 2, K // 16, 32, 8)
+
+
+@functools.lru_cache(maxsize=None)
+def _row_index(H: int, device: torch.device) -> torch.Tensor:
+    """Flat positions in a [H, 4H] weight of the elements ``pack_gate_rows``
+    packs, on ``device`` (made once)."""
+    flat = torch.arange(H * 4 * H).reshape(1, H, 4 * H)
+    return _row_order(flat).reshape(-1).to(device)
+
+
+def pack_gate_rows(w: torch.Tensor) -> torch.Tensor:
+    """w_hh [D, H, 4H] (torch gate order) -> [D, H/8, 2, H/16, 32, 8]: W_hh^T
+    as the A operand of ``mma.sync.m16n8k16`` in K5's few-sequence body.
+    Slice j (a pair of warps, one a half of the k-steps) holds hidden units
+    8j .. 8j + 7 in two 16-row tiles: rows g and g + 8 of tile 0 are gates i
+    and f of unit 8j + g, of tile 1 gates g and o.  Lane l of tile mt at
+    k-step ks holds, as element e of its four A-fragment registers,
+    W_hh[16 ks + 2 (l % 4) + e % 2 + 8 (e // 4), (2 mt + (e // 2) % 2) H +
+    8 j + l // 4].  One gather."""
+    D, H, G = w.shape
+    idx = _row_index(H, w.device)
+    return w.reshape(D, H * G)[:, idx].reshape(D, H // 8, 2, H // 16, 32, 8)
+
+
+def unpack_gate_rows(packed: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``pack_gate_rows``: [D, H/8, 2, H/16, 32, 8] ->
+    [D, H, 4H] in torch gate order."""
+    D, J, _, KS = packed.shape[:4]
+    wr = packed.reshape(D, J, 2, KS, 8, 4, 2, 2, 2).permute(0, 3, 6, 5, 8, 2, 7, 1, 4)
+    return wr.reshape(D, 16 * KS, 32 * J)
+
+
+# K5 takes its few-sequence body up to this many sequences (its two n-tiles of 8)
+SMALL_BATCH_MAX_B = 16
+
+
+def small_batch_body(B: int, D: int, H: int) -> bool:
+    """Whether ``fused_bilstm`` runs K5's few-sequence body for B sequences,
+    D directions and hidden width H: B <= 16 inside the kernels' envelope.
+    There the batch cannot fill the mma's 16 rows, so the weights take that
+    role (``pack_gate_rows``); above it K5 runs the step body it shares
+    with K6."""
+    return 1 <= B <= SMALL_BATCH_MAX_B and D in (1, 2) and lstm_kernel_ok(H)
+
+
 def lstm_kernel_ok(H: int, Din: Optional[int] = None) -> bool:
     """Whether the kernels take hidden width ``H`` (and, for the resident
     form, input width ``Din``)."""
@@ -154,14 +210,16 @@ def _launch_recurrence(xw, w_hh):
     _check("xw", xw, (T, D, B, G), torch.bfloat16, dev)
     _check_aligned("xw", xw)
     _check("w_hh", w_hh, (D, H, G), torch.bfloat16, dev)
-    whh_p = pack_gate_fragments(w_hh)
+    small = small_batch_body(B, D, H)
+    whh_p = pack_gate_rows(w_hh) if small else pack_gate_fragments(w_hh)
     out = torch.empty((T, D, B, H), dtype=torch.bfloat16, device=dev)
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.lstm_recurrence(xw.data_ptr(), whh_p.data_ptr(), out.data_ptr(), T, D, B, H, stream)
+        rc = lib.lstm_recurrence(xw.data_ptr(), whh_p.data_ptr(), out.data_ptr(), T, D, B, H, int(small), stream)
     check_launch(lib, "lstm_recurrence", rc)
     fused_bilstm.launches += 1
+    fused_bilstm.small_batch_launches += small
     return out
 
 
@@ -221,9 +279,10 @@ def fused_bilstm(xw: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     directions; the backward one pre-reversed in time).
 
     A CUDA tensor launches the kernel (one launch, added to
-    ``fused_bilstm.launches``, after one gather that packs w_hh, under the
-    span ``kernels.k5``) or raises; a CPU tensor runs ``bilstm_reference``.
-    Differentiable."""
+    ``fused_bilstm.launches``, and to ``fused_bilstm.small_batch_launches``
+    where ``small_batch_body`` holds, after one gather that packs w_hh,
+    under the span ``kernels.k5``) or raises; a CPU tensor runs
+    ``bilstm_reference``.  Differentiable."""
     if xw.device.type == "cpu":
         return bilstm_reference(xw, w_hh)
     if xw.device.type != "cuda":
@@ -233,6 +292,7 @@ def fused_bilstm(xw: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
 
 
 fused_bilstm.launches = 0
+fused_bilstm.small_batch_launches = 0
 
 
 def resident_bilstm(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
@@ -276,11 +336,13 @@ def resident_cluster(B: int, D: int, Din: int, H: int) -> int:
 
 
 def recurrence_cluster(B: int, D: int, H: int) -> int:
-    """The thread-block cluster size (1, 2 or 4) ``fused_bilstm`` takes on
-    the current CUDA device for this shape (loads the library)."""
+    """The thread-block cluster size ``fused_bilstm`` takes on the current
+    CUDA device for this shape (loads the library): 1, 2 or 4 in the step
+    body shared with K6, 1, 2, 4 or 8 in the few-sequence body
+    (``small_batch_body``)."""
     from ._build import load_library
 
-    cl = load_library().lstm_recurrence_cluster(B, D, H)
+    cl = load_library().lstm_recurrence_cluster(B, D, H, int(small_batch_body(B, D, H)))
     if cl < 1:
         raise RuntimeError("lstm_recurrence_cluster: CUDA error")
     return cl

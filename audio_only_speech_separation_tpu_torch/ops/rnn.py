@@ -23,8 +23,12 @@ Dispatch: the kernel form for a bf16 input on a CUDA device
   at T >= 128 and B <= 128 (the JAX package's K5 gate, kept there; see
   ``kernel_choice``).
 
-Both kernels run one step (``csrc/lstm.cu``): gates in mma.sync registers,
-h exchanged across a cluster of up to four blocks, one barrier a step.
+Both kernels keep a step's gates in mma.sync registers (``csrc/lstm.cu``).
+K6, and K5 above 16 sequences, run one step body: h exchanged across a
+cluster of up to four blocks, one barrier a step.  K5 at 16 sequences or
+fewer runs its own body (``kernels.lstm.small_batch_body``): W_hh^T held in
+registers across a cluster of up to eight blocks, the batch as the
+product's N, h handed from block to block without a barrier.
 Inside ``ops.kernels.plain_versions()`` the same form runs the kernels'
 plain versions.  Anything else (f32, a CPU tensor, a hidden width outside
 the envelope) takes the plain path, ``resident_bilstm_reference``: the JAX

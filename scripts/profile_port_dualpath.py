@@ -13,10 +13,13 @@ port; run it from two checkouts in turns in one process tree to compare
 them on one card.  Prints the card's name and power limit, then:
 
 - K4 at DPTNet's rows [1344, 16, 100] and columns [3200, 16, 42] (B=8 x
-  2 s), K5 at the batch-1 12 s column pass (T 242, D 2, B 100, H 128), K6
-  at DPRNN's rows (T 100, B 336, Din 64, H 128): each its median time over
-  ``--reps`` CUDA-event-timed calls and its device time by kernel
-  (torch.profiler, 5 calls);
+  2 s), K5 at the batch-1 12 s column pass (T 242, D 2, B 100, H 128) and
+  at few sequences: BSRNN's band RNNs at B=1 x 6 s and 4 s x 8 kHz (T 751
+  and 501, D 2, B 8, H 256) and one direction of 4 steps at B 2 (T 4, D 1,
+  H 256), K6 at DPRNN's rows (T 100, B 336, Din 64, H 128) and at BSRNN's
+  band-comm RNN at B=1 x 6 s (T 8, B 751, Din 128, H 256): each its median
+  time over ``--reps`` CUDA-event-timed calls and its device time by
+  kernel (torch.profiler, 5 calls);
 - DPTNet and DPRNN (wsj0 configs, full width and depth, seeded weights) at
   B=8 x 2 s and B=1 x 12 s x 8 kHz through the bf16 kernel path: the
   median call time, and the device time of K4, K5, K6 and of all device
@@ -62,13 +65,20 @@ def main() -> None:
     q, k, v = (rand((1344, 16, 100)) for _ in range(3))
     qc, kc, vc = (rand((3200, 16, 42)) for _ in range(3))
     xw, whh = rand((242, 2, 100, 512), 0.3), rand((2, 128, 512), 0.05)
+    xw_few = {shape: (rand((shape[0], shape[1], shape[2], 4 * shape[3]), 0.3),
+                      rand((shape[1], shape[3], 4 * shape[3]), 0.05))
+              for shape in ((751, 2, 8, 256), (501, 2, 8, 256), (4, 1, 2, 256))}
     x6, wih6, whh6, b6 = (rand((336, 100, 64), 0.5), rand((2, 64, 512), 0.08), rand((2, 128, 512), 0.05),
                           rand((2, 512), 0.05, torch.float32))
+    xb, wihb, whhb, bb = (rand((751, 8, 128), 0.5), rand((2, 128, 1024), 0.08), rand((2, 256, 1024), 0.05),
+                          rand((2, 1024), 0.05, torch.float32))
     kernels = {
         "K4 [1344, 16, 100]": lambda: fused_attention_bdt(q, k, v),
         "K4 [3200, 16, 42]": lambda: fused_attention_bdt(qc, kc, vc),
         "K5 (242, 2, 100, 128)": lambda: fused_bilstm(xw, whh),
+        **{f"K5 {shape}": (lambda a=a: fused_bilstm(*a)) for shape, a in xw_few.items()},
         "K6 (100, 336, 64, 128, 2)": lambda: resident_bilstm(x6, wih6, whh6, b6),
+        "K6 (8, 751, 128, 256, 2)": lambda: resident_bilstm(xb, wihb, whhb, bb),
     }
     with torch.no_grad():
         for name, fn in kernels.items():

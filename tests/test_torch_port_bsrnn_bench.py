@@ -161,7 +161,7 @@ def test_served_request_spans_and_launches(card):
     "kernels" dispatch under ``torch.profiler``: one ``bsrnn.split`` and one
     ``bsrnn.mask``, 8 ``bsrnn.band_rnn`` each holding one ``kernels.k5``, 8
     ``bsrnn.band_comm`` each holding one ``kernels.k6``; K5's and K6's
-    launch counters add 8 and 8."""
+    launch counters add 8 and 8, all 8 of K5's in its few-sequence body."""
     from audio_only_speech_separation_tpu_torch.ops.kernels.lstm import fused_bilstm, resident_bilstm
 
     cfg = harness.load_json(harness.HERE / "configs" / "bsrnn_wsj0.json")
@@ -169,9 +169,10 @@ def test_served_request_spans_and_launches(card):
     server = Server(harness.build_model(cfg, sd, card), use_bf16=True, device=card, bucket_seconds=1.0)
     req = [np.random.default_rng(0).standard_normal(48000).astype(np.float32) * 0.05]
     server(req)
-    k5, k6 = fused_bilstm.launches, resident_bilstm.launches
+    k5, k6, k5_small = fused_bilstm.launches, resident_bilstm.launches, fused_bilstm.small_batch_launches
     spans = _spans(server, req)
     assert fused_bilstm.launches - k5 == 8 and resident_bilstm.launches - k6 == 8
+    assert fused_bilstm.small_batch_launches - k5_small == 8
     assert len(spans["bsrnn.split"]) == len(spans["bsrnn.mask"]) == 1
     for stage, kernel in (("bsrnn.band_rnn", "kernels.k5"), ("bsrnn.band_comm", "kernels.k6")):
         assert len(spans[stage]) == len(spans[kernel]) == 8

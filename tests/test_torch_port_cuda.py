@@ -379,38 +379,50 @@ def test_packed_attention_refuses_what_the_kernel_does_not_take(cuda):
 # at B=1 and 4 x 4 s x 8 kHz (8 bands of 501 frames, H 256); DPRNNTasNet's
 # rows (128 chunks of 32 frames) and columns (32 sequences of 128 chunks) at
 # B=1 x 2 s x 8 kHz (H 256); the wsj0 TasNet DPRNN and DPTNet cores' rows with
-# group size 2 at B=8 x 2 s x 8 kHz (8 x 2 x 6 chunks of 100 frames, H 64)
+# group size 2 at B=8 x 2 s x 8 kHz (8 x 2 x 6 chunks of 100 frames, H 64);
+# H 48 at 20 sequences (the shared body's cluster of 2). The few-sequence
+# body (B <= 16): the BSRNN cell's band RNNs (B=1 x 6 s: 751 frames), B 1, 9
+# and 16, one direction, H 16, 48 and 128, T = 1, and H 144 and 240, whose
+# slices split unevenly over a cluster of 8
 BILSTM_CASES = [(251, 2, 64, 256), (250, 2, 96, 128), (128, 1, 32, 128), (242, 2, 100, 128),
                 (9, 2, 3, 16), (1, 2, 4, 32), (6, 2, 17, 16), (5, 2, 100, 128), (40, 2, 3, 48),
                 (4, 1, 2, 256), (3, 2, 1100, 128), (3, 2, 1100, 256), (501, 2, 8, 256), (501, 2, 32, 256),
-                (32, 2, 128, 256), (128, 2, 32, 256), (100, 2, 96, 64)]
+                (32, 2, 128, 256), (128, 2, 32, 256), (100, 2, 96, 64), (40, 2, 20, 48),
+                (751, 2, 8, 256), (60, 2, 1, 256), (60, 2, 9, 256), (60, 2, 16, 256), (50, 1, 8, 256),
+                (25, 2, 5, 16), (33, 1, 12, 48), (80, 2, 8, 128), (30, 1, 16, 128), (1, 2, 8, 256),
+                (1, 1, 13, 16), (20, 2, 3, 144), (12, 1, 7, 240)]
 
 
 @pytest.mark.parametrize("T,D,B,H", BILSTM_CASES)
 def test_bilstm_recurrence_matches_plain_version(cuda, T, D, B, H):
     """K5 against its plain version on the validator's inputs (xw * 0.3,
     w_hh * 0.05): max abs < 1e-2, bit-identical from run to run, one
-    launch a call."""
+    launch a call, counted as the few-sequence body's exactly at B <= 16."""
     rng = np.random.default_rng(T + B)
     xw = _bf16(cuda, rng.standard_normal((T, D, B, 4 * H)) * 0.3)
     whh = _bf16(cuda, rng.standard_normal((D, H, 4 * H)) * 0.05)
-    before = fused_bilstm.launches
+    before, before_small = fused_bilstm.launches, fused_bilstm.small_batch_launches
     got = fused_bilstm(xw, whh)
     again = fused_bilstm(xw, whh)
     want = bilstm_reference(xw, whh)
     torch.cuda.synchronize()
     assert fused_bilstm.launches - before == 2
+    assert fused_bilstm.small_batch_launches - before_small == (2 if B <= 16 else 0)
     assert got.shape == (T, D, B, H)
     assert torch.equal(got, again)
     assert float((got.float() - want.float()).abs().max()) < 1e-2
 
 
 def test_recurrence_cases_cover_each_cluster_plan(cuda):
-    """K5 runs K6's step: a cluster of 4 (H 128 at a small batch), 2 (H 48,
-    whose 12 gate pairs do not split four ways) and 1 (too many tiles for
-    the card at once) are all among the cases above."""
-    plans = {recurrence_cluster(B, D, H) for _, D, B, H in BILSTM_CASES}
-    assert plans == {1, 2, 4}, plans
+    """K5 above 16 sequences runs K6's step: a cluster of 4 (H 128 at a
+    small batch), 2 (H 48, whose 12 gate pairs do not split four ways) and
+    1 (too many tiles for the card at once) are all among the cases above.
+    At 16 sequences or fewer it runs its own body over 1 (H 16), 2 (H 48),
+    4 (H 128) and 8 (H 256) blocks, and those are among them too."""
+    wide = {recurrence_cluster(B, D, H) for _, D, B, H in BILSTM_CASES if B > 16}
+    few = {recurrence_cluster(B, D, H) for _, D, B, H in BILSTM_CASES if B <= 16}
+    assert wide == {1, 2, 4}, wide
+    assert few == {1, 2, 4, 8}, few
 
 
 # (T, B, Din, H, D, bias): the validator's (scripts/validate_pallas.py:246)

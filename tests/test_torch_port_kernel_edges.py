@@ -10,7 +10,11 @@
   B = 1, T = 1, D = 1 and Din 128 / H 256;
 - the gate-column interleave and fragment order in which the K6 wrapper
   packs W_ih and W_hh: round-tripped, and one plain LSTM step run on the
-  interleaved columns.
+  interleaved columns;
+- K5's few-sequence body: the rule that picks it (``small_batch_body``),
+  and the gate-row order in which its wrapper packs W_hh^T
+  (``pack_gate_rows``) against each element's place in the mma's A
+  fragment and against its inverse.
 """
 
 import jax
@@ -31,9 +35,12 @@ from audio_only_speech_separation_tpu_torch.ops.kernels.lstm import (
     _step,
     gate_interleave,
     pack_gate_fragments,
+    pack_gate_rows,
     resident_bilstm,
     resident_bilstm_reference,
+    small_batch_body,
     unpack_gate_fragments,
+    unpack_gate_rows,
 )
 
 torch.set_num_threads(2)
@@ -176,3 +183,55 @@ def test_plain_step_on_interleaved_gate_columns():
     c32 = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     torch.testing.assert_close(c32, c1, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(torch.sigmoid(o) * torch.tanh(c32), h1, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("B", [1, 8, 16, 17])
+@pytest.mark.parametrize("H", [16, 256])
+@pytest.mark.parametrize("D", [1, 2])
+def test_small_batch_body_rule(B, D, H):
+    """K5 takes its few-sequence body at 16 sequences or fewer, for either
+    direction count, at both ends of the hidden widths it takes."""
+    assert small_batch_body(B, D, H) == (B <= 16)
+
+
+def test_small_batch_body_stays_inside_the_envelope():
+    """No few-sequence body outside the kernels' envelope: H not a multiple
+    of 16 or above 256, three directions, no sequence."""
+    assert not small_batch_body(8, 2, 24) and not small_batch_body(8, 2, 272)
+    assert not small_batch_body(8, 3, 256) and not small_batch_body(0, 2, 256)
+
+
+def _a_fragment_placement(w: np.ndarray) -> np.ndarray:
+    """W_hh^T's elements where the few-sequence body's warps read them, one
+    by one from mma.m16n8k16's A-fragment layout: warp j's tile mt, k-step
+    ks, lane l = 4 g + q, register r, half h hold A[row][col] with row
+    g + 8 (r % 2), col 2 q + h + 8 (r // 2); A's row of tile 0 is gate i
+    (rows < 8) or f of unit 8 j + g, of tile 1 gate g or o; col is k within
+    the k-step."""
+    D, H, G = w.shape
+    out = np.zeros((D, H // 8, 2, H // 16, 32, 8), w.dtype)
+    for d in range(D):
+        for j in range(H // 8):
+            for mt in range(2):
+                for ks in range(H // 16):
+                    for lane in range(32):
+                        g, q = lane // 4, lane % 4
+                        for r in range(4):
+                            for h in range(2):
+                                row, col = g + 8 * (r % 2), 2 * q + h + 8 * (r // 2)
+                                gate = 2 * mt + row // 8
+                                out[d, j, mt, ks, lane, 2 * r + h] = w[d, 16 * ks + col, gate * H + 8 * j + g]
+    return out
+
+
+@pytest.mark.parametrize("D,H", [(2, 16), (1, 48), (2, 128), (1, 256)])
+def test_gate_row_packing_matches_the_fragment_layout(D, H):
+    """pack_gate_rows puts each element of W_hh where the few-sequence
+    body's A fragments expect it, and unpack_gate_rows undoes it exactly."""
+    w = np.random.default_rng(D + H).standard_normal((D, H, 4 * H)).astype(np.float32)
+    packed = pack_gate_rows(torch.from_numpy(w).to(torch.bfloat16))
+    assert packed.shape == (D, H // 8, 2, H // 16, 32, 8) and packed.is_contiguous()
+    want = torch.from_numpy(_a_fragment_placement(w)).to(torch.bfloat16)
+    assert torch.equal(packed, want)
+    assert torch.equal(unpack_gate_rows(packed), torch.from_numpy(w).to(torch.bfloat16))
+    assert torch.equal(unpack_gate_rows(want), torch.from_numpy(w).to(torch.bfloat16))
