@@ -31,7 +31,18 @@ win], ``enc_LN``, ``bottleneck.weight`` [D, N, 1], ``seg_norm``,
 ``sep_net.{i}.{intra_RNN.rnn, intra_linear, intra_norm,
 inter_RNN.attn_in_norm, inter_RNN.attn_layer.0.{attn, norm}, inter_norm}``,
 ``first_out.{0, 1}``, ``out_norm`` and ``decoder.basis_lin.weight`` [win,
-N].  ``norm_type``, ``mask_act``, ``bidirectional``, ``rnn_type`` and
+N].
+
+Spans (``utils/profiling.py::span``): ``sandglasset.encode`` (the
+normalisation, the encoder, ``enc_LN``, the bottleneck, the chunking and
+``seg_norm``), per block ``sandglasset.local`` (the intra BiLSTM with its
+projection, ``intra_norm`` and the residual: K6's launch inside) and
+``sandglasset.global`` (the pooling, the skip, ``attn_in_norm``, the
+positions, the attention layer, the interpolation, ``inter_norm`` and the
+residual: K4's launch inside), ``sandglasset.decode`` (the mask head, the
+fold, ``out_norm``, the mask product and the decoder).
+
+``norm_type``, ``mask_act``, ``bidirectional``, ``rnn_type`` and
 ``num_layers`` are kept for configs and checkpoints; the model ignores
 them, as the JAX one does.
 """
@@ -49,6 +60,7 @@ from ..ops.dropout import Dropout
 from ..ops.norms import GlobalLayerNorm
 from ..ops.resample import avg_pool1d, interpolate_linear_align_corners
 from ..ops.rnn import BiLSTM
+from ..utils.profiling import span
 from . import register_model
 from .base import BaseModel, normalize_input, restore_output, seeded_init_
 
@@ -123,27 +135,28 @@ class SandglassetBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, skip_connect=None):
         B, S, K, D = x.shape
-        rnn = self.intra_RNN.rnn
-        local = rnn(x.reshape(B * S, K, D), self.intra_linear.weight.t(), self.intra_linear.bias)
-        x = x + self.intra_norm(local.reshape(B, S, K, D))
+        with span("sandglasset.local"):
+            rnn = self.intra_RNN.rnn
+            local = rnn(x.reshape(B * S, K, D), self.intra_linear.weight.t(), self.intra_linear.bias)
+            x = x + self.intra_norm(local.reshape(B, S, K, D))
+        with span("sandglasset.global"):
+            inter, kernel = self.inter_RNN, self.kernel
+            if kernel == 1:  # the 4-D attention over S, K batched
+                g = x if skip_connect is None else x + skip_connect
+                h = inter.attn_in_norm(g) + positions_table(S, D, g.dtype, g.device)[None, :, None, :]
+                h = inter.attn_layer(h)
+                return x + self.inter_norm(h), h
 
-        inter, kernel = self.inter_RNN, self.kernel
-        if kernel == 1:  # the 4-D attention over S, K batched
-            g = x if skip_connect is None else x + skip_connect
-            h = inter.attn_in_norm(g) + positions_table(S, D, g.dtype, g.device)[None, :, None, :]
+            pooled = avg_pool1d(x, kernel, dim=2)  # [B, S, Q, D]
+            Q = pooled.shape[2]
+            g = pooled.transpose(1, 2).reshape(B * Q, S, D)
+            if skip_connect is not None:
+                g = g + skip_connect
+            h = inter.attn_in_norm(g) + positions_table(S, D, g.dtype, g.device)[None]
             h = inter.attn_layer(h)
-            return x + self.inter_norm(h), h
-
-        pooled = avg_pool1d(x, kernel, dim=2)  # [B, S, Q, D]
-        Q = pooled.shape[2]
-        g = pooled.transpose(1, 2).reshape(B * Q, S, D)
-        if skip_connect is not None:
-            g = g + skip_connect
-        h = inter.attn_in_norm(g) + positions_table(S, D, g.dtype, g.device)[None]
-        h = inter.attn_layer(h)
-        # [K, Q] @ [B, S, Q, D] -> [B, S, K, D]: the layout back in the product
-        up = interpolate_linear_align_corners(h.reshape(B, Q, S, D).transpose(1, 2), self.chunk_size, dim=2)
-        return x + self.inter_norm(up), h
+            # [K, Q] @ [B, S, Q, D] -> [B, S, K, D]: the layout back in the product
+            up = interpolate_linear_align_corners(h.reshape(B, Q, S, D).transpose(1, 2), self.chunk_size, dim=2)
+            return x + self.inter_norm(up), h
 
 
 class _Decoder(nn.Module):
@@ -187,22 +200,22 @@ class Sandglasset(BaseModel):
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
         wav, was_one_d = normalize_input(wav)
         B, T = wav.shape
-        # -5 dB peak normalisation (sandglasset.py:363-368)
-        sig = wav - wav.sum(dim=-1, keepdim=True) / T
-        sig = sig / (sig.abs().amax(dim=-1, keepdim=True) + 1e-12)
-        sig = sig / (10 ** (5.0 / 20.0))
-
         win = self.kernel_size
         hop = win // 2
         rest = win - (hop + T % win) % win
-        sig = F.pad(sig, (hop, hop + rest))
+        with span("sandglasset.encode"):
+            # -5 dB peak normalisation (sandglasset.py:363-368)
+            sig = wav - wav.sum(dim=-1, keepdim=True) / T
+            sig = sig / (sig.abs().amax(dim=-1, keepdim=True) + 1e-12)
+            sig = sig / (10 ** (5.0 / 20.0))
+            sig = F.pad(sig, (hop, hop + rest))
 
-        frames = frame_signal(sig, win, hop)  # [B, I, win]
-        mixture_w = torch.relu(torch.matmul(frames, self.encoder.weight[:, 0, :].to(sig.dtype).t()))
-        mixture_w = self.enc_LN(mixture_w)  # [B, I, N]
-        out = torch.matmul(mixture_w, self.bottleneck.weight[:, :, 0].to(mixture_w.dtype).t())  # [B, I, D]
-        chunks, I = unfold_chunks(out.transpose(1, 2), self.chunk_size)
-        x = self.seg_norm(torch.relu(chunks))  # [B, S, K, D]
+            frames = frame_signal(sig, win, hop)  # [B, I, win]
+            mixture_w = torch.relu(torch.matmul(frames, self.encoder.weight[:, 0, :].to(sig.dtype).t()))
+            mixture_w = self.enc_LN(mixture_w)  # [B, I, N]
+            out = torch.matmul(mixture_w, self.bottleneck.weight[:, :, 0].to(mixture_w.dtype).t())  # [B, I, D]
+            chunks, I = unfold_chunks(out.transpose(1, 2), self.chunk_size)
+            x = self.seg_norm(torch.relu(chunks))  # [B, S, K, D]
 
         skips = []
         for i, block in enumerate(self.sep_net):
@@ -212,17 +225,18 @@ class Sandglasset(BaseModel):
             else:
                 x, _ = block(x, skips.pop())
 
-        # mask head: PReLU -> 1x1 Conv2d -> softplus, then the channels-last fold
-        conv = self.first_out[1]
-        x = self.first_out[0](x)
-        x = torch.matmul(x, conv.weight[:, :, 0, 0].to(x.dtype).t()) + conv.bias.to(x.dtype)
-        x = F.softplus(x)  # [B, S, K, n_src * N]
-        sig_cl = fold_chunks(x, I).transpose(1, 2)  # [B, I, n_src * N]
-        est = sig_cl.reshape(B, I, self.n_src, self.n_feats).transpose(1, 2)
-        est = self.out_norm(torch.relu(est.reshape(B * self.n_src, I, self.n_feats)))
-        masked = est.reshape(B, self.n_src, I, self.n_feats) * mixture_w[:, None]  # [B, C, I, N]
+        with span("sandglasset.decode"):
+            # mask head: PReLU -> 1x1 Conv2d -> softplus, then the channels-last fold
+            conv = self.first_out[1]
+            x = self.first_out[0](x)
+            x = torch.matmul(x, conv.weight[:, :, 0, 0].to(x.dtype).t()) + conv.bias.to(x.dtype)
+            x = F.softplus(x)  # [B, S, K, n_src * N]
+            sig_cl = fold_chunks(x, I).transpose(1, 2)  # [B, I, n_src * N]
+            est = sig_cl.reshape(B, I, self.n_src, self.n_feats).transpose(1, 2)
+            est = self.out_norm(torch.relu(est.reshape(B * self.n_src, I, self.n_feats)))
+            masked = est.reshape(B, self.n_src, I, self.n_feats) * mixture_w[:, None]  # [B, C, I, N]
 
-        dw = self.decoder.basis_lin.weight.to(masked.dtype).t()  # [N, win]
-        dec = overlap_add(torch.matmul(masked, dw).reshape(B * self.n_src, I, win), hop)
-        dec = dec.reshape(B, self.n_src, -1)
+            dw = self.decoder.basis_lin.weight.to(masked.dtype).t()  # [N, win]
+            dec = overlap_add(torch.matmul(masked, dw).reshape(B * self.n_src, I, win), hop)
+            dec = dec.reshape(B, self.n_src, -1)
         return restore_output(dec[:, :, hop: dec.shape[-1] - (rest + hop)], was_one_d)

@@ -15,7 +15,7 @@ evaluated_mac_params.py:49).
   name (``profile_trace_ops.py`` reads it);
 - ``span(name)`` marks a stretch of the port's host work (``serve.*``,
   ``forward.*``, ``train.*``, ``kernels.*``, ``optim.*``,
-  ``sepformer.*``, ``bsrnn.*``) as an event on
+  ``sepformer.*``, ``bsrnn.*``, ``sandglasset.*``) as an event on
   ``torch.profiler``'s timeline while a profiler records, on the clock of
   the device operations it issues; with no profiler running it costs one
   flag read and does nothing else.
