@@ -24,6 +24,11 @@ the fold divides by 2.
   package, which also restores the [B, S, K, D] layout.
 - ``GlobalAttnLayer`` keeps the reference's residual quirk: it adds
   dropout(out) to out, not to its input.
+- The gLNs are channels last: ``enc_LN``, ``seg_norm``, ``out_norm`` and
+  each block's ``intra_norm`` and ``inter_norm``, those two with the
+  block's residual handed in (``residual=x``), take K9 in bf16 on the card
+  where ``GlobalLayerNorm.fuses`` holds (15 a call at 6 blocks), the
+  residual added in the same pass.
 
 The ``state_dict`` uses look2hear's keys (the JAX package's
 ``utils/torch_import.py::convert_sandglasset``): ``encoder.weight`` [N, 1,
@@ -36,11 +41,12 @@ N].
 Spans (``utils/profiling.py::span``): ``sandglasset.encode`` (the
 normalisation, the encoder, ``enc_LN``, the bottleneck, the chunking and
 ``seg_norm``), per block ``sandglasset.local`` (the intra BiLSTM with its
-projection, ``intra_norm`` and the residual: K6's launch inside) and
-``sandglasset.global`` (the pooling, the skip, ``attn_in_norm``, the
-positions, the attention layer, the interpolation, ``inter_norm`` and the
-residual: K4's launch inside), ``sandglasset.decode`` (the mask head, the
-fold, ``out_norm``, the mask product and the decoder).
+projection, ``intra_norm`` and the residual: K6's and K9's launches
+inside) and ``sandglasset.global`` (the pooling, the skip,
+``attn_in_norm``, the positions, the attention layer, the interpolation,
+``inter_norm`` and the residual: K4's and K9's launches inside),
+``sandglasset.decode`` (the mask head, the fold, ``out_norm``, the mask
+product and the decoder).
 
 ``norm_type``, ``mask_act``, ``bidirectional``, ``rnn_type`` and
 ``num_layers`` are kept for configs and checkpoints; the model ignores
@@ -138,14 +144,14 @@ class SandglassetBlock(nn.Module):
         with span("sandglasset.local"):
             rnn = self.intra_RNN.rnn
             local = rnn(x.reshape(B * S, K, D), self.intra_linear.weight.t(), self.intra_linear.bias)
-            x = x + self.intra_norm(local.reshape(B, S, K, D))
+            x = self.intra_norm(local.reshape(B, S, K, D), residual=x)
         with span("sandglasset.global"):
             inter, kernel = self.inter_RNN, self.kernel
             if kernel == 1:  # the 4-D attention over S, K batched
                 g = x if skip_connect is None else x + skip_connect
                 h = inter.attn_in_norm(g) + positions_table(S, D, g.dtype, g.device)[None, :, None, :]
                 h = inter.attn_layer(h)
-                return x + self.inter_norm(h), h
+                return self.inter_norm(h, residual=x), h
 
             pooled = avg_pool1d(x, kernel, dim=2)  # [B, S, Q, D]
             Q = pooled.shape[2]
@@ -156,7 +162,7 @@ class SandglassetBlock(nn.Module):
             h = inter.attn_layer(h)
             # [K, Q] @ [B, S, Q, D] -> [B, S, K, D]: the layout back in the product
             up = interpolate_linear_align_corners(h.reshape(B, Q, S, D).transpose(1, 2), self.chunk_size, dim=2)
-            return x + self.inter_norm(up), h
+            return self.inter_norm(up, residual=x), h
 
 
 class _Decoder(nn.Module):

@@ -109,6 +109,8 @@ def load_library() -> ctypes.CDLL:
     lib.attention_packed.restype = i
     lib.add_layer_norm.argtypes = [p] * 6 + [i] * 3 + [ctypes.c_float, i, p]
     lib.add_layer_norm.restype = i
+    lib.global_layer_norm.argtypes = [p] * 5 + [ctypes.c_longlong, p, i, i, i, ctypes.c_float, i, p]
+    lib.global_layer_norm.restype = i
     lib.lstm_recurrence.argtypes = [p] * 3 + [i] * 5 + [p]
     lib.lstm_recurrence.restype = i
     lib.lstm_recurrence_cluster.argtypes = [i] * 4

@@ -12,6 +12,13 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from . import kernels
+from .kernels.global_layer_norm import (
+    fused_global_layer_norm,
+    global_layer_norm_ok,
+    global_layer_norm_reference,
+)
+
 
 def _moments(x: torch.Tensor, axes):
     """Mean and variance over ``axes``, in float32, in the shifted-data
@@ -41,6 +48,21 @@ def global_moments(x: torch.Tensor, group=None):
     return combine_moments(mean, var, x[0].numel(), group)
 
 
+def plain_global_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float,
+                            channels_last: bool, group=None) -> torch.Tensor:
+    """gLN's plain path: the moments (``global_moments``), the normalised
+    float32 values cast to x's dtype, then the per-channel affine in that
+    dtype."""
+    mean, var = global_moments(x, group)
+    y = ((x.float() - mean) / torch.sqrt(var + eps)).to(x.dtype)
+    shape = (-1,) if channels_last else (-1,) + (1,) * (x.ndim - 2)
+    return y * weight.to(y.dtype).reshape(shape) + bias.to(y.dtype).reshape(shape)
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    return t.is_contiguous() and t.data_ptr() % 16 == 0
+
+
 class GlobalLayerNorm(nn.Module):
     """gLN: normalise over every axis but the batch, per sample, then a
     per-channel affine.
@@ -49,7 +71,13 @@ class GlobalLayerNorm(nn.Module):
     ([B, C, *spatial]), or the last axis with ``channels_last`` ([B,
     *spatial, C], the dual-path row and column norms).  ``group``: the
     statistics of a sample sharded across a sequence-parallel group
-    (``global_moments``)."""
+    (``global_moments``).  ``residual``: a tensor of x's shape added to the
+    result (``residual + gLN(x)``).
+
+    Where ``fuses`` holds the forward is one call of K9
+    (``ops/kernels/global_layer_norm.py``, two device operations; inside
+    ``kernels.plain_versions()`` its plain version), the residual added in
+    its apply pass; every other input takes the plain path."""
 
     def __init__(self, channels: int, eps: float = 1e-8, channels_last: bool = False, device=None):
         super().__init__()
@@ -58,11 +86,30 @@ class GlobalLayerNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels, device=device))
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
 
-    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
-        mean, var = global_moments(x, group)
-        y = ((x.float() - mean) / torch.sqrt(var + self.eps)).to(x.dtype)
-        shape = (-1,) if self.channels_last else (-1,) + (1,) * (x.ndim - 2)
-        return y * self.weight.to(y.dtype).reshape(shape) + self.bias.to(y.dtype).reshape(shape)
+    def fuses(self, x: torch.Tensor, group=None, residual: torch.Tensor | None = None) -> bool:
+        """Whether the forward on these arguments takes K9: channels last, no
+        ``group``; x a bf16 CUDA tensor (``kernels.kernel_input``) of at
+        least two axes, contiguous and 16-byte aligned, with C inside
+        ``global_layer_norm_ok``; the residual, where given, of x's shape,
+        dtype and device, contiguous and aligned; the affines bf16 and
+        aligned; and no gradient recorded (grad mode off, or nothing
+        requiring one)."""
+        w, b = self.weight, self.bias
+        return (self.channels_last and group is None and kernels.kernel_input(x) and x.ndim >= 2
+                and global_layer_norm_ok(x.shape[-1]) and _aligned(x)
+                and w.dtype == torch.bfloat16 and b.dtype == torch.bfloat16 and _aligned(w) and _aligned(b)
+                and (residual is None or (residual.shape == x.shape and residual.dtype == x.dtype
+                                          and residual.device == x.device and _aligned(residual)))
+                and not (torch.is_grad_enabled()
+                         and (x.requires_grad or w.requires_grad or b.requires_grad
+                              or (residual is not None and residual.requires_grad))))
+
+    def forward(self, x: torch.Tensor, group=None, residual: torch.Tensor | None = None) -> torch.Tensor:
+        if self.fuses(x, group, residual):
+            gln = kernels.pick(fused_global_layer_norm, global_layer_norm_reference)
+            return gln(x, self.weight, self.bias, self.eps, residual)
+        y = plain_global_layer_norm(x, self.weight, self.bias, self.eps, self.channels_last, group)
+        return y if residual is None else residual + y
 
 
 class CumulativeLayerNorm(nn.Module):

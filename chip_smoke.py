@@ -17,7 +17,8 @@ Drives each path once, its launch counters set to 0 just before it:
 - the wsj0 DPTNet served at B=1 x 12 s x 8 kHz ("kernels"): 12 of K4's
   packed entry, 6 of K5 and 6 of K6;
 - Sandglasset served at B=8 x 2 s x 8 kHz ("kernels"): 2 of K4's
-  [BH, dh, T] entry (its 4-D blocks), 4 of the packed entry, 6 of K6;
+  [BH, dh, T] entry (its 4-D blocks), 4 of the packed entry, 6 of K6,
+  15 gLNs of K9 (then K9 alone at the Sandglasset cell's four gLN shapes);
 - BSRNN-WSJ0 served at B=1 x 6 s x 8 kHz (the
   ``bsrnn_wsj0.serve_b1_wsj0len`` cell, "kernels"): 8 of K5 at
   (751, 2, 8, 256) and 8 of K6 at (8, 751, 128, 256, 2);
@@ -67,6 +68,7 @@ from torch_port_card import (  # noqa: E402,F401 (re-exported for the profile sc
     LRS3,
     SEPFORMER,
     SANDGLASSET,
+    SANDGLASSET_K9,
     SEPFORMER_K4,
     SEPFORMER_K8,
     SR,
@@ -406,6 +408,31 @@ def add_norm_entries(dev, sepformer_path) -> list:
     return entries
 
 
+def gln_entries(dev, sandglasset_path) -> list:
+    """``sandglasset_path()``'s entries with its 15 K9 gLNs counted from 0;
+    then K9 at the Sandglasset cell's four gLN shapes (8 x 4.0 s): within
+    2e-2 of its plain version, timed beside it (``device_ms``: both passes
+    under the profiler)."""
+    from audio_only_speech_separation_tpu_torch.ops.kernels import global_layer_norm as k9
+    from port_bench.gln_work import gln_work
+
+    (counter,), rand = _zeroed(k9.global_layer_norm_launches), rand_maker(93, dev)
+    entries, launches = sandglasset_path(), counter.launches
+    assert launches == SANDGLASSET_K9, launches
+    for shape, residual in (((8, 259, 250, 128), True), ((8, 259, 250, 128), False), ((8, 32002, 64), False),
+                            ((16, 32002, 64), False)):
+        C = shape[-1]
+        args = (rand(shape, 2.0), 1 + rand((C,), 0.2), rand((C,), 0.1), 1e-5, rand(shape) if residual else None)
+        y, y_ref = _held(k9.fused_global_layer_norm, k9.global_layer_norm_reference, args)
+        assert max_err(y, y_ref) < 2e-2, (shape, max_err(y, y_ref))
+        entry = _entry("global_layer_norm", "global_layer_norm.cu", None, shape + (residual,), launches,
+                       max_err(y, y_ref), k9.fused_global_layer_norm, k9.global_layer_norm_reference, args,
+                       gln_work(shape[0], y[0].numel(), residual))
+        ops = profile_kernels(lambda: k9.fused_global_layer_norm(*args), 20)
+        entries.append(dict(entry, device_ms=sum(ms for k, (ms, _) in ops.items() if k.startswith("gln_"))))
+    return entries
+
+
 def micro_vpu_probe() -> list:
     """K7 at its probe's [2048, 512] in bf16 with statistics: bit-equal to
     its plain version, the sum of squares within 1e-5 relative; its timed
@@ -441,8 +468,8 @@ def main() -> None:
         "Sepformer", SEPFORMER, SR, 90, dev), waves(dev, 98, 8, 2 * SR), (0, SEPFORMER_K4, 0, 0)))
     kernels += dualpath_serve(dev, "DPTNet B=1 x 12 s", tasnet_model("DPTNet", 21, dev), waves(dev, 23, 1, 12 * TSR),
                               (0, 12, 6, 6))
-    kernels += dualpath_serve(dev, "Sandglasset B=8 x 2 s", seeded_model("Sandglasset", SANDGLASSET, TSR, 94, dev),
-                              waves(dev, 98, 8, 2 * TSR), (2, 4, 0, 6))
+    kernels += gln_entries(dev, lambda: dualpath_serve(dev, "Sandglasset B=8 x 2 s", seeded_model(
+        "Sandglasset", SANDGLASSET, TSR, 94, dev), waves(dev, 98, 8, 2 * TSR), (2, 4, 0, 6)))
     kernels += dualpath_serve(dev, "BSRNN B=1 x 6 s", seeded_model("BSRNN", BSRNN_WSJ0, TSR, 95, dev),
                               waves(dev, 99, 1, 6 * TSR), (0, 0, 8, 8))
     kernels += micro_vpu_probe()

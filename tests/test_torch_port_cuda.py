@@ -1,8 +1,8 @@
 """The CUDA kernels (the whole separator K1, the TCN chain's forward K2 and
 backward K3, attention K4, the LSTM recurrences K5 and K6, the elementwise
-probe K7, the residual add and LayerNorm K8) against their plain versions,
-on the card, and K5/K6 inside a layer trained on bf16 casts of its f32
-parameters.
+probe K7, the residual add and LayerNorm K8, gLN with the residual K9)
+against their plain versions, on the card, and K5/K6 inside a layer trained
+on bf16 casts of its f32 parameters.
 
 ``test_torch_port_cuda_paths.py`` holds the served, trained and measured
 paths at the published configurations' widths.
@@ -714,6 +714,100 @@ def test_served_sepformer_base_takes_k8_at_every_site(cuda):
         ref = m(x)
     err = [float((out[i].float() - ref[i]).norm() / ref[i].norm()) for i in range(8)]
     assert max(err) < 0.035, err
+
+
+# ---------------------------------------------------------------------------
+# gLN with the residual in one pass (K9), Sandglasset's channels-last norms
+# ---------------------------------------------------------------------------
+
+from audio_only_speech_separation_tpu_torch.ops.kernels.global_layer_norm import (  # noqa: E402
+    fused_global_layer_norm,
+    global_layer_norm_launches,
+    global_layer_norm_reference,
+)
+from audio_only_speech_separation_tpu_torch.ops.norms import global_moments  # noqa: E402
+
+
+def _gln_ulps(got, want, x, w, b, eps):
+    """|got - want| in bf16 units in the last place of m, the largest
+    magnitude the chain of roundings met: |got|, |want| and |w n| + |b| (n
+    the normalised x in f32 from the plain moments), m floored at 2^-8.  A
+    sum order that moves the statistics in their last bits moves a rounding
+    of n, w n or w n + b by one unit at that scale, and the residual's sum
+    rounds it once more."""
+    mean, var = global_moments(x)
+    n = (x.float() - mean) / torch.sqrt(var + eps)
+    m = torch.maximum(torch.maximum(got.float().abs(), want.float().abs()), (w.float() * n).abs() + b.float().abs())
+    ulp = torch.exp2(torch.floor(torch.log2(torch.clamp(m, min=2.0 ** -8))) - 7)
+    return (got.float() - want.float()).abs() / ulp
+
+
+# (x's shape, a residual added, the data): the Sandglasset cell's four gLN
+# shapes at 8 x 4.0 s (the block tensor with and without the residual,
+# enc_LN, out_norm); then one sample, a sample that leaves its last CTA a
+# part of a block (4099 x 16 / 8 = 8198 vectors: 4 blocks of 2048 and 6),
+# C = 8 and C = 1024; then samples offset by 64 (32 standard deviations,
+# where statistics without a shift lose the variance) and samples whose
+# first element, the shift, is an outlier 8 standard deviations out
+GLN_CASES = [((8, 259, 250, 128), True, "normal"), ((8, 259, 250, 128), False, "normal"),
+             ((8, 32002, 64), False, "normal"), ((16, 32002, 64), False, "normal"),
+             ((1, 37, 250, 128), True, "normal"), ((2, 4099, 16), True, "normal"), ((3, 1001, 8), True, "normal"),
+             ((2, 7, 1024), False, "normal"), ((4, 259, 250, 128), True, "offset"), ((3, 5001, 64), False, "offset"),
+             ((4, 259, 250, 128), True, "outlier"), ((3, 5001, 64), False, "outlier")]
+
+
+@pytest.mark.parametrize("shape,residual,data", GLN_CASES)
+def test_global_layer_norm_matches_plain_version(cuda, shape, residual, data):
+    """K9 against its plain version (the channels-last ``GlobalLayerNorm``
+    chain of torch's passes on the card, then the bf16 add): the tolerance
+    is one bf16 unit (``_gln_ulps``) on all but 1 in 10^3 elements, and
+    three on every element (one unit of the normalised value moves w n by
+    up to |w| units, and the sums with b and r each round once more); one
+    gLN counted a call; two runs bit-identical (the partials combined in a
+    fixed order)."""
+    rng = np.random.default_rng(sum(shape))
+    xs = 2.0 * rng.standard_normal(shape) + (64.0 if data == "offset" else 0.5)
+    if data == "outlier":
+        xs.reshape(shape[0], -1)[:, 0] = 16.5
+    x = _bf16(cuda, xs)
+    r = _bf16(cuda, rng.standard_normal(shape)) if residual else None
+    C = shape[-1]
+    w, b = _bf16(cuda, 1 + 0.2 * rng.standard_normal(C)), _bf16(cuda, 0.1 * rng.standard_normal(C))
+    before = global_layer_norm_launches.launches
+    got, again = (fused_global_layer_norm(x, w, b, 1e-5, r) for _ in range(2))
+    want = global_layer_norm_reference(x, w, b, 1e-5, r)
+    torch.cuda.synchronize()
+    assert global_layer_norm_launches.launches - before == 2
+    assert got.shape == shape and got.dtype == torch.bfloat16 and got.is_contiguous() and torch.equal(got, again)
+    ulps = _gln_ulps(got, want, x, w, b, 1e-5)
+    beyond_one, differ = float((ulps > 1).float().mean()), float((ulps > 0).float().mean())
+    print(f"K9 {shape} residual={residual} {data}: differ {differ:.3g}, beyond one unit {beyond_one:.3g}, "
+          f"max {float(ulps.max()):.3g} units")
+    assert beyond_one <= 1e-3 and float(ulps.max()) <= 3, (beyond_one, float(ulps.max()))
+
+
+def test_global_layer_norm_refuses_what_the_kernel_does_not_take(cuda):
+    """On the card K9's wrapper raises outside C % 8 == 0, C <= 1024, on
+    float32, on an input off a 16-byte boundary or not contiguous and on a
+    residual of another shape, and launches nothing."""
+    def args(C, shape=(2, 6)):
+        return _bf16(cuda, np.ones(shape + (C,))), _bf16(cuda, np.ones(C)), _bf16(cuda, np.zeros(C))
+
+    before = global_layer_norm_launches.launches
+    for C in (12, 1032):
+        with pytest.raises(ValueError, match="C % 8 == 0"):
+            fused_global_layer_norm(*args(C), 1e-5)
+    x, w, b = args(64)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fused_global_layer_norm(x.float(), w, b, 1e-5)
+    shifted = torch.zeros(1 + x.numel(), device=cuda, dtype=torch.bfloat16)[1:].view(x.shape)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fused_global_layer_norm(shifted, w, b, 1e-5)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fused_global_layer_norm(x.transpose(0, 1), w, b, 1e-5)
+    with pytest.raises(ValueError, match="residual"):
+        fused_global_layer_norm(x, w, b, 1e-5, x[:1])
+    assert global_layer_norm_launches.launches == before
 
 def test_eval_cli_on_the_card(cuda, tmp_path):
     """``audio_test.main`` with ``device="cuda"`` and ``--bf16`` on a tiny

@@ -3,10 +3,13 @@ the channels-last chunking and fold, the resampling helpers, the 4-D
 batched-axis attention (plain form, and kernel form with K4's plain
 version), an identity-pool and a pooled block, the whole model, the weight
 converter both ways, a JAX-written checkpoint served through the port, one
-train step's loss and gradients, and the kernels' launches a call.
+train step's loss and gradients, the kernels' launches a call, and the
+residual handed to the blocks' gLNs against the former sums.
 
 Tolerance: rtol = atol = 1e-5 on the ops and modules; the whole model
 within 1e-4 of its output's scale (float32, as the TasNet tests)."""
+
+import copy
 
 import jax
 import numpy as np
@@ -32,6 +35,7 @@ from audio_only_speech_separation_tpu_torch.ops.attention import (
 )
 from audio_only_speech_separation_tpu_torch.ops.conv import frame_axis1, overlap_add_axis1
 from audio_only_speech_separation_tpu_torch.ops.kernels.attention import attention_bdt_reference
+from audio_only_speech_separation_tpu_torch.ops.norms import GlobalLayerNorm
 from audio_only_speech_separation_tpu_torch.ops.resample import (
     avg_pool1d,
     interpolate_linear_align_corners,
@@ -240,3 +244,25 @@ def test_kernel_launches_a_call(monkeypatch):
         got, counts = count_kernel_launches(monkeypatch, lambda: tm(xb))
         assert counts == {"K4": 4, "K5": 0, "K6": 4}
         np.testing.assert_allclose(got[:2].numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_residual_sites_are_the_old_sums_bit_for_bit(monkeypatch, dtype):
+    """The blocks hand their residual to ``intra_norm`` / ``inter_norm``
+    (``residual=x``, where K9 adds it on the card); on the CPU the model's
+    output is bit for bit that of the former call sites ``x + norm(...)``,
+    emulated by a norm that drops the argument and adds afterwards."""
+    _, _, tm = sandglasset_pair()
+    model = copy.deepcopy(tm).to(dtype)
+    x = t(np.random.default_rng(9).standard_normal((2, 1200))).to(dtype)
+    with torch.no_grad():
+        got = model(x)
+        plain = GlobalLayerNorm.forward
+
+        def former(self, y, group=None, residual=None):
+            out = plain(self, y, group)
+            return out if residual is None else residual + out
+
+        monkeypatch.setattr(GlobalLayerNorm, "forward", former)
+        want = model(x)
+    assert got.dtype == dtype and torch.equal(got, want)

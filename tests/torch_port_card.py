@@ -45,6 +45,7 @@ TDANET_K4 = 16  # K4 a module-path TDANet call: one global attention a block
 # dh 16, 6 blocks pooling 1, 4, 16, 16, 4, 1
 SANDGLASSET = dict(n_feats=64, bn_chan=128, hid_size=128, chunk_size=250, hop_size=125, n_repeats=6, n_head=8,
                    kernel_size=2)
+SANDGLASSET_K9 = 3 + 2 * 6  # K9's gLNs a call: enc_LN, seg_norm, out_norm and 2 a block with its residual
 # DPRNNTasNet at its defaults (models/dprnn_old.py), 8 kHz as bench_all runs
 # it: 2006 frames at 2 s, 128 chunks of 32 an utterance
 DPRNN_TASNET = dict(feature_dim=128, hidden_dim=256, win=4, layer=6, segment_size=32)
