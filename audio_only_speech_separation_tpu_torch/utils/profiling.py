@@ -15,10 +15,11 @@ evaluated_mac_params.py:49).
   name (``profile_trace_ops.py`` reads it);
 - ``span(name)`` marks a stretch of the port's host work (``serve.*``,
   ``forward.*``, ``train.*``, ``kernels.*``, ``optim.*``,
-  ``sepformer.*``, ``bsrnn.*``, ``sandglasset.*``) as an event on
-  ``torch.profiler``'s timeline while a profiler records, on the clock of
-  the device operations it issues; with no profiler running it costs one
-  flag read and does nothing else.
+  ``sepformer.*``, ``bsrnn.*``, ``sandglasset.*``): always in the
+  process's span ring, which ``recent_spans()`` reads, and while a
+  profiler records also as an event on ``torch.profiler``'s timeline.
+  Both are on the profiler's clock, the one its device operations are
+  put on.
 
 The counts are not XLA's ``cost_analysis``, which the JAX package reads:
 
@@ -41,7 +42,10 @@ The counts are not XLA's ``cost_analysis``, which the JAX package reads:
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, Tuple
+import itertools
+import threading
+import time
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -49,19 +53,98 @@ from torch.autograd import profiler as _autograd_profiler
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
-_NO_SPAN = contextlib.nullcontext()
+RING_SLOTS = 65536  # spans the ring holds; the newest overwrite the oldest
 
 
-def span(name: str):
+class RingSpan(NamedTuple):
+    """One finished span of the ring.  Times are ``time.time_ns()``: the
+    wall clock, on which ``torch.profiler`` puts its host events and the
+    device operations they launch."""
+
+    slot: int  # the span's number in the process, counted from 0 as spans begin
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: Optional[int]  # the slot of the span open on the same thread when this one began
+    root: int  # the slot of the outermost span open on the thread then (its own where none was)
+    thread: int  # ``threading.get_ident()`` of the thread it ran on
+
+
+_ring: List[Optional[tuple]] = [None] * RING_SLOTS
+_slots = itertools.count()  # ``next`` on it is one C call, so two threads never draw the same slot
+# ``.stack``: [the thread's ident, then (slot, event, start) of each span open on it, outermost first]
+_open = threading.local()
+_clock = time.time_ns
+_thread = threading.get_ident
+
+
+class _Span:
+    """``span``'s context manager, one a name: what an open span holds lives
+    on its thread's stack, so one object serves every thread and nesting.
+    The ring's interval is read outside the ``record_function`` event where
+    there is one: it holds the event, and so every launch of its body."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        try:
+            stack = _open.stack
+        except AttributeError:
+            stack = _open.stack = [_thread()]
+        event = None
+        if _autograd_profiler._is_profiler_enabled:
+            event = torch.profiler.record_function(self.name)  # made before the clock is read: less lies between
+        start = _clock()
+        if event is not None:
+            event.__enter__()
+        stack.append((next(_slots), event, start))
+        return self
+
+    def __exit__(self, *exc):
+        stack = _open.stack
+        slot, event, start = stack.pop()  # spans close on their thread in the reverse order of their opening
+        if event is not None:
+            event.__exit__(*exc)
+        end = _clock()
+        i = slot % RING_SLOTS
+        held = _ring[i]
+        if held is None or held[0] < slot:  # else RING_SLOTS spans begun since hold the ring: this one is dropped
+            if len(stack) > 1:
+                _ring[i] = (slot, self.name, start, end, stack[-1][0], stack[1][0], stack[0])
+            else:
+                _ring[i] = (slot, self.name, start, end, None, slot, stack[0])
+        return False
+
+
+_spans: Dict[str, _Span] = {}
+
+
+def span(name: str) -> _Span:
     """A context manager over a stretch of the port's host work named
-    ``<layer>.<phase>``: ``torch.profiler.record_function(name)`` while a
-    ``torch.profiler`` records (``profile_trace``, the benchmark's traced
-    stretch), else one shared no-op.  Nesting on one thread gives a span
-    its parent.  Names never start with ``bench.`` or ``ProfilerStep``,
-    which the benchmark's trace reader keeps for its own spans."""
-    if _autograd_profiler._is_profiler_enabled:
-        return torch.profiler.record_function(name)
-    return _NO_SPAN
+    ``<layer>.<phase>``.  It always records the stretch into the process's
+    ring of ``RING_SLOTS`` spans (``recent_spans``), at under a
+    microsecond of host time, and while a ``torch.profiler`` records
+    (``profile_trace``, the benchmark's traced stretch) also enters
+    ``torch.profiler.record_function(name)``.  Nesting on one thread gives
+    a span its parent; each thread (autograd's too) nests its own.  Names
+    never start with ``bench.`` or ``ProfilerStep``, which the benchmark's
+    trace reader keeps for its own spans; each name keeps one object for
+    the process's life."""
+    got = _spans.get(name)
+    if got is None:  # two threads may both make one: either serves
+        got = _spans[name] = _Span(name)
+    return got
+
+
+def recent_spans() -> List[RingSpan]:
+    """A copy of the finished spans the ring holds, oldest first: the last
+    ``RING_SLOTS`` begun, less those still open."""
+    held = [s for s in list(_ring) if s is not None]  # ``list`` copies the ring in one step
+    held.sort()
+    return [RingSpan._make(s) for s in held]
 
 
 def count_params(module: nn.Module) -> int:

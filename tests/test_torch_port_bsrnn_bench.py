@@ -19,7 +19,7 @@ import copy
 import json
 import math
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 
 import numpy as np
 import pytest
@@ -118,18 +118,21 @@ def test_planted_fault_is_not_correct():
 
 
 def test_spans_off_the_profiler(monkeypatch):
-    """Off the profiler a BSRNN forward makes no span object: each
-    ``bsrnn.*`` span is the one shared no-op, and ``record_function`` is
-    never entered."""
-    assert profiling.span("bsrnn.split") is profiling.span("kernels.k5")
-
+    """Off the profiler a BSRNN forward never enters ``record_function``,
+    and the port's span ring gains its spans and nothing else: one
+    ``bsrnn.split``, per BSNet one ``bsrnn.band_rnn`` and one
+    ``bsrnn.band_comm``, one ``bsrnn.mask`` (no LSTM takes a kernel on the
+    CPU)."""
     def refuse(name, *args, **kwargs):
         raise AssertionError(f"record_function({name!r}) entered with no profiler running")
 
     monkeypatch.setattr(torch.profiler, "record_function", refuse)
     _, model, _ = _model_and_sd(0)
+    before = max((s.slot for s in profiling.recent_spans()), default=-1)
     with torch.no_grad():
         assert torch.isfinite(model(_wave(1, 4000, 0))).all()
+    gained = Counter(s.name for s in profiling.recent_spans() if s.slot > before)
+    assert gained == Counter({"bsrnn.split": 1, "bsrnn.band_rnn": 2, "bsrnn.band_comm": 2, "bsrnn.mask": 1})
 
 
 def test_spans_under_the_profiler():

@@ -27,7 +27,7 @@ import ast
 import copy
 import math
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -228,18 +228,22 @@ def test_planted_fault_and_control_are_not_correct():
 
 
 def test_spans_off_the_profiler(monkeypatch):
-    """Off the profiler a forward makes no span object: each
-    ``sandglasset.*`` span is the one shared no-op, and
-    ``record_function`` is never entered."""
-    assert profiling.span("sandglasset.local") is profiling.span("sandglasset.global")
-
+    """Off the profiler a forward never enters ``record_function``, and the
+    port's span ring gains its spans and nothing else: one
+    ``sandglasset.encode``, per block one ``sandglasset.local`` and one
+    ``sandglasset.global``, one ``sandglasset.decode`` (no attention or LSTM
+    takes a kernel on the CPU)."""
     def refuse(name, *args, **kwargs):
         raise AssertionError(f"record_function({name!r}) entered with no profiler running")
 
     monkeypatch.setattr(torch.profiler, "record_function", refuse)
     _, model, _ = _model_and_sd(0)
+    before = max((s.slot for s in profiling.recent_spans()), default=-1)
     with torch.no_grad():
         assert torch.isfinite(model(_wave(1, 800, 0))).all()
+    gained = Counter(s.name for s in profiling.recent_spans() if s.slot > before)
+    assert gained == Counter({"sandglasset.encode": 1, "sandglasset.local": 6, "sandglasset.global": 6,
+                              "sandglasset.decode": 1})
 
 
 def test_spans_under_the_profiler():

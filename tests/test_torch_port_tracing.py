@@ -1,8 +1,9 @@
 """The port's spans (``utils/profiling.py::span``) and the benchmark's
 readers of them.
 
-On the CPU: with no profiler running a span is one shared no-op and never
-enters ``record_function``; under ``torch.profiler`` a ``Server`` call, the
+On the CPU: with no profiler running a span never enters
+``record_function`` and the port's span ring gains exactly the spans run;
+under ``torch.profiler`` a ``Server`` call, the
 fused inference forward, and a bf16 train step through the TCN chain's
 kernels (their plain versions here) give each span once, nested as the
 layers call each other, with the parameters' one bf16 rounding inside
@@ -12,15 +13,18 @@ launches by phase, on a hand-built trace and on the train cell at its CPU
 widths; a small Sepformer's ``sepformer.intra`` and ``sepformer.inter``
 spans, one a stack.  On the card (marker ``cuda``): a traced run of each
 cell reads the metrics of its own, and no span is counted as device work;
-``kernels.k4`` once a transformer layer, inside its stack's span.  This
-file imports no JAX:
+``kernels.k4`` once a transformer layer, inside its stack's span; a 10 s
+traced run of each cell reads every ``.unprofiled`` metric of its own, and
+in its traced stretch each ring span holds its ``record_function`` event
+(the two clocks within 50 µs) and the launch calls the profiler puts in
+that event.  This file imports no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_tracing.py
 """
 
 import json
 import math
-from collections import defaultdict
+from collections import Counter, defaultdict
 from types import SimpleNamespace
 
 import numpy as np
@@ -113,33 +117,42 @@ def _profiled(fn, *args):
     return _spans(prof)
 
 
+def _refuse(name, *args, **kwargs):
+    raise AssertionError(f"record_function({name!r}) entered with no profiler running")
+
+
+def _ring_gain(fn, *args):
+    """(what ``fn`` returned, {name: count} of the spans the port's span ring
+    gained while it ran)."""
+    before = max((s.slot for s in profiling.recent_spans()), default=-1)
+    out = fn(*args)
+    return out, Counter(s.name for s in profiling.recent_spans() if s.slot > before)
+
+
 def test_no_profiler_no_record_function(monkeypatch, tmp_path):
-    """(a) Outside a profiler a span is the one shared no-op, and neither a
-    ``Server`` call nor a train step with the optimizer enters
-    ``record_function``."""
-    assert profiling.span("serve.call") is profiling.span("optim.step")
-
-    def refuse(name, *args, **kwargs):
-        raise AssertionError(f"record_function({name!r}) entered with no profiler running")
-
-    monkeypatch.setattr(torch.profiler, "record_function", refuse)
-    out = _server_call(_model())
+    """(a) Outside a profiler neither a ``Server`` call nor a train step
+    with the optimizer enters ``record_function``, and each adds exactly its
+    own spans to the port's span ring: the call its nine, the step its
+    eight."""
+    monkeypatch.setattr(torch.profiler, "record_function", _refuse)
+    out, gained = _ring_gain(_server_call, _model())
     assert [o.shape for o in out] == [(2, len(w)) for w in _wavs()]
-    est = _train_step(_model(), tmp_path)
+    assert gained == Counter(["serve.call", "serve.pad", "serve.h2d", "serve.forward", "forward.frame",
+                              "forward.separator", "forward.overlap_add", "serve.d2h", "serve.crop"])
+    est, gained = _ring_gain(_train_step, _model(), tmp_path)
     assert torch.isfinite(est).all()
+    assert gained == Counter(["train.forward", "train.cast", "train.pack", "kernels.k2", "kernels.k3",
+                              "optim.step", "optim.clip", "optim.update"])
 
 
 def test_sepformer_spans_off_the_profiler(monkeypatch):
-    """Off the profiler a Sepformer forward makes no span object: each
-    ``sepformer.*`` span is the one shared no-op, and ``record_function`` is
-    never entered."""
-    assert profiling.span("sepformer.intra") is profiling.span("kernels.k4")
-
-    def refuse(name, *args, **kwargs):
-        raise AssertionError(f"record_function({name!r}) entered with no profiler running")
-
-    monkeypatch.setattr(torch.profiler, "record_function", refuse)
-    assert torch.isfinite(_sepformer_call(_sepformer())).all()
+    """Off the profiler a Sepformer forward never enters ``record_function``,
+    and the port's span ring gains its two dual blocks' stack spans and
+    nothing else (no attention takes K4 on the CPU)."""
+    monkeypatch.setattr(torch.profiler, "record_function", _refuse)
+    out, gained = _ring_gain(_sepformer_call, _sepformer())
+    assert torch.isfinite(out).all()
+    assert gained == Counter({"sepformer.intra": 2, "sepformer.inter": 2})
 
 
 def test_sepformer_stack_spans():
@@ -339,3 +352,109 @@ def test_traced_cell_reads_the_span_metrics(card, name, capsys):
     assert len(reported) == (3 if name.endswith("train_b12_2s") else 2) and line["correct"] is True
     assert all(math.isfinite(line["metrics"][m]["value"]) and line["metrics"][m]["value"] > 0 for m in reported)
     assert not [n for n, _ in line["breakdown"]["device_ops"] if n.startswith(PROGRAM)]
+
+
+
+
+
+PORT = PROGRAM + ("bsrnn.", "sandglasset.")
+CELLS = [w["name"] for w in harness.load_json(harness.CHECKOUT / "BENCHMARK.json")["workloads"]]
+EDGE_NS = 50_000  # the ring's clock against the profiler's
+
+
+def _ring_against_profile(prof):
+    """The port's spans in the traced stretch, from the ring and from the
+    profiler, paired by name in order of start, and the device operations'
+    launch calls (paired with the operations by ``correlation_id``) that lie
+    inside a port span's event.
+
+    The ring reads the clock before the event begins and after it ends, so
+    each pair's event lies inside its ring interval whatever the host does
+    between the two readings, and any offset between the two clocks lies
+    between minus the least end gap and the least start gap.  Returns
+    {"pairs", "misordered": pairs whose ring interval does not hold the
+    event, "least_start_ns", "least_end_ns": the least gaps, "edges_ns":
+    [the larger of each pair's two gaps], "ops", "called": operations with
+    a launch call, "launched": those whose call lies inside a port span's
+    event, "outside": of those, calls outside the ring span of the innermost
+    such event}.  Events are matched by time alone: the profiler numbers
+    the threads of the host's operations and of the runtime's calls apart,
+    and no port span is open on one thread while another launches (the
+    caller waits in ``backward`` while autograd's thread runs
+    ``kernels.k3``)."""
+    from port_bench.span_device import is_launch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    events = list(prof.profiler.kineto_results.events())
+    lo, hi = next((e.start_ns(), e.end_ns()) for e in events if e.name() == tracing.WINDOW)
+    marks, calls, ops = defaultdict(list), {}, []
+    for e in events:
+        if e.device_type() == cuda:
+            if not e.is_user_annotation() and not e.name().startswith(("bench.", "ProfilerStep")):
+                ops.append(e.correlation_id())
+        elif e.name().startswith(PORT) and lo <= e.start_ns() and e.end_ns() <= hi:
+            marks[e.name()].append(e)
+        elif is_launch(e.name()):
+            calls[e.correlation_id()] = e
+    rings = defaultdict(list)
+    for s in profiling.recent_spans():
+        if lo <= s.start_ns and s.end_ns <= hi:
+            rings[s.name].append(s)
+    assert sorted(rings) == sorted(marks), (sorted(rings), sorted(marks))
+    pairs = []
+    for name in marks:
+        ev, rs = sorted(marks[name], key=lambda e: e.start_ns()), sorted(rings[name], key=lambda s: s.start_ns)
+        assert len(ev) == len(rs), (name, len(ev), len(rs))
+        pairs += zip(ev, rs)
+    starts = [e.start_ns() - r.start_ns for e, r in pairs]
+    ends = [r.end_ns - e.end_ns() for e, r in pairs]
+    launched = []
+    for c in ops:
+        call = calls.get(c)
+        holding = [(e, r) for e, r in pairs if call is not None
+                   and e.start_ns() <= call.start_ns() and call.end_ns() <= e.end_ns()]
+        if holding:
+            launched.append((call, max(holding, key=lambda p: p[0].start_ns())[1]))
+    return {"pairs": len(pairs), "misordered": sum(a < 0 or b < 0 for a, b in zip(starts, ends)),
+            "least_start_ns": min(starts), "least_end_ns": min(ends),
+            "edges_ns": sorted(max(abs(a), abs(b)) for a, b in zip(starts, ends)),
+            "ops": len(ops), "called": sum(c in calls for c in ops), "launched": len(launched),
+            "outside": sum(not r.start_ns <= c.start_ns() <= c.end_ns() <= r.end_ns for c, r in launched)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CELLS)
+def test_traced_cell_reads_the_ring(card, name, capsys, monkeypatch):
+    """A 10 s ``--trace 1`` run of the cell: every ``.unprofiled`` metric of
+    the cell is in its line, finite; in the traced stretch every ring span
+    holds its ``record_function`` event, which puts the two clocks within
+    50 µs of each other (in fact within the least gap between a ring edge
+    and its event's), and each device operation's launch call lies inside
+    the ring span whose event the profiler puts it in.  Prints what it
+    checked, the edges' distances (median, 99th percentile, largest, how
+    many over 50 µs: the host's work and pauses between the two readings),
+    and the ring's spans and period an untraced request or step."""
+    profiles = []
+    read = tracing.read
+    monkeypatch.setattr(tracing, "read", lambda prof: (profiles.append(prof), read(prof))[1])
+    assert bench_run.main(["--workload", name, "--seed", str(2**31 + 29), "--seconds", "10", "--trace", "1"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    new = [m["name"] for m in harness.load_cell(name).per_layer if m["name"].endswith(".unprofiled")]
+    got = {m: line["metrics"].get(m, {}).get("value") for m in new}
+    (prof,) = profiles
+    seen = _ring_against_profile(prof)
+    edges = seen.pop("edges_ns")
+    opens = next(e.start_ns() for e in prof.profiler.kineto_results.events() if e.name() == tracing.WINDOW)
+    before = [s for s in profiling.recent_spans() if s.end_ns < opens]
+    item = "serve.call" if ".serve_" in name else "train.forward"
+    starts = [s.start_ns for s in before if s.name == item][-129:]
+    per_item = sum(1 for s in before if starts[0] <= s.start_ns < starts[-1]) / (len(starts) - 1)
+    with capsys.disabled():
+        print(f"\nring against the profiler, {name}: {json.dumps(seen)}; edges median {edges[len(edges) // 2]} ns, "
+              f"99th percentile {edges[len(edges) * 99 // 100]} ns, largest {edges[-1]} ns, "
+              f"{sum(e > EDGE_NS for e in edges)} over {EDGE_NS} ns; {per_item:.1f} ring spans an untraced {item}, "
+              f"period {(starts[-1] - starts[0]) / (len(starts) - 1) / 1e6:.3f} ms; "
+              f"metrics {json.dumps(line['metrics'])}", flush=True)
+    assert line["correct"] is True and new and all(v is not None and math.isfinite(v) for v in got.values()), got
+    assert seen["misordered"] == 0 and seen["least_start_ns"] <= EDGE_NS and seen["least_end_ns"] <= EDGE_NS, seen
+    assert seen["launched"] > 0 and seen["outside"] == 0, seen
